@@ -30,7 +30,13 @@ class ErasureCode(ErasureCodeInterface):
         except (TypeError, ValueError):
             raise ValueError(f"{name}={v!r} is not an integer")
 
+    def to_string(self, name: str, profile: Mapping[str, str], default: str) -> str:
+        return str(profile.get(name, default))
+
     def parse(self, profile: ErasureCodeProfile) -> None:
+        self._to_mapping(profile)
+
+    def _to_mapping(self, profile: ErasureCodeProfile) -> None:
         # "mapping" remaps pseudo-chunks: 'D' positions host data chunks in
         # order, the rest host coding chunks
         mapping = profile.get("mapping")
@@ -55,6 +61,9 @@ class ErasureCode(ErasureCodeInterface):
     def chunk_index(self, i: int) -> int:
         return self.chunk_mapping[i] if len(self.chunk_mapping) > i else i
 
+    def get_chunk_mapping(self) -> list[int]:
+        return self.chunk_mapping
+
     # -- minimum_to_decode --------------------------------------------------
     def _minimum_to_decode(
         self, want_to_read: set[int], available_chunks: set[int],
@@ -73,6 +82,34 @@ class ErasureCode(ErasureCodeInterface):
         minimum = self._minimum_to_decode(want_to_read, available)
         sub = [(0, self.get_sub_chunk_count())]
         return {shard: list(sub) for shard in sorted(minimum)}
+
+    def minimum_to_decode_with_cost(
+        self, want_to_read: set[int], available: Mapping[int, int],
+    ) -> set[int]:
+        """Cheapest feasible read set under per-chunk retrieval costs.
+
+        Costs are grown tier by tier (cheapest first) and the first feasible
+        candidate set wins; ``_minimum_to_decode`` picks the reads within it,
+        so a subclass's selection policy (LRC's locality preference) composes
+        with the cost order.  With uniform costs this is
+        ``_minimum_to_decode`` over everything available.
+        """
+        want = set(want_to_read)
+        order = sorted(available, key=lambda s: (available[s], s))
+        cand: set[int] = set()
+        i = 0
+        while i < len(order):
+            cost = available[order[i]]
+            while i < len(order) and available[order[i]] == cost:
+                cand.add(order[i])
+                i += 1
+            if i < len(order):      # more tiers left: probe this one
+                try:
+                    return self._minimum_to_decode(want, set(cand))
+                except (IOError, OSError, ValueError):
+                    continue
+        # last tier = everything available; let its error propagate
+        return self._minimum_to_decode(want, set(available))
 
     # -- encode/decode ------------------------------------------------------
     def get_chunk_size(self, stripe_width: int) -> int:
@@ -122,9 +159,8 @@ class ErasureCode(ErasureCodeInterface):
         self.encode_chunks(encoded)
         return {i: buf for i, buf in encoded.items() if i in want_to_encode}
 
-    def decode(
+    def _decode(
         self, want_to_read: set[int], chunks: Mapping[int, np.ndarray],
-        chunk_size: int = 0,
     ) -> dict[int, np.ndarray]:
         have = set(chunks)
         if want_to_read <= have:
@@ -141,6 +177,12 @@ class ErasureCode(ErasureCodeInterface):
                 decoded[i] = np.zeros(blocksize, dtype=np.uint8)
         self.decode_chunks(want_to_read, chunks, decoded)
         return {i: decoded[i] for i in want_to_read}
+
+    def decode(
+        self, want_to_read: set[int], chunks: Mapping[int, np.ndarray],
+        chunk_size: int = 0,
+    ) -> dict[int, np.ndarray]:
+        return self._decode(want_to_read, chunks)
 
     def decode_concat(self, chunks: Mapping[int, np.ndarray]) -> bytes:
         """Reconstruct the object: data chunk i lives at shard chunk_index(i)."""

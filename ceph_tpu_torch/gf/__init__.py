@@ -12,6 +12,7 @@ from .gf8 import (  # noqa: F401
     gf_pow,
     gf_matmul,
     gf_invert_matrix,
+    gf_solve_rows,
     coeff_to_bitmatrix,
     matrix_to_bitmatrix,
 )

@@ -112,6 +112,66 @@ def gf_invert_matrix(mat: np.ndarray) -> np.ndarray:
     return aug[:, n:].copy()
 
 
+def gf_solve_rows(src_rows: np.ndarray,
+                  target_rows: np.ndarray) -> np.ndarray:
+    """Express ``target_rows`` as GF(2^8) combinations of ``src_rows``.
+
+    Solves X @ src_rows = target_rows for X (t, s) given src_rows (s, q) and
+    target_rows (t, q); src_rows need not be square or full rank, only the
+    targets must lie in their row span.  The linear codecs build every
+    repair matrix with it: an LRC local-group repair and a flat decode are
+    both "write the lost rows over the rows read".  Raises ValueError when a
+    target is outside the span.
+
+    Free variables are pinned to zero, so the same (sources, targets) always
+    give the same matrix (a stable schedule key).
+    """
+    src = np.array(src_rows, dtype=np.uint8, copy=True)
+    tgt = np.asarray(target_rows, dtype=np.uint8)
+    s, q = src.shape
+    t = tgt.shape[0]
+    assert tgt.shape[1] == q, (src.shape, tgt.shape)
+    # row-reduce [src | I_s]: record each pivot column; the identity side
+    # accumulates the combination that produced each reduced row
+    aug = np.concatenate([src, np.eye(s, dtype=np.uint8)], axis=1)
+    pivots: list[tuple[int, int]] = []      # (row, column)
+    row = 0
+    for col in range(q):
+        piv = -1
+        for r2 in range(row, s):
+            if aug[r2, col]:
+                piv = r2
+                break
+        if piv < 0:
+            continue
+        if piv != row:
+            aug[[row, piv]] = aug[[piv, row]]
+        inv = GF_INV[aug[row, col]]
+        aug[row] = GF_MUL_TABLE[inv][aug[row]]
+        for r2 in range(s):
+            if r2 != row and aug[r2, col]:
+                aug[r2] ^= GF_MUL_TABLE[aug[r2, col]][aug[row]]
+        pivots.append((row, col))
+        row += 1
+        if row == s:
+            break
+    out = np.zeros((t, s), dtype=np.uint8)
+    for i in range(t):
+        residue = np.array(tgt[i], copy=True)
+        combo = np.zeros(s, dtype=np.uint8)
+        for prow, pcol in pivots:
+            c = residue[pcol]
+            if c:
+                residue ^= GF_MUL_TABLE[c][aug[prow, :q]]
+                combo ^= GF_MUL_TABLE[c][aug[prow, q:]]
+        if residue.any():
+            raise ValueError(
+                "target row outside the span of the source rows "
+                "(erasure pattern not recoverable from these sources)")
+        out[i] = combo
+    return out
+
+
 # ---------------------------------------------------------------------------
 # GF(2) bit-matrix form: multiplication by a constant c is linear over GF(2),
 # so with a byte as its 8 coefficient bits (bit i = coefficient of x^i) there

@@ -1,9 +1,11 @@
-"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA sources with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles, at first use, into a shared library with a
-plain C interface under ``ceph_tpu_torch/build/`` (git-ignored), named by a
-hash of the source so an edited source never loads a stale library.  Nothing
-is built when a module is imported.
+A source is either ``csrc/<name>.cu`` or a generated text registered with
+``add_generated`` (kernel K3 has one per XOR-schedule digest).  Each compiles,
+at first use, into a shared library with a plain C interface under
+``ceph_tpu_torch/build/`` (git-ignored), named by a hash of the source text,
+the headers in ``csrc/`` and ``ARCH_FLAGS``, so an edited source never loads a
+stale library.  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -22,6 +27,12 @@ ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_generated: dict[str, str] = {}
+
+
+class Built(NamedTuple):
+    log: str          # nvcc's output, with ptxas's per-kernel report
+    seconds: float    # wall time of this source's nvcc
 
 
 def nvcc_path() -> str:
@@ -34,51 +45,77 @@ def nvcc_path() -> str:
     return str(nvcc)
 
 
+def add_generated(name: str, text: str) -> None:
+    """Register generated source text; ``build`` and ``library`` then take
+    ``name`` like the stem of a file in ``csrc/``."""
+    with _lock:
+        _generated[name] = text
+
+
+def _source_text(name: str) -> bytes:
+    text = _generated.get(name)
+    return text.encode() if text is not None else (CSRC / f"{name}.cu").read_bytes()
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS).encode())
+    digest = hashlib.sha256(_source_text(name))
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _nvcc_command(name: str, out: Path) -> list[str]:
-    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(CSRC / f"{name}.cu")]
+def _source_path(name: str, lib: Path) -> Path:
+    """The file nvcc compiles; a generated text is written beside its library."""
+    if name not in _generated:
+        return CSRC / f"{name}.cu"
+    path = lib.with_suffix(".cu")
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_bytes(_source_text(name))
+    os.replace(tmp, path)
+    return path
 
 
-def build(names: list[str]) -> dict[str, str]:
-    """Compile the named sources that are not built yet, all nvcc at once.
+def _compile(name: str) -> tuple[str, Built | str]:
+    """nvcc one source into its library; (name, Built) or (name, error)."""
+    out = _lib_path(name)
+    src = _source_path(name, out)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+           "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return name, f"nvcc {src.name} failed ({proc.returncode}):\n{proc.stdout}"
+    os.replace(tmp, out)
+    return name, Built(proc.stdout, seconds)
 
-    Returns {name: ptxas report} for the sources compiled by this call.
-    Raises RuntimeError with the compiler's output when one fails.
+
+def build(names: list[str]) -> dict[str, Built]:
+    """Compile the named sources that are not built yet, one nvcc each, all
+    at once.
+
+    Returns {name: Built} for the sources compiled by this call.  Raises
+    RuntimeError with the compiler's output when one fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, out, subprocess.Popen(
-            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    reports = {}
-    failed = []
-    for name, (tmp, out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = log
+    todo = [n for n in dict.fromkeys(names) if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        results = dict(pool.map(_compile, todo))
+    failed = [r for r in results.values() if isinstance(r, str)]
     if failed:
         raise RuntimeError("\n".join(failed))
-    return reports
+    return results
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of source ``name``, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -15,14 +15,18 @@ written kernels in ``csrc/gf2_matmul.cu`` compute it:
 Each has a plain PyTorch version (``gf2_matmul_plain``,
 ``gf2_matmul_grouped_plain``).  A wrapper runs the plain version only for a
 tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
-``gf_matmul_batch_device`` routes by shape alone: K2 where the packed
-kernel's tile and group rules hold, K1 otherwise.
+``gf_matmul_batch_device`` first asks the XOR-schedule cost model
+(``xor_schedule.maybe_batch_scheduled``: kernel K3 when it picks the
+scheduled engine), then routes by shape: K2 where the packed kernel's tile
+and group rules hold, K1 otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import json
+import os
 
 import numpy as np
 import torch
@@ -37,7 +41,21 @@ LANE_TILE = 8192
 MMA_COLS = 128
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
+LAUNCHES = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0, "xor_sched": 0}
+
+# the tuned table the cost model reads (``tools/ec_autotune.py --write``
+# writes it); absent by default, so the card routes dense
+_TUNED_PATH = os.path.join(os.path.dirname(__file__), "gf2_tuned.json")
+
+
+@functools.lru_cache(maxsize=1)
+def _tuned_cfgs() -> dict:
+    """The tuned table; an absent or unreadable file is an empty one."""
+    try:
+        with open(_TUNED_PATH) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
 
 
 def bucket_batch(b: int) -> int:
@@ -295,20 +313,24 @@ def gf_matmul_batch_device(matrix: np.ndarray, data, *, out_np: bool = False,
     """Batched stripes: (B, k, L) -> (B, r, L), one kernel launch.
 
     ``data`` is a numpy array or a tensor; it runs on ``device`` (default:
-    the tensor's own device, else CUDA).  K2 serves when L passes
+    the tensor's own device, else CUDA).  The scheduled engine (K3) serves
+    when the cost model picks it; otherwise K2 serves when L passes
     ``_pick_tile`` and the group contraction 8*k*g fits 128, K1 otherwise.
     The result stays a tensor on the device unless ``out_np``.
     """
+    from .xor_schedule import maybe_batch_scheduled
     matrix = _as_matrix(matrix)
     x = _to_device(data, device)
     b, k, l = x.shape
-    g = pick_group(k, b)
-    if _pick_tile(l) and 8 * k * g <= 128:
-        out = gf2_matmul_mma(matrix, x, g)
-        _first_use_check("gf2_matmul_mma", matrix, g, x, out)
-    else:
-        out = gf2_matmul_popc(matrix, x)
-        _first_use_check("gf2_matmul_popc", matrix, 1, x, out)
+    out = maybe_batch_scheduled(matrix, x)
+    if out is None:
+        g = pick_group(k, b)
+        if _pick_tile(l) and 8 * k * g <= 128:
+            out = gf2_matmul_mma(matrix, x, g)
+            _first_use_check("gf2_matmul_mma", matrix, g, x, out)
+        else:
+            out = gf2_matmul_popc(matrix, x)
+            _first_use_check("gf2_matmul_popc", matrix, 1, x, out)
     return out.cpu().numpy() if out_np else out
 
 
