@@ -27,15 +27,35 @@
 //   columns are unpacked plane-major (row s*g*k + j = bit s of chunk j) into
 //   0/1 int8 in shared memory, multiplied by the block-diagonal W_gN with
 //   wmma 16x16x16 int8 -> int32, then &1 and 8 bit rows packed per byte.
-//   Bound on the H100: the HBM bytes (0.44 ms for 1 GiB in + 0.375 GiB out).
-//   This first version is far from it: every 128-column step of a block
-//   loads its bytes, writes them as 8x as many bit-plane bytes to shared
-//   memory, and packs each 16x16 accumulator tile through shared memory,
-//   with two block barriers and no overlap of the next load with the
-//   current step's work.  W's rows and contraction are zero-padded to
-//   multiples of 16 so decode (r=2), odd k and g=1 at k=10 (contraction 80)
-//   take the same path.  Requires L % 128 == 0 and 16-byte aligned rows;
-//   the Python wrapper routes other shapes to K1.
+//   Bound on the H100: the HBM bytes (0.44 ms for 1 GiB in + 0.375 GiB out),
+//   but shared memory comes close: the wmma operands have to come from
+//   shared memory, so each input byte is written there again as 8 bit-plane
+//   bytes and read back as B fragments (32 KB of traffic per 2 KB step at
+//   RS k=8, ~16 GiB over 1 GiB of input), and each accumulator tile goes
+//   through a shared scratch to be packed, since the fragment layout is
+//   unspecified.  The first version (one n-tile per warp, W fragments
+//   reloaded every step, loads issued only after the previous step's
+//   barrier) ran at 13x the bound.  This one:
+//   - pipelines the loads: each 128-column step's g*k rows are staged by
+//     cp.async into a ring of kMmaRing shared buffers, so later steps'
+//     bytes are in flight while this step unpacks (from the staged buffer)
+//     and multiplies; a block's last steps are simply not staged;
+//   - holds W's A fragments in registers, loaded once per block, when the
+//     MT*KT fragments fit (kRegFrags); otherwise (LRC's MT=8) W stays in
+//     shared memory and each m-tile's KT fragments are loaded once per step
+//     and used for all the warp's n-tiles;
+//   - gives each warp kMmaNT n-tiles per step, so the A fragments, the
+//     barriers and the ring's waits are shared by more work, and a block
+//     walks kMmaSteps steps with two block barriers each;
+//   - packs through a padded scratch: the warp's n-tiles side by side, one
+//     byte column per lane, so each lane reads 16 consecutive-lane words
+//     (no bank conflicts) and makes the two byte rows of an m-tile; the
+//     bytes are gathered for the step in shared memory and written with
+//     coalesced 16-byte stores.
+//   W's rows and contraction are zero-padded to multiples of 16 so decode
+//   (r=2), odd k and g=1 at k=10 (contraction 80) take the same path.
+//   Requires L % 128 == 0 and 16-byte aligned rows; the Python wrapper
+//   routes other shapes to K1.
 //
 // Plain C interface for ctypes: each entry launches on the given device and
 // stream, allocates nothing, and returns cudaGetLastError() (0 = launched).
@@ -51,11 +71,32 @@ using namespace nvcuda;
 constexpr int kPopcThreads = 256;
 constexpr int kPopcCols = 4;          // adjacent byte columns per thread
 
-constexpr int kMmaThreads = 256;      // 8 warps, one 16-column n-tile each
 constexpr int kMmaCols = 128;         // byte columns per step
-constexpr int kMmaSteps = 16;         // steps per block: 2048 columns
+constexpr int kMmaNT = 2;             // 16-column n-tiles per warp and step
+constexpr int kMmaWarps = kMmaCols / 16 / kMmaNT;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRing = 3;           // staged steps (cp.async ring buffers)
+constexpr int kMmaSteps = 32;         // steps per block: 4096 columns
+constexpr int kRawLd = kMmaCols + 16; // staged row pitch: rows j, j+1 on other banks
+constexpr int kScLd = 16 * kMmaNT + 4;  // scratch row pitch in ints, padded
+constexpr int kRegFrags = 24;         // most A fragments held in registers
 constexpr int kTile = 256;            // bytes of one 16x16 int8 tile
 constexpr size_t kMaxSmem = 232448;   // H100: 227 KB a block can use
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // 4x4 byte transpose: v[j] holds chunk row j at 4 adjacent columns; col[c]
 // gets column c's bytes of the 4 rows, row j at byte j.
@@ -140,21 +181,96 @@ gf2_popc_kernel(const uint32_t* __restrict__ wpk, const uint8_t* __restrict__ da
   }
 }
 
+// Shared memory of one K2 block, in this order, every part starting on a
+// 32-byte boundary as wmma and the 16-byte copies need: W tile-major
+// (MT, KT, 16, 16); the bit planes tile-major (KT, 8, 16, 16); per warp a
+// 16 x kScLd int scratch; the ring of kMmaRing staged steps, g*k rows of
+// kRawLd bytes each; the step's output bytes, 2*MT rows of kMmaCols.
+constexpr size_t mma_smem_bytes(int KT, int MT, int gk) {
+  return static_cast<size_t>(MT * KT + KT * 8) * kTile +
+         static_cast<size_t>(kMmaWarps) * 16 * kScLd * sizeof(int) +
+         static_cast<size_t>(kMmaRing) * gk * kRawLd +
+         static_cast<size_t>(2) * MT * kMmaCols;
+}
+
 // KT = padded contraction / 16.  wt: W_gN zero-padded to (16*MT, 16*KT) and
 // laid out tile-major (MT, KT, 16, 16), so every wmma operand starts on a
-// 256-byte boundary.  Bit planes in shared memory are tile-major (KT, 8, 16, 16).
-template <int KT>
+// 256-byte boundary.  kRegW: the MT*KT A fragments live in registers
+// (MT <= kRegFrags / KT); indices into them are compile-time constants, so
+// the array stays out of local memory.
+template <int KT, bool kRegW>
 __global__ void __launch_bounds__(kMmaThreads)
 gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
                uint8_t* __restrict__ out, int k, int r, int g, int MT, long long L) {
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>;
+  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
+  constexpr int kMtReg = kRegW ? kRegFrags / KT : 1;
+  constexpr int kVecs = kMmaCols / 16;   // 16-byte pieces of a step's row
+
   extern __shared__ __align__(256) unsigned char smem[];
+  const int gk = g * k, gr = g * r;
   signed char* w_s = reinterpret_cast<signed char*>(smem);
   signed char* bits_s = w_s + MT * KT * kTile;
   int* scratch = reinterpret_cast<int*>(bits_s + KT * 8 * kTile);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(scratch + kMmaWarps * 16 * kScLd);
+  unsigned char* out_s = ring + kMmaRing * gk * kRawLd;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gk = g * k;
+  const long long b0 = static_cast<long long>(blockIdx.y) * g;
+  const uint8_t* src = data + b0 * k * L;   // g stripes = g*k consecutive rows
+  const long long col_begin = static_cast<long long>(blockIdx.x) * kMmaCols * kMmaSteps;
+  const int nsteps = static_cast<int>(
+      (min(L, col_begin + kMmaCols * kMmaSteps) - col_begin) / kMmaCols);
 
+  // step t's g*k rows -> ring slot t % kMmaRing, one commit group per call
+  // (empty past the block's last step, so the ring's waits stay uniform)
+  auto stage = [&](int t) {
+    if (t < nsteps) {
+      unsigned char* dst = ring + (t % kMmaRing) * gk * kRawLd;
+      const uint8_t* s = src + col_begin + static_cast<long long>(t) * kMmaCols;
+      for (int e = tid; e < gk * kVecs; e += kMmaThreads) {
+        const int j = e / kVecs, c = e - j * kVecs;
+        cp_async16(dst + j * kRawLd + c * 16, s + j * L + c * 16);
+      }
+    }
+    cp_async_commit();
+  };
+  // step t's gathered output bytes -> out, 16 bytes a thread
+  auto store = [&](int t) {
+    const long long c0 = col_begin + static_cast<long long>(t) * kMmaCols;
+    for (int e = tid; e < gr * kVecs; e += kMmaThreads) {
+      const int q = e / kVecs, c = e - q * kVecs;   // q = stripe * r + i
+      const int stripe = q / r, i = q - stripe * r;
+      *reinterpret_cast<uint4*>(out + ((b0 + stripe) * r + i) * L + c0 + c * 16) =
+          *reinterpret_cast<const uint4*>(out_s + q * kMmaCols + c * 16);
+    }
+  };
+  // one m-tile's accumulators, the warp's n-tiles side by side in its
+  // scratch -> &1 -> out_s: lane c packs W rows 16mt..+7 and 16mt+8..+15 of
+  // column c into output byte rows 2mt and 2mt+1
+  int* sc = scratch + warp * 16 * kScLd;
+  auto pack = [&](int mt, FragC (&acc)[kMmaNT]) {
+#pragma unroll
+    for (int nt = 0; nt < kMmaNT; ++nt)
+      wmma::store_matrix_sync(sc + nt * 16, acc[nt], kScLd, wmma::mem_row_major);
+    __syncwarp();
+    const int q = 2 * mt;
+    for (int c = lane; c < 16 * kMmaNT; c += 32) {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        lo |= static_cast<uint32_t>(sc[t * kScLd + c] & 1) << t;
+        hi |= static_cast<uint32_t>(sc[(8 + t) * kScLd + c] & 1) << t;
+      }
+      unsigned char* o = out_s + q * kMmaCols + warp * 16 * kMmaNT + c;
+      if (q < gr) o[0] = static_cast<unsigned char>(lo);
+      if (q + 1 < gr) o[kMmaCols] = static_cast<unsigned char>(hi);
+    }
+    __syncwarp();
+  };
+
+  for (int t = 0; t < kMmaRing - 1; ++t) stage(t);
   for (int i = tid; i < MT * KT * kTile / 16; i += kMmaThreads)
     reinterpret_cast<int4*>(w_s)[i] = reinterpret_cast<const int4*>(wt)[i];
   // rows past 8*g*k are contraction padding: zero once, unpack never writes them
@@ -162,17 +278,27 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
     reinterpret_cast<int4*>(bits_s)[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
-  const long long b0 = static_cast<long long>(blockIdx.y) * g;
-  const uint8_t* src = data + b0 * k * L;   // g stripes = g*k consecutive rows
-  const long long col_begin = static_cast<long long>(blockIdx.x) * kMmaCols * kMmaSteps;
-  const long long col_end = min(L, col_begin + kMmaCols * kMmaSteps);
-  int* sc = scratch + warp * kTile;
+  FragA af[kMtReg][KT];
+  if constexpr (kRegW) {
+#pragma unroll
+    for (int mt = 0; mt < kMtReg; ++mt)
+      if (mt < MT)
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+          wmma::load_matrix_sync(af[mt][kk], w_s + (mt * KT + kk) * kTile, 16);
+  }
 
-  for (long long c0 = col_begin; c0 < col_end; c0 += kMmaCols) {
+  for (int t = 0; t < nsteps; ++t) {
+    cp_async_wait<kMmaRing - 2>();
+    __syncthreads();   // step t staged; every warp is done with step t-1
+    if (t > 0) store(t - 1);
+    stage(t + kMmaRing - 1);   // into the slot step t-1 was unpacked from
+
     // unpack: item e = (n-tile nt, chunk row j) -> 16 bytes -> 8 plane rows
-    for (int e = tid; e < gk * 8; e += kMmaThreads) {
+    const unsigned char* st = ring + (t % kMmaRing) * gk * kRawLd;
+    for (int e = tid; e < gk * kVecs; e += kMmaThreads) {
       const int nt = e / gk, j = e - nt * gk;
-      const uint4 v = *reinterpret_cast<const uint4*>(src + j * L + c0 + nt * 16);
+      const uint4 v = *reinterpret_cast<const uint4*>(st + j * kRawLd + nt * 16);
 #pragma unroll
       for (int s = 0; s < 8; ++s) {
         const int R = s * gk + j;
@@ -186,36 +312,69 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
     }
     __syncthreads();
 
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> bf[KT];
+    FragB bf[kMmaNT][KT];
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-      wmma::load_matrix_sync(bf[kk], bits_s + (kk * 8 + warp) * kTile, 16);
-
-    const int h = lane >> 4, col = lane & 15;
-    for (int mt = 0; mt < MT; ++mt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-      wmma::fill_fragment(acc, 0);
+    for (int nt = 0; nt < kMmaNT; ++nt)
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> af;
-        wmma::load_matrix_sync(af, w_s + (mt * KT + kk) * kTile, 16);
-        wmma::mma_sync(acc, af, bf[kk], acc);
+      for (int kk = 0; kk < KT; ++kk)
+        wmma::load_matrix_sync(bf[nt][kk],
+                               bits_s + (kk * 8 + warp * kMmaNT + nt) * kTile, 16);
+    if constexpr (kRegW) {
+#pragma unroll
+      for (int mt = 0; mt < kMtReg; ++mt) {
+        if (mt < MT) {
+          FragC acc[kMmaNT];
+#pragma unroll
+          for (int nt = 0; nt < kMmaNT; ++nt) {
+            wmma::fill_fragment(acc[nt], 0);
+#pragma unroll
+            for (int kk = 0; kk < KT; ++kk)
+              wmma::mma_sync(acc[nt], af[mt][kk], bf[nt][kk], acc[nt]);
+          }
+          pack(mt, acc);
+        }
       }
-      wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      // lane -> byte row h of this m-tile (W rows 16mt+8h .. +7), column col
-      const int q = mt * 2 + h;   // output byte row = stripe * r + i
-      if (q < g * r) {
-        uint32_t byte = 0;
+    } else {
+      for (int mt = 0; mt < MT; ++mt) {
+        FragA a[KT];
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          byte |= static_cast<uint32_t>(sc[(8 * h + t) * 16 + col] & 1) << t;
-        const int stripe = q / r, i = q - stripe * r;
-        out[((b0 + stripe) * r + i) * L + c0 + warp * 16 + col] = static_cast<uint8_t>(byte);
+        for (int kk = 0; kk < KT; ++kk)
+          wmma::load_matrix_sync(a[kk], w_s + (mt * KT + kk) * kTile, 16);
+        FragC acc[kMmaNT];
+#pragma unroll
+        for (int nt = 0; nt < kMmaNT; ++nt) {
+          wmma::fill_fragment(acc[nt], 0);
+#pragma unroll
+          for (int kk = 0; kk < KT; ++kk)
+            wmma::mma_sync(acc[nt], a[kk], bf[nt][kk], acc[nt]);
+        }
+        pack(mt, acc);
       }
-      __syncwarp();
     }
-    __syncthreads();   // the next step overwrites bits_s
+  }
+  __syncthreads();   // out_s of the last step is complete
+  if (nsteps > 0) store(nsteps - 1);
+}
+
+using MmaKernel = void (*)(const int8_t*, const uint8_t*, uint8_t*, int, int, int,
+                           int, long long);
+
+template <int KT>
+MmaKernel mma_kernel(int MT) {
+  return MT <= kRegFrags / KT ? gf2_mma_kernel<KT, true> : gf2_mma_kernel<KT, false>;
+}
+
+// The K2 instance for a padded contraction of 16*KT and MT m-tiles.
+MmaKernel mma_kernel_for(int KT, int MT) {
+  switch (KT) {
+    case 1: return mma_kernel<1>(MT);
+    case 2: return mma_kernel<2>(MT);
+    case 3: return mma_kernel<3>(MT);
+    case 4: return mma_kernel<4>(MT);
+    case 5: return mma_kernel<5>(MT);
+    case 6: return mma_kernel<6>(MT);
+    case 7: return mma_kernel<7>(MT);
+    default: return mma_kernel<8>(MT);
   }
 }
 
@@ -245,22 +404,6 @@ cudaError_t launch_popc(const void* wpk, const void* data, void* out, int B, int
   return cudaGetLastError();
 }
 
-template <int KT>
-cudaError_t launch_mma(const void* wt, const void* data, void* out, int B, int k,
-                       int r, int g, long long L, cudaStream_t stream) {
-  const int MT = (g * r + 1) / 2;   // 16-row m-tiles of the g*8r W rows
-  const size_t smem = static_cast<size_t>(MT * KT + KT * 8 + 8 * 4) * kTile;
-  cudaError_t err = prepare_smem(gf2_mma_kernel<KT>, smem);
-  if (err != cudaSuccess) return err;
-  const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
-  const dim3 grid(static_cast<unsigned>((L + per_block - 1) / per_block),
-                  static_cast<unsigned>(B / g));
-  gf2_mma_kernel<KT><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const int8_t*>(wt), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), k, r, g, MT, L);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -286,26 +429,51 @@ int gf2_matmul_popc(const void* wpk, const void* data, void* out, int B, int k,
 }
 
 // wt: W_gN padded and tile-major, (ceil(g*r/2), ceil(g*k/2), 16, 16) int8;
-// data (B,k,L) uint8 with L % 128 == 0 and 16-byte aligned; out (B,r,L).
+// data (B,k,L) uint8 with L % 128 == 0; out (B,r,L); data and out 16-byte
+// aligned.
 int gf2_matmul_mma(const void* wt, const void* data, void* out, int B, int k,
                    int r, int g, long long L, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   if (g < 1 || B < g || B % g || B / g > 65535 || k < 1 || 8 * g * k > 128 ||
-      r < 1 || L < 1 || L % kMmaCols ||
-      reinterpret_cast<uintptr_t>(data) % 16)
+      r < 1 || L < 1 || L % kMmaCols || reinterpret_cast<uintptr_t>(data) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((g * k + 1) / 2) {
-    case 1: return static_cast<int>(launch_mma<1>(wt, data, out, B, k, r, g, L, s));
-    case 2: return static_cast<int>(launch_mma<2>(wt, data, out, B, k, r, g, L, s));
-    case 3: return static_cast<int>(launch_mma<3>(wt, data, out, B, k, r, g, L, s));
-    case 4: return static_cast<int>(launch_mma<4>(wt, data, out, B, k, r, g, L, s));
-    case 5: return static_cast<int>(launch_mma<5>(wt, data, out, B, k, r, g, L, s));
-    case 6: return static_cast<int>(launch_mma<6>(wt, data, out, B, k, r, g, L, s));
-    case 7: return static_cast<int>(launch_mma<7>(wt, data, out, B, k, r, g, L, s));
-    default: return static_cast<int>(launch_mma<8>(wt, data, out, B, k, r, g, L, s));
-  }
+  const int KT = (g * k + 1) / 2, MT = (g * r + 1) / 2;
+  const MmaKernel kernel = mma_kernel_for(KT, MT);
+  const size_t smem = mma_smem_bytes(KT, MT, g * k);
+  const cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
+  const dim3 grid(static_cast<unsigned>((L + per_block - 1) / per_block),
+                  static_cast<unsigned>(B / g));
+  kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(wt), static_cast<const uint8_t*>(data),
+      static_cast<uint8_t*>(out), k, r, g, MT, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K2 instance gf2_matmul_mma launches for (k, r, g): info[0] registers
+// per thread, info[1] shared memory per block (dynamic + static), info[2]
+// resident blocks per SM, info[3] local memory per thread in bytes.
+int gf2_mma_config(int k, int r, int g, int device, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (g < 1 || k < 1 || 8 * g * k > 128 || r < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int KT = (g * k + 1) / 2, MT = (g * r + 1) / 2;
+  const MmaKernel kernel = mma_kernel_for(KT, MT);
+  const size_t smem = mma_smem_bytes(KT, MT, g * k);
+  cudaFuncAttributes attr;
+  if ((err = prepare_smem(kernel, smem)) != cudaSuccess ||
+      (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel,
+                                                           kMmaThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(smem + attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 }  // extern "C"

@@ -181,6 +181,8 @@ def _lib() -> ctypes.CDLL:
     lib.gf2_matmul_popc.restype = _I
     lib.gf2_matmul_mma.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _VP]
     lib.gf2_matmul_mma.restype = _I
+    lib.gf2_mma_config.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.gf2_mma_config.restype = _I
     return lib
 
 
@@ -271,6 +273,21 @@ def gf2_matmul_mma(matrix: np.ndarray, data: torch.Tensor,
     _launch("gf2_matmul_mma", w.data_ptr(), data.data_ptr(), out.data_ptr(),
             b, k, r, g, l, data.device.index, _stream(data.device))
     return out
+
+
+def mma_config(k: int, r: int, g: int, device=None) -> dict:
+    """The K2 instance ``gf2_matmul_mma`` launches for (k, r, g), as the CUDA
+    runtime reports it: registers and local (spill) bytes per thread, shared
+    memory per block and resident blocks per SM."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("mma_config describes a kernel on a CUDA device")
+    info = (_I * 4)()
+    err = _lib().gf2_mma_config(k, r, g, dev.index, info)
+    if err:
+        raise RuntimeError(f"gf2_mma_config failed with CUDA error {err}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), info))
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
  9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
     for K1/K2, phases 6-7 for K3), its time at its headline shape, its
     bound, its plain version's time and its largest difference from the
-    plain version;
+    plain version; K2 also its times on the other paths it serves (phases
+    4-6) and its registers, shared memory, blocks per SM and spill bytes as
+    the CUDA runtime reports them;
 10. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
@@ -202,6 +204,7 @@ def phase_build() -> dict:
 
 def phase_kernels(dev: torch.device) -> dict:
     """Small seeded shapes: kernel == plain == host oracle, byte for byte."""
+    from ceph_tpu_torch.ec.plugins.lrc import ErasureCodeLrc
     from ceph_tpu_torch.gf import (gen_rs_matrix, gen_cauchy1_matrix,
                                    build_decode_matrix)
     from ceph_tpu_torch.ops import gf2kernels as gk
@@ -221,6 +224,19 @@ def phase_kernels(dev: torch.device) -> dict:
     cases.append(("cauchy10/4 decode[2,11]",
                   build_decode_matrix(cauchy, 10, [2, 11])[0], 2, 256))
     cases.append(("rs5/3 g=1 k=5", gen_rs_matrix(8, 5)[5:], 2, 128))
+    # K2's pipeline: one 128-column step; whole blocks plus a ragged tail
+    # (4480 = 4096 + 384 leaves a partial block for any power-of-two span
+    # from 512 to 4096 columns and is shorter than longer ones), at g=2 and
+    # at g=1 (B=3); W held in shared memory (LRC parity, MT=8) and in
+    # registers at KT=3, MT=1 (LRC local repair)
+    lrc = ErasureCodeLrc()
+    lrc.init(dict(LRC[2]))
+    cases.append(("rs8/3 one step", gen83[8:], 2, 128))
+    cases.append(("rs8/3 blocks + ragged tail", gen83[8:], 4, 4480))
+    cases.append(("rs8/3 g=1 blocks + ragged tail", gen83[8:], 3, 4480))
+    cases.append(("lrc8/4/3 parity r=8", lrc.parity_matrix, 2, 640))
+    cases.append(("lrc8/4/3 local repair k=3 r=1",
+                  lrc.repair_matrix((1, 2, 3), (0,)), 4, 384))
 
     err = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
     checked = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
@@ -361,10 +377,11 @@ def phase_main_path(dev: torch.device) -> tuple[dict, dict]:
         f"per-op 1 MiB encode {op_enc_ms:.3f} ms, decode {op_dec_ms:.3f} ms "
         f"(host clock); recovered == lost, 8 stripes == host, per-op 1 MiB "
         f"== isa; launches {launches}")
-    return launches, {"data": data, "matrix": codec.encode_matrix[k:]}
+    return launches, {"data": data, "matrix": codec.encode_matrix[k:],
+                      "decode_ms": dec_ms}
 
 
-def phase_cauchy(dev: torch.device) -> None:
+def phase_cauchy(dev: torch.device) -> float:
     from ceph_tpu_torch.ec import registry
 
     b, k, m, l = CAUCHY
@@ -392,6 +409,7 @@ def phase_cauchy(dev: torch.device) -> None:
     log(f"cauchy10/4 ({b}, {k}, {l}): decode[2,11] "
         f"{b * k * l / GiB / dec_ms * 1e3:.2f} GiB/s ({dec_ms:.3f} ms), "
         f"recovered == lost, 4 stripes == host")
+    return dec_ms
 
 
 def gibps(nbytes: int, ms: float) -> float:
@@ -482,7 +500,8 @@ def phase_linear(dev: torch.device, plugin: str, spec: tuple, lost: tuple,
         f"ms) [GiB/s of input read]; scheduled == dense, recovered == lost, "
         f"8 stripes == host, 4 stripes == plain; launches {launches}")
     return {"launches": launches, "data": data, "sched": sched,
-            "matrix": codec.parity_matrix}
+            "matrix": codec.parity_matrix, "dense_name": dense_name,
+            "dense_ms": times["0"]}
 
 
 def phase_autotune() -> None:
@@ -541,8 +560,10 @@ def plain_in_slices(plain, data: torch.Tensor, out: torch.Tensor,
 
 
 def phase_kernel_line(main: dict, launches: dict, small_err: dict,
-                      lrc: dict, pmsr: dict, k3_small_err: int) -> dict:
-    """Each kernel at its headline shape: time, bound, plain time, error."""
+                      lrc: dict, pmsr: dict, k3_small_err: int,
+                      cauchy_ms: float) -> dict:
+    """Each kernel at its headline shape: time, bound, plain time, error;
+    K2 also with its other paths' times and its launch configuration."""
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_schedule as xs
 
@@ -587,6 +608,17 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         if err:
             raise RuntimeError(f"{name} differs from its plain version at "
                                f"the headline shape: max {err}")
+    k2 = rows[1]
+    k2["ms_by_path"] = {
+        "rs8/3 decode[1,9] (1024,8,131072)->2": round(main["decode_ms"], 4),
+        "cauchy10/4 decode[2,11] (128,10,131072)->2": round(cauchy_ms, 4),
+    }
+    if lrc["dense_name"] == "K2":
+        k2["ms_by_path"]["lrc8/4/3 dense encode (1024,8,131072)->8"] = round(
+            lrc["dense_ms"][0], 4)
+        k2["ms_by_path"]["lrc8/4/3 dense local repair (1024,3,131072)->1"] = \
+            round(lrc["dense_ms"][1], 4)
+    k2.update(gk.mma_config(k, r, g, dev))
 
     # K3 at LRC k=8,m=4,l=3 encode: n_terms XORs per 32 byte columns
     data, sched = lrc["data"], lrc["sched"]
@@ -637,12 +669,12 @@ def main() -> int:
     k3_small_err = phase_k3_small(dev, built)
     with xor_sched_env(None):          # the RS main path keeps its routing
         launches, main_inputs = phase_main_path(dev)
-        phase_cauchy(dev)
+        cauchy_ms = phase_cauchy(dev)
     lrc = phase_linear(dev, "lrc", LRC, (0,), SEED + 5)
     pmsr = phase_linear(dev, "pmsr", PMSR, PMSR_LOST, SEED + 7)
     phase_autotune()
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
-                             k3_small_err)
+                             k3_small_err, cauchy_ms)
     log(json.dumps(line))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")
