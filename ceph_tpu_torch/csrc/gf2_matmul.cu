@@ -203,7 +203,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
                uint8_t* __restrict__ out, int k, int r, int g, int MT, long long L) {
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
   constexpr int kMtReg = kRegW ? kRegFrags / KT : 1;
   constexpr int kVecs = kMmaCols / 16;   // 16-byte pieces of a step's row
@@ -294,20 +294,43 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
     if (t > 0) store(t - 1);
     stage(t + kMmaRing - 1);   // into the slot step t-1 was unpacked from
 
-    // unpack: item e = (n-tile nt, chunk row j) -> 16 bytes -> 8 plane rows
+    // unpack, one byte column n per thread: its g*k bytes, row j at byte
+    // j % 4 of w[j / 4]; bit s of row j is plane row R = s*g*k + j, stored
+    // k-contiguous (column-major tiles, the int8 mma's B layout)
     const unsigned char* st = ring + (t % kMmaRing) * gk * kRawLd;
-    for (int e = tid; e < gk * kVecs; e += kMmaThreads) {
-      const int nt = e / gk, j = e - nt * gk;
-      const uint4 v = *reinterpret_cast<const uint4*>(st + j * kRawLd + nt * 16);
+    for (int n = tid; n < kMmaCols; n += kMmaThreads) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const int R = s * gk + j;
-        uint4 p;
-        p.x = (v.x >> s) & 0x01010101u;
-        p.y = (v.y >> s) & 0x01010101u;
-        p.z = (v.z >> s) & 0x01010101u;
-        p.w = (v.w >> s) & 0x01010101u;
-        *reinterpret_cast<uint4*>(bits_s + ((R >> 4) * 8 + nt) * kTile + (R & 15) * 16) = p;
+      for (int j = 0; j < 16; ++j)
+        if (j < gk) w[j >> 2] |= static_cast<uint32_t>(st[j * kRawLd + n]) << (8 * (j & 3));
+      signed char* col = bits_s + (n >> 4) * kTile + (n & 15) * 16;   // plane tile 0
+      if (gk == 16) {          // plane s is tile s, rows 0..15
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          *reinterpret_cast<uint4*>(col + s * 8 * kTile) =
+              make_uint4((w[0] >> s) & 0x01010101u, (w[1] >> s) & 0x01010101u,
+                         (w[2] >> s) & 0x01010101u, (w[3] >> s) & 0x01010101u);
+      } else if (gk == 8) {    // plane s is half s % 2 of tile s / 2
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          *reinterpret_cast<uint2*>(col + (s >> 1) * 8 * kTile + (s & 1) * 8) =
+              make_uint2((w[0] >> s) & 0x01010101u, (w[1] >> s) & 0x01010101u);
+      } else {                 // plane rows straddle tiles: 2- or 1-byte stores
+        const uint64_t lo = w[0] | static_cast<uint64_t>(w[1]) << 32;
+        const uint64_t hi = w[2] | static_cast<uint64_t>(w[3]) << 32;
+        const int step = 2 - (gk & 1);
+        for (int j = 0; j < gk; j += step) {
+          const uint32_t v = static_cast<uint32_t>(j < 8 ? lo >> (8 * j) : hi >> (8 * (j - 8)));
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const int R = s * gk + j;
+            signed char* dst = col + (R >> 4) * 8 * kTile + (R & 15);
+            if (step == 2)     // R even: both rows in one tile
+              *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>((v >> s) & 0x0101u);
+            else
+              *dst = static_cast<signed char>((v >> s) & 1u);
+          }
+        }
       }
     }
     __syncthreads();
