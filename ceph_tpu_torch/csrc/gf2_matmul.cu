@@ -62,24 +62,19 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kPopcThreads = 256;
 constexpr int kPopcCols = 4;          // adjacent byte columns per thread
 
-constexpr int kMmaCols = 128;         // byte columns per step
-constexpr int kMmaNT = 2;             // 16-column n-tiles per warp and step
-constexpr int kMmaWarps = kMmaCols / 16 / kMmaNT;
+constexpr int kMmaCols = 128;         // byte columns per step, 32 per warp
+constexpr int kMmaWarps = kMmaCols / 32;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRing = 3;           // staged steps (cp.async ring buffers)
 constexpr int kMmaSteps = 32;         // steps per block: 4096 columns
-constexpr int kRawLd = kMmaCols + 16; // staged row pitch: rows j, j+1 on other banks
-constexpr int kScLd = 16 * kMmaNT + 4;  // scratch row pitch in ints, padded
-constexpr int kRegFrags = 24;         // most A fragments held in registers
+constexpr int kRawLd = kMmaCols + 16; // staged and output row pitch
+constexpr int kRegFrags = 16;         // most W fragments (uint2) in registers
 constexpr int kTile = 256;            // bytes of one 16x16 int8 tile
 constexpr size_t kMaxSmem = 232448;   // H100: 227 KB a block can use
 
@@ -181,42 +176,56 @@ gf2_popc_kernel(const uint32_t* __restrict__ wpk, const uint8_t* __restrict__ da
   }
 }
 
-// Shared memory of one K2 block, in this order, every part starting on a
-// 32-byte boundary as wmma and the 16-byte copies need: W tile-major
-// (MT, KT, 16, 16); the bit planes tile-major (KT, 8, 16, 16); per warp a
-// 16 x kScLd int scratch; the ring of kMmaRing staged steps, g*k rows of
-// kRawLd bytes each; the step's output bytes, 2*MT rows of kMmaCols.
-constexpr size_t mma_smem_bytes(int KT, int MT, int gk) {
-  return static_cast<size_t>(MT * KT + KT * 8) * kTile +
-         static_cast<size_t>(kMmaWarps) * 16 * kScLd * sizeof(int) +
-         static_cast<size_t>(kMmaRing) * gk * kRawLd +
-         static_cast<size_t>(2) * MT * kMmaCols;
+// Shared memory of one K2 block, in this order (every part 16-byte aligned):
+// W's B fragments in mma order when they are not held in registers, r*KS*32
+// lanes x 8 bytes; the ring of kMmaRing staged steps, g*k rows of kRawLd
+// bytes; two output buffers of g*r rows of kRawLd bytes, one filled while
+// the other is stored.
+constexpr size_t mma_smem_bytes(bool reg_w, int KS, int r, int g, int k) {
+  return (reg_w ? 0 : static_cast<size_t>(r) * KS * 32 * 8) +
+         static_cast<size_t>(kMmaRing) * g * k * kRawLd +
+         static_cast<size_t>(2) * g * r * kRawLd;
 }
 
-// KT = padded contraction / 16.  wt: W_gN zero-padded to (16*MT, 16*KT) and
-// laid out tile-major (MT, KT, 16, 16), so every wmma operand starts on a
-// 256-byte boundary.  kRegW: the MT*KT A fragments live in registers
-// (MT <= kRegFrags / KT); indices into them are compile-time constants, so
-// the array stays out of local memory.
-template <int KT, bool kRegW>
+// d += a (16x32 s8, row-major) x b (32x8 s8, column-major), in the PTX
+// fragment layouts for lane = 4*grp + tig: a.x / a.y hold rows grp / grp+8 at
+// k = 4tig..4tig+3 (byte = k % 4), a.z / a.w the same at k + 16; b.x holds
+// column grp at k = 4tig..4tig+3, b.y at k + 16; d[0], d[1] are row grp at
+// columns 2tig, 2tig+1, d[2], d[3] row grp+8.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a, const uint2& b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+}
+
+// GP = k rounded up to 4, 8 or 16.  Each stripe is its own product,
+// bits(byte columns x 8*GP) x W^T(8*GP x 8r): byte columns are the mma's
+// rows (A), W's rows the columns (B), so an 8-column n-tile is one output
+// byte row and no tile is spent on the other stripes' zero blocks of W_gN.
+// The contraction runs in the kernel's own order, index s*GP + j = bit s of
+// chunk j (chunks j >= k are zero), in KS = GP/4 k-steps of 32: a lane's A
+// register is then one of its column words shifted by a lane-constant
+// amount and masked.  W's columns are permuted to match once per block, from
+// W_gN's first diagonal block (its g blocks are equal).  kRegW: the r*KS B
+// fragments (2 registers each) live in registers, at constant indices.
+// wt: W_gN zero-padded to (16*MT, 16*KT), tile-major (MT, KT, 16, 16).
+template <int GP, bool kRegW>
 __global__ void __launch_bounds__(kMmaThreads)
 gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
-               uint8_t* __restrict__ out, int k, int r, int g, int MT, long long L) {
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-  constexpr int kMtReg = kRegW ? kRegFrags / KT : 1;
+               uint8_t* __restrict__ out, int k, int r, int g, long long L) {
+  constexpr int KS = GP / 4;
+  constexpr int kNReg = kRegW ? kRegFrags / KS : 1;
   constexpr int kVecs = kMmaCols / 16;   // 16-byte pieces of a step's row
 
-  extern __shared__ __align__(256) unsigned char smem[];
-  const int gk = g * k, gr = g * r;
-  signed char* w_s = reinterpret_cast<signed char*>(smem);
-  signed char* bits_s = w_s + MT * KT * kTile;
-  int* scratch = reinterpret_cast<int*>(bits_s + KT * 8 * kTile);
-  unsigned char* ring = reinterpret_cast<unsigned char*>(scratch + kMmaWarps * 16 * kScLd);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int gk = g * k, gr = g * r, KT = (gk + 1) / 2;
+  uint2* bfrag = reinterpret_cast<uint2*>(smem);
+  unsigned char* ring = smem + (kRegW ? 0 : static_cast<size_t>(r) * KS * 32 * 8);
   unsigned char* out_s = ring + kMmaRing * gk * kRawLd;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
   const long long b0 = static_cast<long long>(blockIdx.y) * g;
   const uint8_t* src = data + b0 * k * L;   // g stripes = g*k consecutive rows
   const long long col_begin = static_cast<long long>(blockIdx.x) * kMmaCols * kMmaSteps;
@@ -236,169 +245,143 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
     }
     cp_async_commit();
   };
-  // step t's gathered output bytes -> out, 16 bytes a thread
+  // step t's output bytes (buffer t % 2) -> out, 16 bytes a thread
   auto store = [&](int t) {
+    const unsigned char* ob = out_s + (t & 1) * gr * kRawLd;
     const long long c0 = col_begin + static_cast<long long>(t) * kMmaCols;
     for (int e = tid; e < gr * kVecs; e += kMmaThreads) {
       const int q = e / kVecs, c = e - q * kVecs;   // q = stripe * r + i
-      const int stripe = q / r, i = q - stripe * r;
-      *reinterpret_cast<uint4*>(out + ((b0 + stripe) * r + i) * L + c0 + c * 16) =
-          *reinterpret_cast<const uint4*>(out_s + q * kMmaCols + c * 16);
+      *reinterpret_cast<uint4*>(out + (b0 * r + q) * L + c0 + c * 16) =
+          *reinterpret_cast<const uint4*>(ob + q * kRawLd + c * 16);
     }
   };
-  // one m-tile's accumulators, the warp's n-tiles side by side in its
-  // scratch -> &1 -> out_s: lane c packs W rows 16mt..+7 and 16mt+8..+15 of
-  // column c into output byte rows 2mt and 2mt+1
-  int* sc = scratch + warp * 16 * kScLd;
-  auto pack = [&](int mt, FragC (&acc)[kMmaNT]) {
+  // W's B fragment for output byte row n and k-step kk, as lane ln holds it
+  auto w_frag = [&](int n, int kk, int ln) {
+    const int row = 8 * n + (ln >> 2);
+    uint32_t v[2];
 #pragma unroll
-    for (int nt = 0; nt < kMmaNT; ++nt)
-      wmma::store_matrix_sync(sc + nt * 16, acc[nt], kScLd, wmma::mem_row_major);
-    __syncwarp();
-    const int q = 2 * mt;
-    for (int c = lane; c < 16 * kMmaNT; c += 32) {
-      uint32_t lo = 0, hi = 0;
+    for (int h = 0; h < 2; ++h) {
+      uint32_t word = 0;
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        lo |= static_cast<uint32_t>(sc[t * kScLd + c] & 1) << t;
-        hi |= static_cast<uint32_t>(sc[(8 + t) * kScLd + c] & 1) << t;
+      for (int jj = 0; jj < 4; ++jj) {
+        const int K = 32 * kk + 16 * h + 4 * (ln & 3) + jj;
+        const int s = K / GP, j = K - s * GP;
+        if (j < k) {
+          const int c = s * gk + j;   // W_gN's column: plane-major
+          word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      wt[((row >> 4) * KT + (c >> 4)) * kTile + (row & 15) * 16 +
+                         (c & 15)]))
+                  << (8 * jj);
+        }
       }
-      unsigned char* o = out_s + q * kMmaCols + warp * 16 * kMmaNT + c;
-      if (q < gr) o[0] = static_cast<unsigned char>(lo);
-      if (q + 1 < gr) o[kMmaCols] = static_cast<unsigned char>(hi);
+      v[h] = word;
     }
-    __syncwarp();
+    return make_uint2(v[0], v[1]);
   };
 
   for (int t = 0; t < kMmaRing - 1; ++t) stage(t);
-  for (int i = tid; i < MT * KT * kTile / 16; i += kMmaThreads)
-    reinterpret_cast<int4*>(w_s)[i] = reinterpret_cast<const int4*>(wt)[i];
-  // rows past 8*g*k are contraction padding: zero once, unpack never writes them
-  for (int i = tid; i < KT * 8 * kTile / 16; i += kMmaThreads)
-    reinterpret_cast<int4*>(bits_s)[i] = make_int4(0, 0, 0, 0);
-  __syncthreads();
-
-  FragA af[kMtReg][KT];
+  uint2 bf[kNReg][KS];
   if constexpr (kRegW) {
 #pragma unroll
-    for (int mt = 0; mt < kMtReg; ++mt)
-      if (mt < MT)
+    for (int n = 0; n < kNReg; ++n)
+      if (n < r)
 #pragma unroll
-        for (int kk = 0; kk < KT; ++kk)
-          wmma::load_matrix_sync(af[mt][kk], w_s + (mt * KT + kk) * kTile, 16);
+        for (int kk = 0; kk < KS; ++kk) bf[n][kk] = w_frag(n, kk, lane);
+  } else {
+    for (int e = tid; e < r * KS * 32; e += kMmaThreads) {
+      const int nk = e >> 5, n = nk / KS;
+      bfrag[e] = w_frag(n, nk - n * KS, e & 31);
+    }
   }
+  // the lane's chunk rows 4q..4q+3 and its plane offset: a.x of k-step kk
+  // is bit 32kk/GP + s_lane of those rows, a.z bit 16/GP further
+  const int q = tig % (GP / 4), s_lane = tig / (GP / 4);
 
   for (int t = 0; t < nsteps; ++t) {
     cp_async_wait<kMmaRing - 2>();
-    __syncthreads();   // step t staged; every warp is done with step t-1
+    __syncthreads();   // step t staged (and W's fragments); step t-1 done
     if (t > 0) store(t - 1);
-    stage(t + kMmaRing - 1);   // into the slot step t-1 was unpacked from
+    stage(t + kMmaRing - 1);   // into the slot step t-1 was read from
 
-    // unpack, one byte column n per thread: its g*k bytes, row j at byte
-    // j % 4 of w[j / 4]; bit s of row j is plane row R = s*g*k + j, stored
-    // k-contiguous (column-major tiles, the int8 mma's B layout)
-    const unsigned char* st = ring + (t % kMmaRing) * gk * kRawLd;
-    for (int n = tid; n < kMmaCols; n += kMmaThreads) {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
+    const unsigned char* st = ring + (t % kMmaRing) * gk * kRawLd + warp * 32 + 4 * grp;
+    unsigned char* ob = out_s + (t & 1) * gr * kRawLd + warp * 32 + 4 * grp;
+    for (int stripe = 0; stripe < g; ++stripe) {
+      // the warp's 32 columns: chunk rows 4q..4q+3 at columns 4grp..4grp+3,
+      // transposed so cw[i] is column 4grp+i (row 4q+jj at byte jj); that
+      // column is row grp + 8(i%2) of m-tile i/2
+      const unsigned char* sr = st + stripe * k * kRawLd;
+      uint32_t v[4], cw[4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (j < gk) w[j >> 2] |= static_cast<uint32_t>(st[j * kRawLd + n]) << (8 * (j & 3));
-      signed char* col = bits_s + (n >> 4) * kTile + (n & 15) * 16;   // plane tile 0
-      if (gk == 16) {          // plane s is tile s, rows 0..15
+      for (int jj = 0; jj < 4; ++jj)
+        v[jj] = 4 * q + jj < k
+                    ? *reinterpret_cast<const uint32_t*>(sr + (4 * q + jj) * kRawLd)
+                    : 0u;
+      transpose4(v, cw);
+      uint4 a[2][KS];
 #pragma unroll
-        for (int s = 0; s < 8; ++s)
-          *reinterpret_cast<uint4*>(col + s * 8 * kTile) =
-              make_uint4((w[0] >> s) & 0x01010101u, (w[1] >> s) & 0x01010101u,
-                         (w[2] >> s) & 0x01010101u, (w[3] >> s) & 0x01010101u);
-      } else if (gk == 8) {    // plane s is half s % 2 of tile s / 2
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int s = 0; s < 8; ++s)
-          *reinterpret_cast<uint2*>(col + (s >> 1) * 8 * kTile + (s & 1) * 8) =
-              make_uint2((w[0] >> s) & 0x01010101u, (w[1] >> s) & 0x01010101u);
-      } else {                 // plane rows straddle tiles: 2- or 1-byte stores
-        const uint64_t lo = w[0] | static_cast<uint64_t>(w[1]) << 32;
-        const uint64_t hi = w[2] | static_cast<uint64_t>(w[3]) << 32;
-        const int step = 2 - (gk & 1);
-        for (int j = 0; j < gk; j += step) {
-          const uint32_t v = static_cast<uint32_t>(j < 8 ? lo >> (8 * j) : hi >> (8 * (j - 8)));
-#pragma unroll
-          for (int s = 0; s < 8; ++s) {
-            const int R = s * gk + j;
-            signed char* dst = col + (R >> 4) * 8 * kTile + (R & 15);
-            if (step == 2)     // R even: both rows in one tile
-              *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>((v >> s) & 0x0101u);
-            else
-              *dst = static_cast<signed char>((v >> s) & 1u);
-          }
+        for (int kk = 0; kk < KS; ++kk) {
+          const int s0 = 32 * kk / GP + s_lane, s1 = s0 + 16 / GP;
+          a[m][kk] = make_uint4((cw[2 * m] >> s0) & 0x01010101u,
+                                (cw[2 * m + 1] >> s0) & 0x01010101u,
+                                (cw[2 * m] >> s1) & 0x01010101u,
+                                (cw[2 * m + 1] >> s1) & 0x01010101u);
         }
-      }
-    }
-    __syncthreads();
-
-    FragB bf[kMmaNT][KT];
+      // output byte row n: 2 m-tiles x KS mma; lane tig holds bits 2tig,
+      // 2tig+1 of the bytes at columns 4grp+i, i = 2m + (row grp / grp+8);
+      // an OR over the quad gives all four bytes, one word
+      auto row_out = [&](int n, const uint2 (&b)[KS]) {
+        uint32_t word = 0;
 #pragma unroll
-    for (int nt = 0; nt < kMmaNT; ++nt)
+        for (int m = 0; m < 2; ++m) {
+          int acc[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk)
-        wmma::load_matrix_sync(bf[nt][kk],
-                               bits_s + (kk * 8 + warp * kMmaNT + nt) * kTile, 16);
-    if constexpr (kRegW) {
-#pragma unroll
-      for (int mt = 0; mt < kMtReg; ++mt) {
-        if (mt < MT) {
-          FragC acc[kMmaNT];
-#pragma unroll
-          for (int nt = 0; nt < kMmaNT; ++nt) {
-            wmma::fill_fragment(acc[nt], 0);
-#pragma unroll
-            for (int kk = 0; kk < KT; ++kk)
-              wmma::mma_sync(acc[nt], af[mt][kk], bf[nt][kk], acc[nt]);
-          }
-          pack(mt, acc);
+          for (int kk = 0; kk < KS; ++kk) mma_s8(acc, a[m][kk], b[kk]);
+          const uint32_t lo = (acc[0] & 1) | (acc[1] & 1) << 1;   // row grp
+          const uint32_t hi = (acc[2] & 1) | (acc[3] & 1) << 1;   // row grp+8
+          word |= lo << (16 * m + 2 * tig) | hi << (16 * m + 8 + 2 * tig);
         }
-      }
-    } else {
-      for (int mt = 0; mt < MT; ++mt) {
-        FragA a[KT];
+        word |= __shfl_xor_sync(0xffffffffu, word, 1);
+        word |= __shfl_xor_sync(0xffffffffu, word, 2);
+        if (tig == (n & 3))
+          *reinterpret_cast<uint32_t*>(ob + (stripe * r + n) * kRawLd) = word;
+      };
+      if constexpr (kRegW) {
 #pragma unroll
-        for (int kk = 0; kk < KT; ++kk)
-          wmma::load_matrix_sync(a[kk], w_s + (mt * KT + kk) * kTile, 16);
-        FragC acc[kMmaNT];
+        for (int n = 0; n < kNReg; ++n)
+          if (n < r) row_out(n, bf[n]);
+      } else {
+        for (int n = 0; n < r; ++n) {
+          uint2 b[KS];
 #pragma unroll
-        for (int nt = 0; nt < kMmaNT; ++nt) {
-          wmma::fill_fragment(acc[nt], 0);
-#pragma unroll
-          for (int kk = 0; kk < KT; ++kk)
-            wmma::mma_sync(acc[nt], a[kk], bf[nt][kk], acc[nt]);
+          for (int kk = 0; kk < KS; ++kk) b[kk] = bfrag[(n * KS + kk) * 32 + lane];
+          row_out(n, b);
         }
-        pack(mt, acc);
       }
     }
   }
-  __syncthreads();   // out_s of the last step is complete
+  __syncthreads();   // the last step's output bytes are complete
   if (nsteps > 0) store(nsteps - 1);
 }
 
 using MmaKernel = void (*)(const int8_t*, const uint8_t*, uint8_t*, int, int, int,
-                           int, long long);
+                           long long);
 
-template <int KT>
-MmaKernel mma_kernel(int MT) {
-  return MT <= kRegFrags / KT ? gf2_mma_kernel<KT, true> : gf2_mma_kernel<KT, false>;
+// k-steps of 32 of the kernel's contraction for k chunks
+constexpr int mma_ksteps(int k) { return k <= 4 ? 1 : k <= 8 ? 2 : 4; }
+
+// whether W's r*KS B fragments are held in registers
+constexpr bool mma_reg_w(int k, int r) { return r <= kRegFrags / mma_ksteps(k); }
+
+template <int GP>
+MmaKernel mma_kernel(int r) {
+  return r <= kRegFrags / (GP / 4) ? gf2_mma_kernel<GP, true> : gf2_mma_kernel<GP, false>;
 }
 
-// The K2 instance for a padded contraction of 16*KT and MT m-tiles.
-MmaKernel mma_kernel_for(int KT, int MT) {
-  switch (KT) {
-    case 1: return mma_kernel<1>(MT);
-    case 2: return mma_kernel<2>(MT);
-    case 3: return mma_kernel<3>(MT);
-    case 4: return mma_kernel<4>(MT);
-    case 5: return mma_kernel<5>(MT);
-    case 6: return mma_kernel<6>(MT);
-    case 7: return mma_kernel<7>(MT);
-    default: return mma_kernel<8>(MT);
-  }
+// The K2 instance for k chunks and r output rows per stripe.
+MmaKernel mma_kernel_for(int k, int r) {
+  return k <= 4 ? mma_kernel<4>(r) : k <= 8 ? mma_kernel<8>(r) : mma_kernel<16>(r);
 }
 
 template <typename Kernel>
@@ -462,9 +445,8 @@ int gf2_matmul_mma(const void* wt, const void* data, void* out, int B, int k,
       r < 1 || L < 1 || L % kMmaCols || reinterpret_cast<uintptr_t>(data) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int KT = (g * k + 1) / 2, MT = (g * r + 1) / 2;
-  const MmaKernel kernel = mma_kernel_for(KT, MT);
-  const size_t smem = mma_smem_bytes(KT, MT, g * k);
+  const MmaKernel kernel = mma_kernel_for(k, r);
+  const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ksteps(k), r, g, k);
   const cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
@@ -472,7 +454,7 @@ int gf2_matmul_mma(const void* wt, const void* data, void* out, int B, int k,
                   static_cast<unsigned>(B / g));
   kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(wt), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), k, r, g, MT, L);
+      static_cast<uint8_t*>(out), k, r, g, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,9 +466,8 @@ int gf2_mma_config(int k, int r, int g, int device, int* info) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (g < 1 || k < 1 || 8 * g * k > 128 || r < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int KT = (g * k + 1) / 2, MT = (g * r + 1) / 2;
-  const MmaKernel kernel = mma_kernel_for(KT, MT);
-  const size_t smem = mma_smem_bytes(KT, MT, g * k);
+  const MmaKernel kernel = mma_kernel_for(k, r);
+  const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ksteps(k), r, g, k);
   cudaFuncAttributes attr;
   if ((err = prepare_smem(kernel, smem)) != cudaSuccess ||
       (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess ||
