@@ -72,7 +72,8 @@ constexpr int kMmaCols = 128;         // byte columns per step, 32 per warp
 constexpr int kMmaWarps = kMmaCols / 32;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRing = 3;           // staged steps (cp.async ring buffers)
-constexpr int kMmaSteps = 32;         // steps per block: 4096 columns
+constexpr int kMmaSteps = 64;         // steps per block: 8192 columns
+constexpr int kMmaMinBlocks = 1;      // __launch_bounds__ blocks per SM
 constexpr int kRawLd = kMmaCols + 16; // staged and output row pitch
 constexpr int kRegFrags = 16;         // most W fragments (uint2) in registers
 constexpr int kTile = 256;            // bytes of one 16x16 int8 tile
@@ -177,23 +178,23 @@ gf2_popc_kernel(const uint32_t* __restrict__ wpk, const uint8_t* __restrict__ da
 }
 
 // Shared memory of one K2 block, in this order (every part 16-byte aligned):
-// W's B fragments in mma order when they are not held in registers, r*KS*32
+// W's B fragments in mma order when they are not held in registers, NT*KS*32
 // lanes x 8 bytes; the ring of kMmaRing staged steps, g*k rows of kRawLd
 // bytes; two output buffers of g*r rows of kRawLd bytes, one filled while
 // the other is stored.
-constexpr size_t mma_smem_bytes(bool reg_w, int KS, int r, int g, int k) {
-  return (reg_w ? 0 : static_cast<size_t>(r) * KS * 32 * 8) +
+constexpr size_t mma_smem_bytes(bool reg_w, int NT, int KS, int r, int g, int k) {
+  return (reg_w ? 0 : static_cast<size_t>(NT) * KS * 32 * 8) +
          static_cast<size_t>(kMmaRing) * g * k * kRawLd +
          static_cast<size_t>(2) * g * r * kRawLd;
 }
 
-// d += a (16x32 s8, row-major) x b (32x8 s8, column-major), in the PTX
+// d += a (16x32 u8, row-major) x b (32x8 u8, column-major), in the PTX
 // fragment layouts for lane = 4*grp + tig: a.x / a.y hold rows grp / grp+8 at
 // k = 4tig..4tig+3 (byte = k % 4), a.z / a.w the same at k + 16; b.x holds
 // column grp at k = 4tig..4tig+3, b.y at k + 16; d[0], d[1] are row grp at
 // columns 2tig, 2tig+1, d[2], d[3] row grp+8.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a, const uint2& b) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+__device__ __forceinline__ void mma_u8(int (&d)[4], const uint4& a, const uint2& b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, "
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
@@ -201,27 +202,32 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a, const uint2&
 
 // GP = k rounded up to 4, 8 or 16.  Each stripe is its own product,
 // bits(byte columns x 8*GP) x W^T(8*GP x 8r): byte columns are the mma's
-// rows (A), W's rows the columns (B), so an 8-column n-tile is one output
-// byte row and no tile is spent on the other stripes' zero blocks of W_gN.
+// rows (A), W's rows the columns (B), so no tile is spent on the other
+// stripes' zero blocks of W_gN.  kPair (k <= 15): a B byte carries two W
+// rows, w_a + 128*w_b, so an 8-column n-tile makes output byte rows 2nt and
+// 2nt+1: with at most 8k <= 120 terms, bit 0 of the count is row a's parity
+// and bit 7 row b's.  Otherwise an n-tile is one byte row.
 // The contraction runs in the kernel's own order, index s*GP + j = bit s of
 // chunk j (chunks j >= k are zero), in KS = GP/4 k-steps of 32: a lane's A
 // register is then one of its column words shifted by a lane-constant
 // amount and masked.  W's columns are permuted to match once per block, from
-// W_gN's first diagonal block (its g blocks are equal).  kRegW: the r*KS B
+// W_gN's first diagonal block (its g blocks are equal).  kRegW: the NT*KS B
 // fragments (2 registers each) live in registers, at constant indices.
 // wt: W_gN zero-padded to (16*MT, 16*KT), tile-major (MT, KT, 16, 16).
-template <int GP, bool kRegW>
-__global__ void __launch_bounds__(kMmaThreads)
+template <int GP, bool kPair, bool kRegW>
+__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
 gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
                uint8_t* __restrict__ out, int k, int r, int g, long long L) {
   constexpr int KS = GP / 4;
+  constexpr int NP = kPair ? 2 : 1;        // output byte rows per n-tile
   constexpr int kNReg = kRegW ? kRegFrags / KS : 1;
   constexpr int kVecs = kMmaCols / 16;   // 16-byte pieces of a step's row
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int gk = g * k, gr = g * r, KT = (gk + 1) / 2;
   uint2* bfrag = reinterpret_cast<uint2*>(smem);
-  unsigned char* ring = smem + (kRegW ? 0 : static_cast<size_t>(r) * KS * 32 * 8);
+  const int NT = (r + NP - 1) / NP;        // n-tiles
+  unsigned char* ring = smem + (kRegW ? 0 : static_cast<size_t>(NT) * KS * 32 * 8);
   unsigned char* out_s = ring + kMmaRing * gk * kRawLd;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -255,9 +261,14 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
           *reinterpret_cast<const uint4*>(ob + q * kRawLd + c * 16);
     }
   };
-  // W's B fragment for output byte row n and k-step kk, as lane ln holds it
-  auto w_frag = [&](int n, int kk, int ln) {
-    const int row = 8 * n + (ln >> 2);
+  // W's B fragment for n-tile nt and k-step kk, as lane ln holds it
+  auto w_frag = [&](int nt, int kk, int ln) {
+    const int row = 8 * NP * nt + (ln >> 2);   // row a; row b is 8 further
+    const bool has_b = kPair && NP * nt + 1 < r;
+    auto w = [&](int rw, int c) {
+      return static_cast<uint32_t>(static_cast<uint8_t>(
+          wt[((rw >> 4) * KT + (c >> 4)) * kTile + (rw & 15) * 16 + (c & 15)]));
+    };
     uint32_t v[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -268,10 +279,8 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
         const int s = K / GP, j = K - s * GP;
         if (j < k) {
           const int c = s * gk + j;   // W_gN's column: plane-major
-          word |= static_cast<uint32_t>(static_cast<uint8_t>(
-                      wt[((row >> 4) * KT + (c >> 4)) * kTile + (row & 15) * 16 +
-                         (c & 15)]))
-                  << (8 * jj);
+          const uint32_t b = w(row, c) | (has_b ? w(row + 8, c) << 7 : 0u);
+          word |= b << (8 * jj);
         }
       }
       v[h] = word;
@@ -283,14 +292,14 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
   uint2 bf[kNReg][KS];
   if constexpr (kRegW) {
 #pragma unroll
-    for (int n = 0; n < kNReg; ++n)
-      if (n < r)
+    for (int nt = 0; nt < kNReg; ++nt)
+      if (nt < NT)
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) bf[n][kk] = w_frag(n, kk, lane);
+        for (int kk = 0; kk < KS; ++kk) bf[nt][kk] = w_frag(nt, kk, lane);
   } else {
-    for (int e = tid; e < r * KS * 32; e += kMmaThreads) {
-      const int nk = e >> 5, n = nk / KS;
-      bfrag[e] = w_frag(n, nk - n * KS, e & 31);
+    for (int e = tid; e < NT * KS * 32; e += kMmaThreads) {
+      const int nk = e >> 5, nt = nk / KS;
+      bfrag[e] = w_frag(nt, nk - nt * KS, e & 31);
     }
   }
   // the lane's chunk rows 4q..4q+3 and its plane offset: a.x of k-step kk
@@ -305,10 +314,10 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
 
     const unsigned char* st = ring + (t % kMmaRing) * gk * kRawLd + warp * 32 + 4 * grp;
     unsigned char* ob = out_s + (t & 1) * gr * kRawLd + warp * 32 + 4 * grp;
-    for (int stripe = 0; stripe < g; ++stripe) {
+    auto stripe_out = [&](int stripe) {
       // the warp's 32 columns: chunk rows 4q..4q+3 at columns 4grp..4grp+3,
       // transposed so cw[i] is column 4grp+i (row 4q+jj at byte jj); that
-      // column is row grp + 8(i%2) of m-tile i/2
+      // column is row grp + 8(i/2) of m-tile i%2
       const unsigned char* sr = st + stripe * k * kRawLd;
       uint32_t v[4], cw[4];
 #pragma unroll
@@ -323,43 +332,67 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           const int s0 = 32 * kk / GP + s_lane, s1 = s0 + 16 / GP;
-          a[m][kk] = make_uint4((cw[2 * m] >> s0) & 0x01010101u,
-                                (cw[2 * m + 1] >> s0) & 0x01010101u,
-                                (cw[2 * m] >> s1) & 0x01010101u,
-                                (cw[2 * m + 1] >> s1) & 0x01010101u);
+          a[m][kk] = make_uint4((cw[m] >> s0) & 0x01010101u, (cw[m + 2] >> s0) & 0x01010101u,
+                                (cw[m] >> s1) & 0x01010101u, (cw[m + 2] >> s1) & 0x01010101u);
         }
-      // output byte row n: 2 m-tiles x KS mma; lane tig holds bits 2tig,
-      // 2tig+1 of the bytes at columns 4grp+i, i = 2m + (row grp / grp+8);
-      // an OR over the quad gives all four bytes, one word
-      auto row_out = [&](int n, const uint2 (&b)[KS]) {
-        uint32_t word = 0;
+      // one n-tile: 2 m-tiles x KS mma; this lane's bits 2tig, 2tig+1 of
+      // the bytes at columns 4grp..4grp+3 (byte i = column 4grp+i) of its
+      // output byte rows (.x: row a, .y: row b)
+      auto partial = [&](const uint2 (&b)[KS]) {
+        int acc[2][4] = {};
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          int acc[4] = {0, 0, 0, 0};
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int kk = 0; kk < KS; ++kk) mma_s8(acc, a[m][kk], b[kk]);
-          const uint32_t lo = (acc[0] & 1) | (acc[1] & 1) << 1;   // row grp
-          const uint32_t hi = (acc[2] & 1) | (acc[3] & 1) << 1;   // row grp+8
-          word |= lo << (16 * m + 2 * tig) | hi << (16 * m + 8 + 2 * tig);
-        }
-        word |= __shfl_xor_sync(0xffffffffu, word, 1);
-        word |= __shfl_xor_sync(0xffffffffu, word, 2);
-        if (tig == (n & 3))
-          *reinterpret_cast<uint32_t*>(ob + (stripe * r + n) * kRawLd) = word;
+          for (int kk = 0; kk < KS; ++kk) mma_u8(acc[m], a[m][kk], b[kk]);
+        const uint32_t even = __byte_perm(__byte_perm(acc[0][0], acc[1][0], 0x0040),
+                                          __byte_perm(acc[0][2], acc[1][2], 0x0040), 0x5410);
+        const uint32_t odd = __byte_perm(__byte_perm(acc[0][1], acc[1][1], 0x0040),
+                                         __byte_perm(acc[0][3], acc[1][3], 0x0040), 0x5410);
+        const uint32_t row_a = (even & 0x01010101u) | ((odd << 1) & 0x02020202u);
+        const uint32_t row_b = ((even >> 7) & 0x01010101u) | ((odd >> 6) & 0x02020202u);
+        return make_uint2(row_a << (2 * tig), kPair ? row_b << (2 * tig) : 0u);
+      };
+      // rows n4..n4+3: OR the quad's partial words so lane tig ends with row
+      // n4+tig complete (two exchange steps), and store it
+      auto rows_out = [&](int n4, uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3) {
+        const bool odd = tig & 1, high = tig & 2;
+        uint32_t ka = odd ? w1 : w0, kb = odd ? w3 : w2;
+        ka |= __shfl_xor_sync(0xffffffffu, odd ? w0 : w1, 1);
+        kb |= __shfl_xor_sync(0xffffffffu, odd ? w2 : w3, 1);
+        const uint32_t word =
+            (high ? kb : ka) | __shfl_xor_sync(0xffffffffu, high ? ka : kb, 2);
+        if (n4 + tig < r)
+          *reinterpret_cast<uint32_t*>(ob + (stripe * r + n4 + tig) * kRawLd) = word;
+      };
+      // the partial words of rows n4..n4+3 (n-tiles n4/NP..), then rows_out;
+      // with kRegW, n4 is a compile-time constant wherever this is called
+      auto rows4 = [&](int n4) {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 4; i += NP)
+          if (n4 + i < r) {
+            const int nt = (n4 + i) / NP;
+            uint2 b[KS];
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+              if constexpr (kRegW) b[kk] = bf[nt][kk];
+              else b[kk] = bfrag[(nt * KS + kk) * 32 + lane];
+            }
+            const uint2 p = partial(b);
+            w[i] = p.x;
+            if constexpr (kPair) w[i + 1] = p.y;
+          }
+        rows_out(n4, w[0], w[1], w[2], w[3]);
       };
       if constexpr (kRegW) {
 #pragma unroll
-        for (int n = 0; n < kNReg; ++n)
-          if (n < r) row_out(n, bf[n]);
+        for (int n4 = 0; n4 < kNReg * NP; n4 += 4)
+          if (n4 < r) rows4(n4);
       } else {
-        for (int n = 0; n < r; ++n) {
-          uint2 b[KS];
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) b[kk] = bfrag[(n * KS + kk) * 32 + lane];
-          row_out(n, b);
-        }
+        for (int n4 = 0; n4 < r; n4 += 4) rows4(n4);
       }
-    }
+    };
+    for (int stripe = 0; stripe < g; ++stripe) stripe_out(stripe);
   }
   __syncthreads();   // the last step's output bytes are complete
   if (nsteps > 0) store(nsteps - 1);
@@ -371,17 +404,25 @@ using MmaKernel = void (*)(const int8_t*, const uint8_t*, uint8_t*, int, int, in
 // k-steps of 32 of the kernel's contraction for k chunks
 constexpr int mma_ksteps(int k) { return k <= 4 ? 1 : k <= 8 ? 2 : 4; }
 
-// whether W's r*KS B fragments are held in registers
-constexpr bool mma_reg_w(int k, int r) { return r <= kRegFrags / mma_ksteps(k); }
+// n-tiles of r output byte rows: two rows a tile while 8k < 128
+constexpr int mma_ntiles(int k, int r) { return k <= 15 ? (r + 1) / 2 : r; }
 
-template <int GP>
-MmaKernel mma_kernel(int r) {
-  return r <= kRegFrags / (GP / 4) ? gf2_mma_kernel<GP, true> : gf2_mma_kernel<GP, false>;
+// whether W's B fragments are held in registers
+constexpr bool mma_reg_w(int k, int r) {
+  return mma_ntiles(k, r) <= kRegFrags / mma_ksteps(k);
+}
+
+template <int GP, bool kPair>
+MmaKernel mma_kernel(int k, int r) {
+  return mma_reg_w(k, r) ? gf2_mma_kernel<GP, kPair, true> : gf2_mma_kernel<GP, kPair, false>;
 }
 
 // The K2 instance for k chunks and r output rows per stripe.
 MmaKernel mma_kernel_for(int k, int r) {
-  return k <= 4 ? mma_kernel<4>(r) : k <= 8 ? mma_kernel<8>(r) : mma_kernel<16>(r);
+  return k <= 4    ? mma_kernel<4, true>(k, r)
+         : k <= 8  ? mma_kernel<8, true>(k, r)
+         : k <= 15 ? mma_kernel<16, true>(k, r)
+                   : mma_kernel<16, false>(k, r);
 }
 
 template <typename Kernel>
@@ -446,7 +487,7 @@ int gf2_matmul_mma(const void* wt, const void* data, void* out, int B, int k,
       reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const MmaKernel kernel = mma_kernel_for(k, r);
-  const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ksteps(k), r, g, k);
+  const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ntiles(k, r), mma_ksteps(k), r, g, k);
   const cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
@@ -467,7 +508,7 @@ int gf2_mma_config(int k, int r, int g, int device, int* info) {
   if (g < 1 || k < 1 || 8 * g * k > 128 || r < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const MmaKernel kernel = mma_kernel_for(k, r);
-  const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ksteps(k), r, g, k);
+  const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ntiles(k, r), mma_ksteps(k), r, g, k);
   cudaFuncAttributes attr;
   if ((err = prepare_smem(kernel, smem)) != cudaSuccess ||
       (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess ||
