@@ -22,40 +22,40 @@
 //
 // gf2_matmul_mma (K2) replaces ceph_tpu/ops/gf2kernels.py
 // _make_pallas_batch_fn_gN (the packed kernel that put the bit-matmul on the
-// TPU's matrix unit).
-//   It puts the same product on the int8 tensor cores: g stripes x 128 byte
-//   columns are unpacked plane-major (row s*g*k + j = bit s of chunk j) into
-//   0/1 int8 in shared memory, multiplied by the block-diagonal W_gN with
-//   wmma 16x16x16 int8 -> int32, then &1 and 8 bit rows packed per byte.
-//   Bound on the H100: the HBM bytes (0.44 ms for 1 GiB in + 0.375 GiB out),
-//   but shared memory comes close: the wmma operands have to come from
-//   shared memory, so each input byte is written there again as 8 bit-plane
-//   bytes and read back as B fragments (32 KB of traffic per 2 KB step at
-//   RS k=8, ~16 GiB over 1 GiB of input), and each accumulator tile goes
-//   through a shared scratch to be packed, since the fragment layout is
-//   unspecified.  The first version (one n-tile per warp, W fragments
-//   reloaded every step, loads issued only after the previous step's
-//   barrier) ran at 13x the bound.  This one:
+// TPU's matrix unit: g stripes' plane-major bits against the block-diagonal
+// W_gN, contraction 8gk <= 128).
+//   It puts the same product on the int8 tensor cores with mma.sync
+//   m16n8k32, in the PTX ISA's documented fragment layouts, and takes the
+//   same inputs (W_gN tile-major, the grouping g) and shape rules.
+//   Bound on the H100: the HBM bytes (0.44 ms for 1 GiB in + 0.375 GiB out
+//   at RS k=8,m=3).  What holds it above that is instruction issue: every
+//   byte column needs its bit planes built, its products, and its parity
+//   bits packed back into bytes.  The first version (wmma 16x16x16, operands
+//   through shared memory) ran at 13x the bound: 8 bit-plane copies of every
+//   byte written to shared memory, wmma's int8 B fragments gathered byte by
+//   byte from it, W's fragments reloaded every step, the accumulators packed
+//   through a shared scratch, and each step's loads issued only after the
+//   previous step's barrier.  This version:
 //   - pipelines the loads: each 128-column step's g*k rows are staged by
-//     cp.async into a ring of kMmaRing shared buffers, so later steps'
-//     bytes are in flight while this step unpacks (from the staged buffer)
-//     and multiplies; a block's last steps are simply not staged;
-//   - holds W's A fragments in registers, loaded once per block, when the
-//     MT*KT fragments fit (kRegFrags); otherwise (LRC's MT=8) W stays in
-//     shared memory and each m-tile's KT fragments are loaded once per step
-//     and used for all the warp's n-tiles;
-//   - gives each warp kMmaNT n-tiles per step, so the A fragments, the
-//     barriers and the ring's waits are shared by more work, and a block
-//     walks kMmaSteps steps with two block barriers each;
-//   - packs through a padded scratch: the warp's n-tiles side by side, one
-//     byte column per lane, so each lane reads 16 consecutive-lane words
-//     (no bank conflicts) and makes the two byte rows of an m-tile; the
-//     bytes are gathered for the step in shared memory and written with
-//     coalesced 16-byte stores.
-//   W's rows and contraction are zero-padded to multiples of 16 so decode
-//   (r=2), odd k and g=1 at k=10 (contraction 80) take the same path.
-//   Requires L % 128 == 0 and 16-byte aligned rows; the Python wrapper
-//   routes other shapes to K1.
+//     cp.async into a ring of kMmaRing shared buffers, so later steps' bytes
+//     are in flight while this step computes; a block's last steps are
+//     simply not staged (L % 128 == 0, so every step is whole);
+//   - builds the operands in registers, no bit planes in memory: byte
+//     columns are the A rows, W's rows the B columns, and the contraction
+//     runs in the order s*GP + j (bit s of chunk j), so a lane's A register
+//     is one of its column words (a 4x4 byte transpose of four 32-bit loads)
+//     shifted by a lane-constant amount and masked;
+//   - holds W in registers: its B fragments are permuted to that order once
+//     per block (from W_gN's first diagonal block: every stripe is its own
+//     product, so no tile is spent on W_gN's zero blocks), two W rows to a
+//     B byte (w_a + 128*w_b, u8) while 8k < 128, so one 8-column n-tile
+//     makes two output byte rows;
+//   - packs with byte permutes and a two-step quad shuffle: each lane ends
+//     with one output row's four bytes, stored as a word into the step's
+//     output buffer (two, alternating), written out with coalesced 16-byte
+//     stores after the next barrier -- one block barrier per step.
+//   Requires L % 128 == 0, k <= 16 and 16-byte aligned rows; the Python
+//   wrapper routes other shapes to K1.
 //
 // Plain C interface for ctypes: each entry launches on the given device and
 // stream, allocates nothing, and returns cudaGetLastError() (0 = launched).
@@ -71,9 +71,9 @@ constexpr int kPopcCols = 4;          // adjacent byte columns per thread
 constexpr int kMmaCols = 128;         // byte columns per step, 32 per warp
 constexpr int kMmaWarps = kMmaCols / 32;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRing = 3;           // staged steps (cp.async ring buffers)
+constexpr int kMmaRing = 4;           // staged steps (cp.async ring buffers)
 constexpr int kMmaSteps = 64;         // steps per block: 8192 columns
-constexpr int kMmaMinBlocks = 1;      // __launch_bounds__ blocks per SM
+constexpr int kMmaMinBlocks = 5;      // __launch_bounds__: caps registers at 96
 constexpr int kRawLd = kMmaCols + 16; // staged and output row pitch
 constexpr int kRegFrags = 16;         // most W fragments (uint2) in registers
 constexpr int kTile = 256;            // bytes of one 16x16 int8 tile
