@@ -59,9 +59,18 @@
 //
 // Plain C interface for ctypes: each entry launches on the given device and
 // stream, allocates nothing, and returns cudaGetLastError() (0 = launched).
+//
+// Without __CUDACC__ the kernels also compile as host C++ (no launchers, no C
+// entries): the includer supplies the CUDA built-ins they use and runs each
+// block's threads itself, and mma_u8 calls its host_mma_u8.  The CPU tests
+// build K2 that way and hold it against the host oracle.
 
+#include <cstddef>
 #include <cstdint>
+#include <cstring>
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 namespace {
 
@@ -80,18 +89,26 @@ constexpr int kTile = 256;            // bytes of one 16x16 int8 tile
 constexpr size_t kMaxSmem = 232448;   // H100: 227 KB a block can use
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDACC__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
                : "memory");
+#else
+  std::memcpy(dst, src, 16);   // a host build copies at once
+#endif
 }
 
 __device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDACC__
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
 }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDACC__
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
 }
 
 // 4x4 byte transpose: v[j] holds chunk row j at 4 adjacent columns; col[c]
@@ -194,10 +211,14 @@ constexpr size_t mma_smem_bytes(bool reg_w, int NT, int KS, int r, int g, int k)
 // column grp at k = 4tig..4tig+3, b.y at k + 16; d[0], d[1] are row grp at
 // columns 2tig, 2tig+1, d[2], d[3] row grp+8.
 __device__ __forceinline__ void mma_u8(int (&d)[4], const uint4& a, const uint2& b) {
+#ifdef __CUDACC__
   asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, "
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+#else
+  host_mma_u8(d, a, b);
+#endif
 }
 
 // GP = k rounded up to 4, 8 or 16.  Each stripe is its own product,
@@ -425,6 +446,8 @@ MmaKernel mma_kernel_for(int k, int r) {
                    : mma_kernel<16, false>(k, r);
 }
 
+#ifdef __CUDACC__
+
 template <typename Kernel>
 cudaError_t prepare_smem(Kernel kernel, size_t smem) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -451,7 +474,11 @@ cudaError_t launch_popc(const void* wpk, const void* data, void* out, int B, int
   return cudaGetLastError();
 }
 
+#endif  // __CUDACC__
+
 }  // namespace
+
+#ifdef __CUDACC__
 
 extern "C" {
 
@@ -522,3 +549,5 @@ int gf2_mma_config(int k, int r, int g, int device, int* info) {
 }
 
 }  // extern "C"
+
+#endif  // __CUDACC__

@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
     source per schedule digest (ptxas registers, spills and nvcc seconds
     per digest);
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
-    on seeded inputs at small shapes, byte-exact;
+    on seeded inputs at small shapes, byte-exact (for K2: one step, a whole
+    block plus a ragged tail at g=2 and g=1, RS decode, Cauchy at k=10, the
+    LRC parity and local-repair matrices);
  3. K3 likewise, on the schedules of RS, LRC and PMSR matrices and of
     matrices with a unit, a zero and a repeated row, with ragged L, odd B
     and a misaligned base;
@@ -224,16 +226,14 @@ def phase_kernels(dev: torch.device) -> dict:
     cases.append(("cauchy10/4 decode[2,11]",
                   build_decode_matrix(cauchy, 10, [2, 11])[0], 2, 256))
     cases.append(("rs5/3 g=1 k=5", gen_rs_matrix(8, 5)[5:], 2, 128))
-    # K2's pipeline: one 128-column step; whole blocks plus a ragged tail
-    # (4480 = 4096 + 384 leaves a partial block for any power-of-two span
-    # from 512 to 4096 columns and is shorter than longer ones), at g=2 and
-    # at g=1 (B=3); W held in shared memory (LRC parity, MT=8) and in
-    # registers at KT=3, MT=1 (LRC local repair)
+    # K2's pipeline: one 128-column step; a whole block (64 steps, 8192
+    # columns) plus a ragged tail, at g=2 and at g=1 (B=3); the LRC parity
+    # (r=8, four n-tiles) and local-repair (k=3, r=1) matrices
     lrc = ErasureCodeLrc()
     lrc.init(dict(LRC[2]))
     cases.append(("rs8/3 one step", gen83[8:], 2, 128))
-    cases.append(("rs8/3 blocks + ragged tail", gen83[8:], 4, 4480))
-    cases.append(("rs8/3 g=1 blocks + ragged tail", gen83[8:], 3, 4480))
+    cases.append(("rs8/3 block + ragged tail", gen83[8:], 4, 8192 + 384))
+    cases.append(("rs8/3 g=1 block + ragged tail", gen83[8:], 3, 8192 + 384))
     cases.append(("lrc8/4/3 parity r=8", lrc.parity_matrix, 2, 640))
     cases.append(("lrc8/4/3 local repair k=3 r=1",
                   lrc.repair_matrix((1, 2, 3), (0,)), 4, 384))
