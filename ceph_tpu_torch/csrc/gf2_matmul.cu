@@ -30,12 +30,10 @@
 //   Bound on the H100: the HBM bytes (0.44 ms for 1 GiB in + 0.375 GiB out
 //   at RS k=8,m=3).  What holds it above that is instruction issue: every
 //   byte column needs its bit planes built, its products, and its parity
-//   bits packed back into bytes.  The first version (wmma 16x16x16, operands
-//   through shared memory) ran at 13x the bound: 8 bit-plane copies of every
-//   byte written to shared memory, wmma's int8 B fragments gathered byte by
-//   byte from it, W's fragments reloaded every step, the accumulators packed
-//   through a shared scratch, and each step's loads issued only after the
-//   previous step's barrier.  This version:
+//   bits packed back into bytes.  mma.sync rather than wmma because wmma's
+//   fragment layouts are unspecified: its operands must come from memory (8
+//   bit-plane copies of every byte written to shared memory and read back)
+//   and its accumulators go back through memory to be packed.  The design:
 //   - pipelines the loads: each 128-column step's g*k rows are staged by
 //     cp.async into a ring of kMmaRing shared buffers, so later steps' bytes
 //     are in flight while this step computes; a block's last steps are
