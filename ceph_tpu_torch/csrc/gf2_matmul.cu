@@ -17,8 +17,13 @@
 //   16 popc per clock per SM.  The design keeps everything else cheap: one
 //   coalesced 32-bit load per chunk row and thread (4 adjacent columns), a
 //   __byte_perm transpose into column words, W rows in shared memory read as
-//   broadcasts, one 32-bit store per output row.  Any L (ragged edge masked)
-//   and any k <= 32.
+//   broadcasts, one 32-bit store per output row.  Any L (ragged edge masked),
+//   any batch (grid.y walks the stripes with a grid-stride loop) and any k: one
+//   launch contracts over a group of at most 32 chunks and up to
+//   kPopcMaxRows output rows (a W tile that fits shared memory), and the
+//   wrapper splits a larger product into tiles (ops/gf2kernels.py
+//   popc_plan), the launches after a row tile's first XORing their partial
+//   products into the output (``acc``): GF(2) is linear, so split-k is exact.
 //
 // gf2_matmul_mma (K2) replaces ceph_tpu/ops/gf2kernels.py
 // _make_pallas_batch_fn_gN (the packed kernel that put the bit-matmul on the
@@ -53,7 +58,8 @@
 //     output buffer (two, alternating), written out with coalesced 16-byte
 //     stores after the next barrier -- one block barrier per step.
 //   Requires L % 128 == 0, k <= 16 and 16-byte aligned rows; the Python
-//   wrapper routes other shapes to K1.
+//   wrapper routes other shapes to K1.  The batch (B/g stripe groups) is
+//   folded into grid.x with the column blocks, so it is not capped at 65535.
 //
 // Plain C interface for ctypes: each entry launches on the given device and
 // stream, allocates nothing, and returns cudaGetLastError() (0 = launched).
@@ -74,6 +80,8 @@ namespace {
 
 constexpr int kPopcThreads = 256;
 constexpr int kPopcCols = 4;          // adjacent byte columns per thread
+constexpr int kPopcMaxNQ = 8;         // W words per row and launch: 32 chunks
+constexpr int kPopcMaxRows = 512;     // output rows per launch (W tile <= 128 KB)
 
 constexpr int kMmaCols = 128;         // byte columns per step, 32 per warp
 constexpr int kMmaWarps = kMmaCols / 32;
@@ -144,52 +152,83 @@ __device__ __forceinline__ void store4(uint8_t* row, long long c0, long long L,
     if (c0 + c < L) row[c0 + c] = static_cast<uint8_t>(v >> (8 * c));
 }
 
-// NQ = ceil(k/4) 32-bit words per W row; word q of row 8i+s holds W bits
-// 32q..32q+31, i.e. chunks 4q..4q+3.
-template <int NQ>
+// One K1 launch: output rows i0..i0+rg-1 of every stripe over chunks
+// j0..j0+kg-1 (kg <= 4*NQ).  wpk is that tile of W, (8*rg, NQ) words: word q
+// of row 8i+s holds W bits of chunks j0+4q..j0+4q+3.  With kAcc the partial
+// product is XORed into the output instead of stored.  grid.x covers the
+// columns; grid.y (at most 65535) walks the stripes with a grid-stride
+// loop, so any B fits.
+template <int NQ, bool kAcc>
 __global__ void __launch_bounds__(kPopcThreads)
 gf2_popc_kernel(const uint32_t* __restrict__ wpk, const uint8_t* __restrict__ data,
-                uint8_t* __restrict__ out, int k, int r, long long L, bool vec) {
-  extern __shared__ uint32_t w_s[];
-  for (int i = threadIdx.x; i < 8 * r * NQ; i += blockDim.x) w_s[i] = wpk[i];
+                uint8_t* __restrict__ out, long long B, int k, int j0, int kg, int r,
+                int i0, int rg, long long L, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* w_s = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < 8 * rg * NQ; i += blockDim.x) w_s[i] = wpk[i];
   __syncthreads();
 
-  const long long b = blockIdx.y;
   const long long c0 =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kPopcCols;
   if (c0 >= L) return;
-
-  const uint8_t* src = data + b * k * L;
-  uint32_t col[kPopcCols][NQ];
+  const unsigned nb = static_cast<unsigned>(B);   // B < 2^31: the C entry
+  for (unsigned b = blockIdx.y; b < nb; b += gridDim.y) {
+    const uint8_t* src = data + (static_cast<long long>(b) * k + j0) * L;
+    uint32_t col[kPopcCols][NQ];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    uint32_t v[4], t[4];
+    for (int q = 0; q < NQ; ++q) {
+      uint32_t v[4], t[4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = 4 * q + jj;
-      v[jj] = j < k ? load4(src + j * L, c0, L, vec) : 0u;
-    }
-    transpose4(v, t);
-#pragma unroll
-    for (int c = 0; c < kPopcCols; ++c) col[c][q] = t[c];
-  }
-
-  uint8_t* dst = out + b * r * L;
-  for (int i = 0; i < r; ++i) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const uint32_t* w = w_s + (8 * i + s) * NQ;
-#pragma unroll
-      for (int c = 0; c < kPopcCols; ++c) {
-        uint32_t acc = 0;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) acc ^= w[q] & col[c][q];
-        word |= static_cast<uint32_t>(__popc(acc) & 1) << (8 * c + s);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj;
+        v[jj] = j < kg ? load4(src + j * L, c0, L, vec) : 0u;
       }
+      transpose4(v, t);
+#pragma unroll
+      for (int c = 0; c < kPopcCols; ++c) col[c][q] = t[c];
     }
-    store4(dst + i * L, c0, L, vec, word);
+
+    uint8_t* dst = out + (static_cast<long long>(b) * r + i0) * L;
+    for (int i = 0; i < rg; ++i) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const uint32_t* w = w_s + (8 * i + s) * NQ;
+#pragma unroll
+        for (int c = 0; c < kPopcCols; ++c) {
+          uint32_t a = 0;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) a ^= w[q] & col[c][q];
+          word |= static_cast<uint32_t>(__popc(a) & 1) << (8 * c + s);
+        }
+      }
+      if constexpr (kAcc) word ^= load4(dst + i * L, c0, L, vec);
+      store4(dst + i * L, c0, L, vec, word);
+    }
   }
+}
+
+using PopcKernel = void (*)(const uint32_t*, const uint8_t*, uint8_t*, long long, int,
+                            int, int, int, int, int, long long, bool);
+
+template <bool kAcc>
+PopcKernel popc_kernel_nq(int kg) {
+  switch ((kg + 3) / 4) {
+    case 1: return gf2_popc_kernel<1, kAcc>;
+    case 2: return gf2_popc_kernel<2, kAcc>;
+    case 3: return gf2_popc_kernel<3, kAcc>;
+    case 4: return gf2_popc_kernel<4, kAcc>;
+    case 5: return gf2_popc_kernel<5, kAcc>;
+    case 6: return gf2_popc_kernel<6, kAcc>;
+    case 7: return gf2_popc_kernel<7, kAcc>;
+    default: return gf2_popc_kernel<8, kAcc>;
+  }
+}
+
+// The K1 instance for a group of kg <= 32 chunks (NQ = ceil(kg/4)) that
+// stores (a row tile's first launch) or XORs into the output (acc).
+PopcKernel popc_kernel_for(int kg, bool acc) {
+  return acc ? popc_kernel_nq<true>(kg) : popc_kernel_nq<false>(kg);
 }
 
 // Shared memory of one K2 block, in this order (every part 16-byte aligned):
@@ -251,9 +290,13 @@ gf2_mma_kernel(const int8_t* __restrict__ wt, const uint8_t* __restrict__ data,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, tig = lane & 3;
-  const long long b0 = static_cast<long long>(blockIdx.y) * g;
+  // grid.x = (stripe group, column block) pairs, column blocks fastest
+  const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
+  const long long ncb = (L + per_block - 1) / per_block;
+  const long long sg = blockIdx.x / ncb;
+  const long long b0 = sg * g;
   const uint8_t* src = data + b0 * k * L;   // g stripes = g*k consecutive rows
-  const long long col_begin = static_cast<long long>(blockIdx.x) * kMmaCols * kMmaSteps;
+  const long long col_begin = (blockIdx.x - sg * ncb) * per_block;
   const int nsteps = static_cast<int>(
       (min(L, col_begin + kMmaCols * kMmaSteps) - col_begin) / kMmaCols);
 
@@ -455,23 +498,6 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
-template <int NQ>
-cudaError_t launch_popc(const void* wpk, const void* data, void* out, int B, int k,
-                        int r, long long L, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(8) * r * NQ * sizeof(uint32_t);
-  cudaError_t err = prepare_smem(gf2_popc_kernel<NQ>, smem);
-  if (err != cudaSuccess) return err;
-  const long long per_block = static_cast<long long>(kPopcThreads) * kPopcCols;
-  const dim3 grid(static_cast<unsigned>((L + per_block - 1) / per_block),
-                  static_cast<unsigned>(B));
-  const bool vec = (L % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(out) % 4 == 0);
-  gf2_popc_kernel<NQ><<<grid, kPopcThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(wpk), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), k, r, L, vec);
-  return cudaGetLastError();
-}
-
 #endif  // __CUDACC__
 
 }  // namespace
@@ -480,24 +506,33 @@ cudaError_t launch_popc(const void* wpk, const void* data, void* out, int B, int
 
 extern "C" {
 
-// wpk: (8r, ceil(k/4)) uint32 packed W rows; data (B,k,L) uint8; out (B,r,L).
-int gf2_matmul_popc(const void* wpk, const void* data, void* out, int B, int k,
-                    int r, long long L, int device, void* stream) {
+// One K1 launch (see gf2_popc_kernel): data (B,k,L) uint8, out (B,r,L);
+// wpk the (8*rg, ceil(kg/4)) uint32 W tile of output rows i0.. over chunks
+// j0..j0+kg-1, kg <= 32, rg <= kPopcMaxRows; acc XORs into out.
+int gf2_matmul_popc(const void* wpk, const void* data, void* out, long long B, int k,
+                    int j0, int kg, int r, int i0, int rg, long long L, int acc,
+                    int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (B < 1 || B > 65535 || k < 1 || k > 32 || r < 1 || L < 1)
+  if (B < 1 || B > 0x7fffffffLL || k < 1 || kg < 1 || kg > 4 * kPopcMaxNQ ||
+      j0 < 0 || j0 + kg > k ||
+      r < 1 || rg < 1 || rg > kPopcMaxRows || i0 < 0 || i0 + rg > r || L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((k + 3) / 4) {
-    case 1: return static_cast<int>(launch_popc<1>(wpk, data, out, B, k, r, L, s));
-    case 2: return static_cast<int>(launch_popc<2>(wpk, data, out, B, k, r, L, s));
-    case 3: return static_cast<int>(launch_popc<3>(wpk, data, out, B, k, r, L, s));
-    case 4: return static_cast<int>(launch_popc<4>(wpk, data, out, B, k, r, L, s));
-    case 5: return static_cast<int>(launch_popc<5>(wpk, data, out, B, k, r, L, s));
-    case 6: return static_cast<int>(launch_popc<6>(wpk, data, out, B, k, r, L, s));
-    case 7: return static_cast<int>(launch_popc<7>(wpk, data, out, B, k, r, L, s));
-    default: return static_cast<int>(launch_popc<8>(wpk, data, out, B, k, r, L, s));
-  }
+  const PopcKernel kernel = popc_kernel_for(kg, acc != 0);
+  const size_t smem = static_cast<size_t>(8) * rg * ((kg + 3) / 4) * sizeof(uint32_t);
+  const cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long per_block = static_cast<long long>(kPopcThreads) * kPopcCols;
+  const long long ncb = (L + per_block - 1) / per_block;
+  if (ncb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(ncb),
+                  static_cast<unsigned>(B < 65535 ? B : 65535));
+  const bool vec = (L % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  kernel<<<grid, kPopcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(wpk), static_cast<const uint8_t*>(data),
+      static_cast<uint8_t*>(out), B, k, j0, kg, r, i0, rg, L, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // wt: W_gN padded and tile-major, (ceil(g*r/2), ceil(g*k/2), 16, 16) int8;
@@ -507,17 +542,18 @@ int gf2_matmul_mma(const void* wt, const void* data, void* out, int B, int k,
                    int r, int g, long long L, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (g < 1 || B < g || B % g || B / g > 65535 || k < 1 || 8 * g * k > 128 ||
-      r < 1 || L < 1 || L % kMmaCols || reinterpret_cast<uintptr_t>(data) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16)
+  const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
+  if (g < 1 || B < g || B % g || k < 1 || 8 * g * k > 128 || r < 1 || L < 1 ||
+      L % kMmaCols || reinterpret_cast<uintptr_t>(data) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      static_cast<long long>(B / g) * ((L + per_block - 1) / per_block) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const MmaKernel kernel = mma_kernel_for(k, r);
   const size_t smem = mma_smem_bytes(mma_reg_w(k, r), mma_ntiles(k, r), mma_ksteps(k), r, g, k);
   const cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_block = static_cast<long long>(kMmaCols) * kMmaSteps;
-  const dim3 grid(static_cast<unsigned>((L + per_block - 1) / per_block),
-                  static_cast<unsigned>(B / g));
+  const dim3 grid(static_cast<unsigned>(static_cast<long long>(B / g) *
+                                        ((L + per_block - 1) / per_block)));
   kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(wt), static_cast<const uint8_t*>(data),
       static_cast<uint8_t*>(out), k, r, g, L);

@@ -49,6 +49,13 @@ class LinearSubchunkCodec(ErasureCode):
     generator columns by LOGICAL data chunk and rows by position.
     """
 
+    #: the CodecBatcher may coalesce this codec's launches even with a
+    #: chunk remapping: the stripe paths place chunks by ``chunk_index``
+    batch_chunk_mapping_ok = True
+    #: the MeshCodec flat dialect: launches use ``parity_matrix`` /
+    #: ``decode_flat_matrix`` reshaped to sub-chunk rows
+    mesh_flat_ok = True
+
     def __init__(self, device=None) -> None:
         super().__init__()
         self.device = resolve_device(device)
@@ -248,6 +255,12 @@ class LinearSubchunkCodec(ErasureCode):
         src, lost = self.unpack_decode_extra(erasures)
         matrix = self.repair_matrix(src, lost)
         return self._batch_matmul(matrix, survivors, len(lost), out_np)
+
+    def decode_flat_matrix(self, erasures) -> np.ndarray:
+        """The repair matrix for a packed extra (the MeshCodec flat
+        dialect hook: the same cached matrix decode_batch uses)."""
+        src, lost = self.unpack_decode_extra(erasures)
+        return self.repair_matrix(src, lost)
 
     # -- repair planning ------------------------------------------------------
     def minimum_to_repair(self, lost: int, available: set[int]

@@ -28,6 +28,13 @@ class ErasureCodeCuda(ErasureCodeIsa):
         return self.backend.matmul_batch(
             self.encode_matrix[self.k:], data, out_np=out_np)
 
+    def encode_batch_crc(self, data):
+        """encode_batch plus device-fused integrity: ((B, m, L) parity,
+        (B, k+m) chunk CRC32Cs) from one device round trip, the CRCs by
+        K4 over the data and the fresh parity on the card."""
+        return self.backend.matmul_batch_crc(
+            self.encode_matrix[self.k:], data)
+
     def decode_batch(self, erasures: list[int], chunks, out_np: bool = False):
         """Recover ``erasures`` for a batch.
 

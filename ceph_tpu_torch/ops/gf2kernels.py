@@ -8,9 +8,15 @@ GF(2), so the whole stripe encode is
 with W the bit-expanded coefficient matrix (``bitmatrix_i8``).  Two hand
 written kernels in ``csrc/gf2_matmul.cu`` compute it:
 
-  * ``gf2_matmul_popc`` (K1): AND + popcount on CUDA cores, any shape;
+  * ``gf2_matmul_popc`` (K1): AND + popcount on CUDA cores, any shape: a
+    product over more than 32 chunks or ``POPC_MAX_ROWS`` rows is split into
+    tiles, one launch each (``popc_plan``), XORed into one output;
   * ``gf2_matmul_mma`` (K2): g stripes per block on the int8 tensor cores
     with the plane-major, block-diagonal ``w_gN_planemajor``.
+
+Each kernel's shape rules are one pure function (``popc_accepts``,
+``mma_accepts``), asked before the CPU/CUDA split, and
+``dense_kernel_for`` is the dense route for a shape.
 
 Each has a plain PyTorch version (``gf2_matmul_plain``,
 ``gf2_matmul_grouped_plain``).  A wrapper runs the plain version only for a
@@ -39,6 +45,10 @@ from . import _build
 LANE_TILE = 8192
 # byte columns K2 handles per step; every K2 shape has L % MMA_COLS == 0
 MMA_COLS = 128
+# one K1 launch contracts over at most POPC_GROUP chunks into at most
+# POPC_MAX_ROWS output rows (csrc/gf2_matmul.cu kPopcMaxNQ, kPopcMaxRows)
+POPC_GROUP = 32
+POPC_MAX_ROWS = 512
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0, "xor_sched": 0}
@@ -114,6 +124,40 @@ def w_gN_planemajor(matrix: np.ndarray, g: int) -> np.ndarray:
     return _w_gN_cached(matrix.tobytes(), *matrix.shape, g)
 
 
+def popc_plan(k: int, r: int) -> list[tuple[int, int, int, int]]:
+    """K1's launches for an (r, k) matrix: (j0, kg, i0, rg) tiles, chunks
+    j0..j0+kg-1 into output rows i0..i0+rg-1; a row tile's launches after
+    its first XOR their partial products into the output."""
+    return [(j0, min(POPC_GROUP, k - j0), i0, min(POPC_MAX_ROWS, r - i0))
+            for i0 in range(0, r, POPC_MAX_ROWS)
+            for j0 in range(0, k, POPC_GROUP)]
+
+
+def popc_accepts(b: int, k: int, r: int, l: int) -> bool:
+    """K1's shape rule: any (B, k, L) batch of fewer than 2^31 stripes
+    and any (r, k) matrix."""
+    return 0 <= b < 1 << 31 and k >= 1 and r >= 1 and l >= 0
+
+
+def mma_accepts(b: int, k: int, r: int, g: int, l: int,
+                aligned: bool = True) -> bool:
+    """K2's shape rule: g stripes per block dividing the batch, a group
+    contraction 8*g*k <= 128, whole 128-column steps and 16-byte aligned
+    rows (``aligned``; the plain version does not need it)."""
+    return (g >= 1 and b >= g and b % g == 0 and k >= 1 and r >= 1
+            and 8 * g * k <= 128 and l > 0 and l % MMA_COLS == 0 and aligned)
+
+
+def dense_kernel_for(b: int, k: int, r: int, l: int,
+                     aligned: bool = True) -> tuple[str, int]:
+    """The dense route for a shape: ("gf2_matmul_mma", g) where L passes
+    ``_pick_tile`` and K2's rule holds, else ("gf2_matmul_popc", 1)."""
+    g = pick_group(k, b)
+    if _pick_tile(l) and mma_accepts(b, k, r, g, l, aligned):
+        return "gf2_matmul_mma", g
+    return "gf2_matmul_popc", 1
+
+
 def _pick_tile(l: int, want: int = LANE_TILE) -> int:
     """Lane-tile ladder of the packed kernel; 0 = ineligible."""
     if l % want == 0:
@@ -177,7 +221,8 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("gf2_matmul")
-    lib.gf2_matmul_popc.argtypes = [_VP, _VP, _VP, _I, _I, _I, _LL, _I, _VP]
+    lib.gf2_matmul_popc.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I,
+                                    _LL, _I, _I, _VP]
     lib.gf2_matmul_popc.restype = _I
     lib.gf2_matmul_mma.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _VP]
     lib.gf2_matmul_mma.restype = _I
@@ -206,20 +251,33 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _aligned(data: torch.Tensor) -> bool:
+    """K2's alignment rule: 16-byte rows on the card; the plain version
+    takes any CPU tensor."""
+    return data.device.type == "cpu" or data.data_ptr() % 16 == 0
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return _VP(torch.cuda.current_stream(device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=256)
 def _w_popc_device(mat_bytes: bytes, r: int, k: int,
-                   device: torch.device) -> torch.Tensor:
-    """W rows packed for K1: (8r, ceil(k/4)) 32-bit words, word q = bits 32q.."""
-    nq = (k + 3) // 4
-    w = np.zeros((8 * r, 32 * nq), np.uint8)
-    w[:, :8 * k] = _bitmatrix_cached(mat_bytes, r, k)
-    words = np.packbits(w.reshape(8 * r, nq, 32), axis=-1, bitorder="little")
-    return torch.from_numpy(
-        np.ascontiguousarray(words).view("<i4").reshape(8 * r, nq)).to(device)
+                   device: torch.device) -> tuple[torch.Tensor, ...]:
+    """W packed for K1, one tile per ``popc_plan`` launch: (8*rg,
+    ceil(kg/4)) 32-bit words, word q of a row = its bits of chunks
+    j0+4q..j0+4q+3."""
+    w = _bitmatrix_cached(mat_bytes, r, k)
+    tiles = []
+    for j0, kg, i0, rg in popc_plan(k, r):
+        nq = (kg + 3) // 4
+        t = np.zeros((8 * rg, 32 * nq), np.uint8)
+        t[:, :8 * kg] = w[8 * i0:8 * (i0 + rg), 8 * j0:8 * (j0 + kg)]
+        words = np.packbits(t.reshape(8 * rg, nq, 32), axis=-1,
+                            bitorder="little")
+        tiles.append(torch.from_numpy(np.ascontiguousarray(words).view(
+            "<i4").reshape(8 * rg, nq)).to(device))
+    return tuple(tiles)
 
 
 @functools.lru_cache(maxsize=256)
@@ -234,20 +292,25 @@ def _w_mma_device(mat_bytes: bytes, r: int, k: int, g: int,
 
 
 def gf2_matmul_popc(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
-    """K1: (r,k) GF(2^8) matrix x (B,k,L) uint8 -> (B,r,L) uint8, any L, k <= 32."""
+    """K1: (r,k) GF(2^8) matrix x (B,k,L) uint8 -> (B,r,L) uint8, any shape;
+    one launch per ``popc_plan`` tile."""
     matrix = _as_matrix(matrix)
     r, k = matrix.shape
     _check_data(data, k)
+    b, _, l = data.shape
+    if not popc_accepts(b, k, r, l):
+        raise ValueError(f"gf2_matmul_popc takes a (B, k, L) batch and an "
+                         f"(r, k) matrix, got {tuple(data.shape)} r={r}")
     if data.device.type == "cpu":
         return gf2_matmul_plain(torch.from_numpy(bitmatrix_i8(matrix)), data)
-    b, _, l = data.shape
-    if k > 32 or b > 65535:
-        raise ValueError(f"gf2_matmul_popc takes k <= 32 and B <= 65535, "
-                         f"got k={k} B={b}")
-    w = _w_popc_device(matrix.tobytes(), r, k, data.device)
     out = torch.empty((b, r, l), dtype=torch.uint8, device=data.device)
-    _launch("gf2_matmul_popc", w.data_ptr(), data.data_ptr(), out.data_ptr(),
-            b, k, r, l, data.device.index, _stream(data.device))
+    if b == 0 or l == 0:
+        return out
+    tiles = _w_popc_device(matrix.tobytes(), r, k, data.device)
+    for (j0, kg, i0, rg), w in zip(popc_plan(k, r), tiles):
+        _launch("gf2_matmul_popc", w.data_ptr(), data.data_ptr(),
+                out.data_ptr(), b, k, j0, kg, r, i0, rg, l, int(j0 > 0),
+                data.device.index, _stream(data.device))
     return out
 
 
@@ -259,15 +322,13 @@ def gf2_matmul_mma(matrix: np.ndarray, data: torch.Tensor,
     r, k = matrix.shape
     _check_data(data, k)
     b, _, l = data.shape
-    if b % g or 8 * g * k > 128 or l % MMA_COLS:
-        raise ValueError(f"gf2_matmul_mma takes B % g == 0, 8*g*k <= 128 and "
-                         f"L % {MMA_COLS} == 0, got B={b} g={g} k={k} L={l}")
+    if not mma_accepts(b, k, r, g, l, _aligned(data)):
+        raise ValueError(f"gf2_matmul_mma takes B % g == 0, 8*g*k <= 128, "
+                         f"L % {MMA_COLS} == 0 and 16-byte aligned data on the "
+                         f"card, got B={b} g={g} k={k} L={l}")
     if data.device.type == "cpu":
         return gf2_matmul_grouped_plain(
             torch.from_numpy(w_gN_planemajor(matrix, g)), data, g)
-    if b // g > 65535 or data.data_ptr() % 16:
-        raise ValueError("gf2_matmul_mma takes B/g <= 65535 and 16-byte "
-                         "aligned data")
     w = _w_mma_device(matrix.tobytes(), r, k, g, data.device)
     out = torch.empty((b, r, l), dtype=torch.uint8, device=data.device)
     _launch("gf2_matmul_mma", w.data_ptr(), data.data_ptr(), out.data_ptr(),
@@ -327,12 +388,13 @@ def _to_device(data, device) -> torch.Tensor:
 
 def gf_matmul_batch_device(matrix: np.ndarray, data, *, out_np: bool = False,
                            device=None):
-    """Batched stripes: (B, k, L) -> (B, r, L), one kernel launch.
+    """Batched stripes: (B, k, L) -> (B, r, L), one kernel launch (K1: one
+    per ``popc_plan`` tile).
 
     ``data`` is a numpy array or a tensor; it runs on ``device`` (default:
     the tensor's own device, else CUDA).  The scheduled engine (K3) serves
-    when the cost model picks it; otherwise K2 serves when L passes
-    ``_pick_tile`` and the group contraction 8*k*g fits 128, K1 otherwise.
+    when the cost model picks it; otherwise ``dense_kernel_for`` routes: K2
+    when L passes ``_pick_tile`` and K2's shape rule holds, K1 otherwise.
     The result stays a tensor on the device unless ``out_np``.
     """
     from .xor_schedule import maybe_batch_scheduled
@@ -341,8 +403,8 @@ def gf_matmul_batch_device(matrix: np.ndarray, data, *, out_np: bool = False,
     b, k, l = x.shape
     out = maybe_batch_scheduled(matrix, x)
     if out is None:
-        g = pick_group(k, b)
-        if _pick_tile(l) and 8 * k * g <= 128:
+        name, g = dense_kernel_for(b, k, matrix.shape[0], l, _aligned(x))
+        if name == "gf2_matmul_mma":
             out = gf2_matmul_mma(matrix, x, g)
             _first_use_check("gf2_matmul_mma", matrix, g, x, out)
         else:

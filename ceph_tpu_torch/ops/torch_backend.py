@@ -3,9 +3,10 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
-from .gf2kernels import gf_matmul_device, gf_matmul_batch_device
+from .gf2kernels import _to_device, gf_matmul_device, gf_matmul_batch_device
 
 
 class TorchBackend:
@@ -28,3 +29,16 @@ class TorchBackend:
         """(B,k,L) -> (B,r,L) in one launch; a device tensor unless out_np."""
         return gf_matmul_batch_device(matrix, data, out_np=out_np,
                                       device=self.device)
+
+    def matmul_batch_crc(self, matrix: np.ndarray, data):
+        """Batched stripes (B, k, L) -> ((B, r, L) parity, (B, k+r) chunk
+        CRC32Cs as np.uint32), all computed before anything crosses back
+        to the host: one ``matmul_batch`` launch, then two K4 launches (one
+        over the data chunks, one over the fresh parity) on the same
+        device tensors."""
+        from .crc32c_batch import crc32c_device_chunks, to_uint32
+        x = _to_device(data, self.device)
+        parity = self.matmul_batch(matrix, x, out_np=False)
+        crcs = torch.cat([crc32c_device_chunks(x),
+                          crc32c_device_chunks(parity)], dim=1)
+        return parity.cpu().numpy(), to_uint32(crcs)

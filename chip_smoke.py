@@ -13,10 +13,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
     on seeded inputs at small shapes, byte-exact (for K2: one step, a whole
     block plus a ragged tail at g=2 and g=1, RS decode, Cauchy at k=10, the
-    LRC parity and local-repair matrices);
+    LRC parity and local-repair matrices; for K1: split-k at k=42 and 72);
  3. K3 likewise, on the schedules of RS, LRC and PMSR matrices and of
     matrices with a unit, a zero and a repeated row, with ragged L, odd B
-    and a misaligned base;
+    and a misaligned base; K4 (CRC32C) against its plain version and the
+    host numpy engine at l in {0, 1, 7, 8, 9, 127, 4096, 4099, 131072}, one
+    row and many, and a misaligned base;
+ 3b. the dense kernels past their old limits: PMSR k=7,m=6 at (1024, 7,
+    131136) through the dense route (K1 at k=42, split into two launches),
+    encode and a 2-erasure decode; one K1 launch at B=70000 and one K2
+    launch at B/g=70000; byte-exact against the plain versions and the host
+    oracle;
  4. the RS main path at full width: the ``cuda`` plugin at RS k=8,m=3
     encodes (1024, 8, 131072) bytes (1 MiB stripes, 1 GiB) with
     ``encode_batch``, recovers erasures [1, 9] with ``decode_batch``, then
@@ -29,12 +36,27 @@ Phases, one line each; any failure exits non-zero and prints no result:
     2-erasure decode through K3 and dense (K1);
  8. the engine sweep ``ceph_tpu_torch.tools.ec_autotune --codes lrc,pmsr``
     at batch 1024, chunk 131072, and its winners;
+ 8b. K4 at full width: the chunk CRCs of the RS (1024, 11, 131072) data and
+    parity rows against the host engine on sampled rows, and
+    ``crc32c_resident`` of a ragged buffer over 64 MiB against the host
+    engine on the whole buffer;
+ 8c. the OSD path, ``CodecBatcher`` -> ``MeshCodec``: 64 concurrent RS
+    k=8,m=3 ``encode(with_crc=True)`` submissions of (16, 8, 131072)
+    coalesce into one (1024, 8, 131072) launch plus the K4 CRCs; then a
+    coalesced ``decode([1, 9])``, an ``rmw`` (new parity == re-encode), an
+    LRC k=8,m=4,l=3 encode and local repair and a PMSR k=5,m=4 decode
+    through the flat dialect; byte-exact against the codecs' own
+    ``encode_batch`` / ``decode_batch`` and the host CRC engine, one mesh
+    launch per batch and no fallback; the batcher's wall clock per batch
+    (host clock: marshal, PCIe and launch) and ``MeshCodec.encode
+    (with_crc=True)`` on a device-resident batch (CUDA events), split into
+    the GF(2^8) launch and K4;
  9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
-    for K1/K2, phases 6-7 for K3), its time at its headline shape, its
-    bound, its plain version's time and its largest difference from the
-    plain version; K2 also its times on the other paths it serves (phases
-    4-6) and its registers, shared memory, blocks per SM and spill bytes as
-    the CUDA runtime reports them;
+    for K1/K2, phases 6-7 for K3, phase 8c for K4), its time at its headline
+    shape, its bound, its plain version's time and its largest difference
+    from the plain version; K2 also its times on the other paths it serves
+    (phases 4-6) and its registers, shared memory, blocks per SM and spill
+    bytes as the CUDA runtime reports them;
 10. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
@@ -61,6 +83,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 INT32_OPS_PER_CLOCK = 64 * 132   # H100 SXM: 64 INT32 lanes per SM, 132 SMs
+SMEM_LOOKUPS_PER_CLOCK = 32 * 132  # H100: 32 shared-memory banks per SM
 GiB = float(1 << 30)
 # (stripes, k, m, chunk bytes): BASELINE.json configs 2 and 3, 1 MiB stripes
 MAIN = (1024, 8, 3, 131072)
@@ -72,6 +95,17 @@ PMSR_LOST = (1, 6)               # a data chunk and a coding chunk
 # the engine sweep's (batch, chunk); it writes a table in the build
 # directory, not the live one
 SWEEP = (1024, 131072)
+# PMSR k=7,m=6 through the dense route: chunk = the smallest multiple of the
+# codec's alignment (192 = SIMD_ALIGN 32 x alpha 6) >= 131072
+PMSR7 = (1024, 131136, {"k": "7", "m": "6"})
+PMSR7_LOST = (1, 9)
+# the dense kernels' old grid limit, passed: (B, k, L) at r=3 and K2's g
+K1_WIDE = (70000, 8, 128)
+K2_WIDE = (140000, 8, 128, 2)
+# the OSD path: submissions x (stripes, k, chunk bytes), one batch of 1024
+OSD = (64, 16, 131072)
+# K4's ragged resident buffer: 64 MiB and a ragged tail
+RESIDENT_BYTES = (64 << 20) + 12345
 
 
 def log(msg: str) -> None:
@@ -237,6 +271,12 @@ def phase_kernels(dev: torch.device) -> dict:
     cases.append(("lrc8/4/3 parity r=8", lrc.parity_matrix, 2, 640))
     cases.append(("lrc8/4/3 local repair k=3 r=1",
                   lrc.repair_matrix((1, 2, 3), (0,)), 4, 384))
+    # K1's split-k: 42 chunks (32 + 10) at r=36, 72 chunks in three groups
+    wide = np.random.default_rng(SEED + 8)
+    cases.append(("k=42 r=36 split-k", wide.integers(0, 256, (36, 42),
+                                                     dtype=np.uint8), 3, 1001))
+    cases.append(("k=72 r=3 split-k", wide.integers(0, 256, (3, 72),
+                                                    dtype=np.uint8), 2, 512))
 
     err = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
     checked = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
@@ -311,6 +351,138 @@ def phase_k3_small(dev: torch.device, built: dict) -> int:
         f"{len({c[0] for c in cases})} digests byte-exact (ragged L, odd B, "
         f"misaligned base included)")
     return err
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0 (K1-K3 and K4)."""
+    from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
+    for counts in (gf2kernels.LAUNCHES, crc32c_batch.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> dict:
+    from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
+    return {**gf2kernels.LAUNCHES, **crc32c_batch.LAUNCHES}
+
+
+def phase_k4_small(dev: torch.device) -> int:
+    """K4 == plain == host numpy engine, bit for bit, on small seeded
+    shapes: one row and many, ragged l, a misaligned base."""
+    from ceph_tpu_torch.ops import crc32c_batch as crc
+
+    cases = [(n, l, False) for l in (0, 1, 7, 8, 9, 127, 4096, 4099)
+             for n in (1, 3000)]
+    cases += [(64, 131072, False), (37, 4099, True), (3, 1001, True)]
+    rng = np.random.default_rng(SEED + 9)
+    err = 0
+    for n, l, misaligned in cases:
+        host = rng.integers(0, 256, (n, l), dtype=np.uint8)
+        if misaligned:
+            buf = torch.empty(n * l + 1, dtype=torch.uint8, device=dev)
+            x = buf[1:].view(n, l)
+            x.copy_(torch.from_numpy(host))
+        else:
+            x = torch.from_numpy(host).to(dev)
+        got = crc.crc32c_chunks(x)
+        ref = crc.crc32c_chunks_plain(x)
+        torch.cuda.synchronize()
+        diff = int((got - ref).abs().max())
+        err = max(err, diff)
+        want = crc.crc32c_rows(host) if l else np.full(n, crc.SEED, np.uint32)
+        if diff or not np.array_equal(crc.to_uint32(got), want):
+            raise RuntimeError(f"crc32c_chunks differs on N={n} l={l}"
+                               f"{' misaligned' if misaligned else ''}: max "
+                               f"|kernel - plain| = {diff}")
+    log(f"K4 crc32c_chunks vs plain and host engine: {len(cases)} shapes "
+        f"bit-exact (l in 0..131072, N 1..3000, misaligned base included)")
+    return err
+
+
+def phase_repair(dev: torch.device) -> dict:
+    """The dense kernels past their old limits, byte-exact: PMSR k=7,m=6
+    at full width through the dense route (K1 at k=42), one K1 launch at
+    B > 65535 and one K2 launch at B/g > 65535."""
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.gf import gen_rs_matrix, gf_matmul
+    from ceph_tpu_torch.ops import gf2kernels as gk
+
+    b, l, profile = PMSR7
+    codec = registry().factory("pmsr", dict(profile))
+    k, m, n, a = codec.k, codec.m, codec.get_chunk_count(), codec.alpha
+    if l % codec.get_alignment():
+        raise RuntimeError(f"pmsr7/6 chunk {l} is not aligned to "
+                           f"{codec.get_alignment()}")
+    src, lost = codec.decode_plan(set(PMSR7_LOST),
+                                  set(range(n)) - set(PMSR7_LOST))
+    extra = codec.pack_decode_extra(src, lost)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    data = torch.randint(0, 256, (b, k, l), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    with xor_sched_env("0"):
+        parity = codec.encode_batch(data)
+        pos = {codec.chunk_index(i): data[:, i] for i in range(k)}
+        pos.update({p: parity[:, r]
+                    for r, p in enumerate(codec.coding_positions)})
+        survivors = torch.stack([pos[p] for p in src], dim=1)
+        recovered = codec.decode_batch(extra, survivors)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if parity.shape != (b, m, l) or recovered.shape != (b, len(lost), l):
+        raise RuntimeError(f"pmsr7/6: bad shapes {parity.shape} "
+                           f"{recovered.shape}")
+    if not torch.equal(recovered, torch.stack([pos[p] for p in lost], 1)):
+        raise RuntimeError("pmsr7/6: recovered chunks differ from the lost")
+    for i in np.random.default_rng(SEED + 12).choice(b, 4, replace=False):
+        sub = data[int(i)].cpu().numpy().reshape(k * a, l // a)
+        want = gf_matmul(codec.parity_matrix, sub).reshape(m, l)
+        if not np.array_equal(parity[int(i)].cpu().numpy(), want):
+            raise RuntimeError(f"pmsr7/6: encode stripe {i} differs from host")
+    if launches["gf2_matmul_popc"] < 4 or launches["gf2_matmul_mma"] \
+            or launches["xor_sched"]:
+        raise RuntimeError(f"pmsr7/6 left K1's split-k route: {launches}")
+    with xor_sched_env("0"):
+        enc_ms = time_ms(lambda: codec.encode_batch(data), iters=3)
+        dec_ms = time_ms(lambda: codec.decode_batch(extra, survivors), iters=3)
+    del data, parity, survivors, recovered, pos
+
+    rs = gen_rs_matrix(11, 8)[8:]
+    w_flat = torch.from_numpy(gk.bitmatrix_i8(rs)).to(dev)
+    wide = {}
+    for name, (bw, kw, lw, g) in (("gf2_matmul_popc", K1_WIDE + (1,)),
+                                  ("gf2_matmul_mma", K2_WIDE)):
+        x = torch.randint(0, 256, (bw, kw, lw), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        reset_launches()
+        if name == "gf2_matmul_popc":
+            out = gk.gf2_matmul_popc(rs, x)
+            plain = lambda t: gk.gf2_matmul_plain(w_flat, t)  # noqa: E731
+        else:
+            out = gk.gf2_matmul_mma(rs, x, g)
+            w_group = torch.from_numpy(gk.w_gN_planemajor(rs, g)).to(dev)
+            plain = lambda t: gk.gf2_matmul_grouped_plain(w_group, t, g)  # noqa: E731
+        torch.cuda.synchronize()
+        count = launch_counts()[name]
+        _, diff = plain_in_slices(plain, x, out, slice_b=8192)
+        pick = [0, 65535, 65536, bw - 1]
+        for i, want in zip(pick, host_stripes(rs, x, pick)):
+            if not np.array_equal(out[i].cpu().numpy(), want):
+                raise RuntimeError(f"{name} at B={bw}: stripe {i} differs")
+        if diff or count != 1:
+            raise RuntimeError(f"{name} at B={bw}: max |kernel - plain| "
+                               f"{diff}, {count} launches")
+        wide[name] = {"shape": [bw, kw, lw], "g": g, "launches": count}
+    log(f"repair: pmsr7/6 ({b}, {k}, {l}) -> flat ({b}, {k * a}, {l // a}) "
+        f"dense: encode {enc_ms:.3f} ms, decode {list(src)} -> {list(lost)} "
+        f"{dec_ms:.3f} ms, recovered == lost, 4 stripes == host, launches "
+        f"{launches}; K1 at {list(K1_WIDE)} and K2 at {list(K2_WIDE[:3])} "
+        f"g={K2_WIDE[3]}: one launch each, == plain and host oracle "
+        f"(stripes 0, 65535, 65536, B-1)")
+    return {"pmsr7_launches": launches, "pmsr7_ms": (enc_ms, dec_ms),
+            "wide": wide}
 
 
 def phase_main_path(dev: torch.device) -> tuple[dict, dict]:
@@ -527,6 +699,250 @@ def phase_autotune() -> None:
         for tag, r in rows.items()) + f"; written to {table.name}")
 
 
+def phase_k4_full(dev: torch.device, main: dict) -> dict:
+    """K4 at full width: the chunk CRCs of the RS main path's data and
+    parity rows (the fused encode's CRC work) against the host engine on
+    sampled rows and against the plain version on every row; and
+    ``crc32c_resident`` of a ragged buffer over 64 MiB against the host
+    engine on the whole buffer."""
+    from ceph_tpu_torch.ops import crc32c_batch as crc
+    from ceph_tpu_torch.ops import gf2kernels as gk
+
+    data = main["data"]
+    b, k, l = data.shape
+    parity = gk.gf_matmul_batch_device(main["matrix"], data)
+    crc_d = crc.crc32c_device_chunks(data)
+    crc_p = crc.crc32c_device_chunks(parity)
+    crcs = torch.cat([crc_d, crc_p], dim=1)
+    r = parity.shape[1]
+    rng = np.random.default_rng(SEED + 14)
+    pick = [(int(i), int(j)) for i, j in zip(rng.integers(0, b, 48),
+                                              rng.integers(0, k + r, 48))]
+    rows = np.stack([(data[i, j] if j < k else parity[i, j - k]).cpu().numpy()
+                     for i, j in pick])
+    got = crc.to_uint32(crcs)
+    if not np.array_equal(np.array([got[i, j] for i, j in pick], np.uint32),
+                          crc.crc32c_rows(rows)):
+        raise RuntimeError("crc32c_chunks differs from the host engine at "
+                           "full width")
+    rows_d = torch.cat([data.reshape(-1, l), parity.reshape(-1, l)])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = crc.crc32c_chunks_plain(rows_d)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = int((plain - torch.cat([crc_d.reshape(-1), crc_p.reshape(-1)]))
+              .abs().max())
+    del rows_d, plain
+    if err:
+        raise RuntimeError(f"crc32c_chunks differs from its plain version at "
+                           f"full width: max {err}")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    buf = torch.randint(0, 256, (RESIDENT_BYTES,), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    got_res = crc.crc32c_resident(buf)
+    want_res = int(crc.crc32c_rows(buf.cpu().numpy().reshape(1, -1))[0])
+    if got_res != want_res:
+        raise RuntimeError(f"crc32c_resident {got_res:#x} != host "
+                           f"{want_res:#x} over {RESIDENT_BYTES} bytes")
+    log(f"K4 full width: ({b}, {k}+{r}, {l}) chunk CRCs == host engine on 48 "
+        f"sampled rows and == plain on all {b * (k + r)} rows (plain "
+        f"{plain_ms:.1f} ms); crc32c_resident over {RESIDENT_BYTES} bytes "
+        f"== host engine ({got_res:#010x})")
+    return {"data": data, "parity": parity, "plain_ms": plain_ms, "err": err}
+
+
+def phase_osd(dev: torch.device) -> dict:
+    """The OSD path at full width: CodecBatcher -> MeshCodec, one launch
+    per coalesced batch, byte-exact against the codecs' own batch entry
+    points and the host CRC engine."""
+    import asyncio
+    from ceph_tpu_torch.common.perf import PerfCounters
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.ops import crc32c_batch as crc
+    from ceph_tpu_torch.ops.gf2kernels import gf_matmul_batch_device
+    from ceph_tpu_torch.osd.codec_batcher import CodecBatcher
+    from ceph_tpu_torch.parallel.mesh_codec import MeshCodec
+
+    nsub, per, l = OSD
+    total, k, m = nsub * per, 8, 3
+    codec = registry().factory("cuda", {"k": "8", "m": "3",
+                                        "technique": "reed_sol_van"})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    data_d = torch.randint(0, 256, (total, k, l), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    data = data_d.cpu().numpy()
+    parts = [slice(i * per, (i + 1) * per) for i in range(nsub)]
+    perf = PerfCounters("ec_batch")
+    batcher = CodecBatcher(max_batch=total, perf=perf, device=dev)
+    loop = asyncio.new_event_loop()
+    paths = {}
+
+    def drive(tag, calls):
+        """Submit concurrently; this path's launches, mesh launches and
+        host seconds, from submission to the last result."""
+        reset_launches()
+        mesh0, fall0 = perf.get("mesh_launches"), perf.get("mesh_fallbacks")
+        async def submit_all():
+            return await asyncio.gather(*calls())
+        t0 = time.perf_counter()
+        out = loop.run_until_complete(submit_all())
+        secs = time.perf_counter() - t0
+        counts = {n: c for n, c in launch_counts().items() if c}
+        mesh = perf.get("mesh_launches") - mesh0
+        if mesh != 1 or perf.get("mesh_fallbacks") != fall0:
+            raise RuntimeError(f"osd {tag}: {mesh} mesh launches, fallbacks "
+                               f"{perf.get('mesh_fallbacks')}")
+        paths[tag] = {"launches": counts, "mesh_launches": mesh,
+                      "host_s": secs}
+        return out
+
+    def check(tag, got, want):
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"osd {tag}: differs from the codec's own "
+                               f"batch entry point")
+
+    # RS encode with fused CRCs: 64 submissions -> one (1024, 8, L) launch
+    def encodes():
+        return [batcher.encode(codec, data[p], with_crc=True) for p in parts]
+    res = drive("rs8/3 encode+crc", encodes)
+    parity = np.concatenate([p for p, _ in res])
+    crcs = np.concatenate([c for _, c in res])
+    check("rs8/3 encode", parity, codec.encode_batch(data_d).cpu().numpy())
+    rng = np.random.default_rng(SEED + 17)
+    pick = [(int(i), int(j)) for i, j in zip(rng.integers(0, total, 64),
+                                              rng.integers(0, k + m, 64))]
+    rows = np.stack([data[i, j] if j < k else parity[i, j - k]
+                     for i, j in pick])
+    if crcs.dtype != np.uint32 or not np.array_equal(
+            np.array([crcs[i, j] for i, j in pick], np.uint32),
+            crc.crc32c_rows(rows)):
+        raise RuntimeError("osd rs8/3 encode: chunk CRCs differ from the host "
+                           "engine")
+    if paths["rs8/3 encode+crc"]["launches"].get("crc32c_chunks", 0) < 1:
+        raise RuntimeError("osd rs8/3 encode: K4 was not launched")
+    encode_s = []
+    for _ in range(3):
+        drive("rs8/3 encode+crc", encodes)
+        encode_s.append(paths["rs8/3 encode+crc"]["host_s"])
+    # the host-clock parts of that batch: the marshal's zeroed batch and
+    # row copies, the batch to the card, the parity back
+    t0 = time.perf_counter()
+    staged = np.zeros_like(data)
+    for p in parts:
+        staged[p] = data[p]
+    t1 = time.perf_counter()
+    on_card = torch.from_numpy(staged).to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    parity_d = codec.encode_batch(on_card)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    parity_d.cpu().numpy()
+    t4 = time.perf_counter()
+    parts_ms = {"marshal": (t1 - t0) * 1e3, "to_card": (t2 - t1) * 1e3,
+                "parity_back": (t4 - t3) * 1e3}
+    del staged, on_card, parity_d
+
+    # coalesced decode of [1, 9]
+    erasures = [1, 9]
+    full = np.concatenate([data, parity], axis=1)
+    surv = np.ascontiguousarray(full[:, codec.decode_entry(erasures)[1]])
+    res = drive("rs8/3 decode[1,9]", lambda: [
+        batcher.decode(codec, erasures, surv[p]) for p in parts])
+    rec = np.concatenate(res)
+    check("rs8/3 decode", rec, codec.decode_batch(erasures, surv).cpu().numpy())
+    if not np.array_equal(rec, full[:, erasures]):
+        raise RuntimeError("osd rs8/3 decode: recovered chunks differ")
+    del full, surv, rec
+
+    # rmw: an overwrite of chunk 2's bytes l/32..l/16 (4 KiB) in every stripe
+    delta = np.zeros_like(data)
+    delta[:, 2, l // 32:l // 16] = rng.integers(0, 256, (total, l // 32),
+                                                dtype=np.uint8)
+    res = drive("rs8/3 rmw", lambda: [
+        batcher.rmw(codec, parity[p], delta[p]) for p in parts])
+    check("rs8/3 rmw", np.concatenate(res),
+          codec.encode_batch(data ^ delta).cpu().numpy())
+    del delta
+
+    # LRC k=8,m=4,l=3 encode and local repair of chunk 0, flat dialect
+    lrc = registry().factory("lrc", dict(LRC[2]))
+    res = drive("lrc8/4/3 encode", lambda: [
+        batcher.encode(lrc, data[p]) for p in parts])
+    lparity = np.concatenate(res)
+    check("lrc8/4/3 encode", lparity, lrc.encode_batch(data_d).cpu().numpy())
+    n = lrc.get_chunk_count()
+    src, lost = lrc.decode_plan({0}, set(range(n)) - {0})
+    extra = lrc.pack_decode_extra(src, lost)
+    pos = {lrc.chunk_index(i): data[:, i] for i in range(lrc.k)}
+    pos.update({p: lparity[:, r] for r, p in enumerate(lrc.coding_positions)})
+    lsurv = np.ascontiguousarray(np.stack([pos[p] for p in src], 1))
+    res = drive("lrc8/4/3 local repair", lambda: [
+        batcher.decode(lrc, extra, lsurv[p]) for p in parts])
+    rec = np.concatenate(res)
+    check("lrc8/4/3 local repair", rec,
+          lrc.decode_batch(extra, lsurv).cpu().numpy())
+    if not np.array_equal(rec, np.stack([pos[p] for p in lost], 1)):
+        raise RuntimeError("osd lrc local repair: recovered chunk differs")
+    del lparity, lsurv, pos, rec
+
+    # PMSR k=5,m=4 decode of chunks (1, 6), flat dialect
+    pm = registry().factory("pmsr", dict(PMSR[2]))
+    pdata = data_d[:, :pm.k].contiguous()
+    pparity = pm.encode_batch(pdata).cpu().numpy()
+    pdata = pdata.cpu().numpy()
+    n = pm.get_chunk_count()
+    src, lost = pm.decode_plan(set(PMSR_LOST), set(range(n)) - set(PMSR_LOST))
+    extra = pm.pack_decode_extra(src, lost)
+    pos = {pm.chunk_index(i): pdata[:, i] for i in range(pm.k)}
+    pos.update({p: pparity[:, r] for r, p in enumerate(pm.coding_positions)})
+    psurv = np.ascontiguousarray(np.stack([pos[p] for p in src], 1))
+    res = drive(f"pmsr5/4 decode{list(PMSR_LOST)}", lambda: [
+        batcher.decode(pm, extra, psurv[p]) for p in parts])
+    rec = np.concatenate(res)
+    check("pmsr5/4 decode", rec, pm.decode_batch(extra, psurv).cpu().numpy())
+    if not np.array_equal(rec, np.stack([pos[p] for p in lost], 1)):
+        raise RuntimeError("osd pmsr decode: recovered chunks differ")
+    del pdata, pparity, psurv, pos, rec
+    loop.close()
+
+    # MeshCodec.encode(with_crc=True) on a device-resident batch, and its
+    # two parts: the GF(2^8) launch and K4 over data + parity
+    mesh = MeshCodec(device=dev)
+    mat = codec.encode_matrix[k:]
+    parity_d = gf_matmul_batch_device(mat, data_d)
+    fused_ms = time_ms(lambda: mesh.encode(codec, data_d, with_crc=True,
+                                           out_np=False), iters=5)
+    gf_ms = time_ms(lambda: gf_matmul_batch_device(mat, data_d), iters=5)
+    k4_ms = time_ms(lambda: (crc.crc32c_chunks(data_d),
+                             crc.crc32c_chunks(parity_d)), iters=5)
+    del parity_d
+    gib = data.nbytes / GiB
+    batch_s = sum(encode_s) / len(encode_s)
+    log(f"osd path rs8/3 ({total}, {k}, {l}) as {nsub} x {per} stripes: one "
+        f"mesh launch per batch on every path, mesh_fallbacks "
+        f"{perf.get('mesh_fallbacks')}; batcher encode+crc "
+        f"{gib / batch_s:.2f} GiB/s ({batch_s * 1e3:.1f} ms per coalesced "
+        f"batch, host clock: marshal, PCIe, launch and fan-out; of which "
+        f"marshal {parts_ms['marshal']:.1f}, {gib:.2f} GiB to the card "
+        f"{parts_ms['to_card']:.1f}, parity back {parts_ms['parity_back']:.1f} "
+        f"ms); "
+        f"MeshCodec.encode(with_crc) device-resident {fused_ms:.3f} ms "
+        f"(CUDA events) = GF(2^8) {gf_ms:.3f} + K4 {k4_ms:.3f}; all paths == "
+        f"the codecs' own batch entry points, 64 CRC rows == host engine; "
+        + "; ".join(f"{tag}: {p['launches']}, {p['host_s'] * 1e3:.1f} ms"
+                    for tag, p in paths.items()))
+    return {"paths": paths, "batch_ms": batch_s * 1e3, "parts_ms": parts_ms,
+            "batch_gibps": gib / batch_s, "fused_ms": fused_ms,
+            "gf_ms": gf_ms, "k4_ms": k4_ms,
+            "k4_launches": paths["rs8/3 encode+crc"]["launches"][
+                "crc32c_chunks"]}
+
+
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
     """The SM clock nvidia-smi reads while ``fn``'s launches run."""
     for _ in range(launches):
@@ -561,7 +977,8 @@ def plain_in_slices(plain, data: torch.Tensor, out: torch.Tensor,
 
 def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
-                      cauchy_ms: float) -> dict:
+                      cauchy_ms: float, k4: dict, k4_small_err: int,
+                      osd: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K2 also with its other paths' times and its launch configuration."""
     from ceph_tpu_torch.ops import gf2kernels as gk
@@ -653,6 +1070,28 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     if err:
         raise RuntimeError(f"xor_sched differs from its plain version at the "
                            f"headline shape: max {err}")
+
+    # K4 at the fused RS encode: the CRCs of (1024 x 11) rows of 131072 B;
+    # bound: each byte read once, or one shared-memory table lookup per
+    # byte at 32 a clock per SM
+    nrows = k4["data"].shape[0] * (k4["data"].shape[1] + k4["parity"].shape[1])
+    l = k4["data"].shape[2]
+    t_bytes = (nrows * l + 4 * nrows) / HBM_BYTES_PER_S * 1e3
+    t_ops = nrows * l / (SMEM_LOOKUPS_PER_CLOCK * mhz * 1e6) * 1e3
+    rows.append({
+        "name": "crc32c_chunks", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crc32c.cu",
+        "replaces": "ceph_tpu/ops/crc32c_batch.py:418 (XLA program, not "
+                    "Pallas)",
+        "launches": osd["k4_launches"],
+        "max_abs_err": max(k4["err"], k4_small_err),
+        "ms": round(osd["k4_ms"], 4), "plain_ms": round(k4["plain_ms"], 4),
+        "bound_ms": round(max(t_bytes, t_ops), 4),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "library_note": "no PyTorch call computes CRC32C",
+        "shape": [nrows, l], "sm_clock_mhz": mhz,
+    })
     return {"kernels": rows}
 
 
@@ -667,14 +1106,20 @@ def main() -> int:
     built = phase_build()
     small_err = phase_kernels(dev)
     k3_small_err = phase_k3_small(dev, built)
+    k4_small_err = phase_k4_small(dev)
+    phase_repair(dev)
     with xor_sched_env(None):          # the RS main path keeps its routing
         launches, main_inputs = phase_main_path(dev)
         cauchy_ms = phase_cauchy(dev)
     lrc = phase_linear(dev, "lrc", LRC, (0,), SEED + 5)
     pmsr = phase_linear(dev, "pmsr", PMSR, PMSR_LOST, SEED + 7)
     phase_autotune()
+    os.environ.pop("CEPH_TPU_NO_FUSED_CRC", None)   # the fused CRC path
+    with xor_sched_env(None):          # the OSD path keeps its routing
+        k4 = phase_k4_full(dev, main_inputs)
+        osd = phase_osd(dev)
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
-                             k3_small_err, cauchy_ms)
+                             k3_small_err, cauchy_ms, k4, k4_small_err, osd)
     log(json.dumps(line))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")

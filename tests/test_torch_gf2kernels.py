@@ -117,14 +117,21 @@ def test_kernel_weight_layouts_unpack_to_w():
     """The device-side W of each kernel carries exactly the reference W:
     K1's packed 32-bit rows and K2's zero-padded tile-major W_gN."""
     cpu = torch.device("cpu")
-    for k, m, g in [(8, 3, 2), (10, 4, 1), (4, 2, 4), (5, 2, 1), (32, 3, 1)]:
+    for k, m, g in [(8, 3, 2), (10, 4, 1), (4, 2, 4), (5, 2, 1), (32, 3, 1),
+                    (42, 3, 1), (72, 4, 1)]:
         mat = np.ascontiguousarray(gf.gen_cauchy1_matrix(k + m, k)[k:])
         w = ref_k.bitmatrix_i8(mat)
-        words = gk._w_popc_device(mat.tobytes(), m, k, cpu).numpy()
-        assert words.shape == (8 * m, (k + 3) // 4)
-        bits = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")
-        assert np.array_equal(bits[:, :8 * k], w)
-        assert not bits[:, 8 * k:].any()
+        tiles = gk._w_popc_device(mat.tobytes(), m, k, cpu)
+        plan = gk.popc_plan(k, m)
+        assert len(tiles) == len(plan) == -(-k // gk.POPC_GROUP)
+        for (j0, kg, i0, rg), words in zip(plan, tiles):
+            words = words.numpy()
+            assert words.shape == (8 * rg, (kg + 3) // 4)
+            bits = np.unpackbits(words.view(np.uint8), axis=1,
+                                 bitorder="little")
+            assert np.array_equal(bits[:, :8 * kg],
+                                  w[8 * i0:8 * (i0 + rg), 8 * j0:8 * (j0 + kg)])
+            assert not bits[:, 8 * kg:].any()
         if 8 * g * k > 128:
             continue
         tiles = gk._w_mma_device(mat.tobytes(), m, k, g, cpu).numpy()

@@ -1,4 +1,5 @@
-"""Kernel K2 (``gf2_matmul_mma``) built as host C++ and held against ceph_tpu.
+"""Kernels K2 (``gf2_matmul_mma``) and K1 (``gf2_matmul_popc``) built as host
+C++ and held against ceph_tpu.
 
 ``csrc/gf2_matmul.cu`` compiles without ``__CUDACC__`` when the includer
 supplies the CUDA built-ins it uses.  The harness below runs each block's
@@ -7,8 +8,10 @@ threads as host threads (a barrier for ``__syncthreads``, one per warp for
 PTX ISA's fragment layouts, and calls the kernel at the grid ``gf2_matmul_mma``
 would launch.  That checks K2's staging ring, operand order, W permutation,
 parity pack and output stores without a card, against the reference package's
-host GF(2^8) oracle, byte for byte.  The card itself runs it in
-``chip_smoke.py``.
+host GF(2^8) oracle, byte for byte.  K1 runs the same way, one launch per
+``popc_plan`` tile with a small grid, so its split-k tiles (k > 32) and the
+grid-stride walk over (stripe, column block) pairs are checked too.  The card
+itself runs both in ``chip_smoke.py``.
 """
 
 import ctypes
@@ -21,6 +24,7 @@ import torch
 
 import ceph_tpu.gf as ref_gf
 from ceph_tpu_torch.ec.plugins.lrc import ErasureCodeLrc
+from ceph_tpu_torch.ec.plugins.pmsr import ErasureCodePmsr
 from ceph_tpu_torch.gf import build_decode_matrix, gen_cauchy1_matrix, gen_rs_matrix
 from ceph_tpu_torch.ops import _build
 from ceph_tpu_torch.ops import gf2kernels as gk
@@ -49,7 +53,7 @@ inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim;
+inline dim3 blockDim, gridDim;
 inline std::barrier<>* block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
@@ -100,6 +104,45 @@ inline void host_mma_u8(int (&d)[4], const uint4& a, const uint2& b) {
 }
 namespace { alignas(256) unsigned char smem[232448]; }
 #include "gf2_matmul.cu"
+// run one block of `threads` threads, each calling body()
+template <typename Body>
+void run_block(unsigned bx, int threads, Body body, unsigned by = 0) {
+  std::barrier<> bar(threads);
+  block_barrier = &bar;
+  warp_barriers.clear();
+  for (int w = 0; w < (threads + 31) / 32; ++w)
+    warp_barriers.emplace_back(new std::barrier<>(32));
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx.x = t;
+      blockIdx.x = bx;
+      blockIdx.y = by;
+      body();
+    });
+  for (auto& th : pool) th.join();
+}
+// one K1 launch (gf2_matmul_popc's checks aside) with `grid_y` blocks along
+// the stripes (the card takes min(B, 65535))
+extern "C" int k1_host(const void* wpk, const void* data, void* out, long long B,
+                       int k, int j0, int kg, int r, int i0, int rg, long long L,
+                       int acc, int grid_y) {
+  const PopcKernel kernel = popc_kernel_for(kg, acc != 0);
+  const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  std::memset(smem, 0xA5, sizeof smem);
+  const long long per_block = static_cast<long long>(kPopcThreads) * kPopcCols;
+  blockDim.x = kPopcThreads;
+  gridDim.x = static_cast<unsigned>((L + per_block - 1) / per_block);
+  gridDim.y = grid_y;
+  for (unsigned by = 0; by < gridDim.y; ++by)
+    for (unsigned bx = 0; bx < gridDim.x; ++bx)
+      run_block(bx, kPopcThreads, [&] {
+        kernel(static_cast<const uint32_t*>(wpk), static_cast<const uint8_t*>(data),
+               static_cast<uint8_t*>(out), B, k, j0, kg, r, i0, rg, L, vec);
+      }, by);
+  return 0;
+}
 // gf2_matmul_mma's grid, each block's threads run at once
 extern "C" int k2_host(const void* wt, const void* data, void* out, int B, int k,
                        int r, int g, long long L) {
@@ -111,31 +154,21 @@ extern "C" int k2_host(const void* wt, const void* data, void* out, int B, int k
   const unsigned gx = static_cast<unsigned>((L + per_block - 1) / per_block);
   std::memset(smem, 0xA5, sizeof smem);   // stale bytes, as on the card
   blockDim.x = kMmaThreads;
-  for (unsigned by = 0; by < static_cast<unsigned>(B / g); ++by)
-    for (unsigned bx = 0; bx < gx; ++bx) {
-      std::barrier<> bar(kMmaThreads);
-      block_barrier = &bar;
-      warp_barriers.clear();
-      for (int w = 0; w < kMmaWarps; ++w)
-        warp_barriers.emplace_back(new std::barrier<>(32));
-      std::vector<std::thread> threads;
-      for (int t = 0; t < kMmaThreads; ++t)
-        threads.emplace_back([&, t] {
-          threadIdx.x = t;
-          blockIdx.x = bx;
-          blockIdx.y = by;
-          kernel(static_cast<const int8_t*>(wt), static_cast<const uint8_t*>(data),
-                 static_cast<uint8_t*>(out), k, r, g, L);
-        });
-      for (auto& th : threads) th.join();
-    }
+  gridDim.x = static_cast<unsigned>(B / g) * gx;
+  gridDim.y = 1;
+  // grid.x = (stripe group, column block) pairs, column blocks fastest
+  for (unsigned bx = 0; bx < gridDim.x; ++bx)
+    run_block(bx, kMmaThreads, [&] {
+      kernel(static_cast<const int8_t*>(wt), static_cast<const uint8_t*>(data),
+             static_cast<uint8_t*>(out), k, r, g, L);
+    });
   return 0;
 }
 """
 
 
 @pytest.fixture(scope="module")
-def k2_host(tmp_path_factory):
+def host_lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build K2's source for the CPU")
@@ -147,10 +180,17 @@ def k2_host(tmp_path_factory):
                     "-I", str(_build.CSRC), "-o", str(lib), str(src)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
-    v, i = ctypes.c_void_p, ctypes.c_int
-    dll.k2_host.argtypes = [v, v, v, i, i, i, i, ctypes.c_longlong]
+    v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dll.k2_host.argtypes = [v, v, v, i, i, i, i, ll]
     dll.k2_host.restype = i
-    return dll.k2_host
+    dll.k1_host.argtypes = [v, v, v, ll, i, i, i, i, i, i, ll, i, i]
+    dll.k1_host.restype = i
+    return dll
+
+
+@pytest.fixture(scope="module")
+def k2_host(host_lib):
+    return host_lib.k2_host
 
 
 def _lrc():
@@ -214,3 +254,39 @@ def test_sweep_variants_set_the_knobs_they_name():
 def test_mma_config_describes_a_cuda_kernel_only():
     with pytest.raises(ValueError, match="CUDA"):
         gk.mma_config(8, 3, 2, device="cpu")
+
+
+def _pmsr7():
+    codec = ErasureCodePmsr("cpu")
+    codec.init({"k": "7", "m": "6"})
+    return codec
+
+
+K1_CASES = {   # label: (matrix, B, L, grid.y: the stripe walk's stride)
+    "rs8/3 ragged L, grid-stride": (RS83[8:], 3, 1001, 2),
+    "rs8/3 misaligned rows (L % 4)": (RS83[8:], 2, 130, 1),
+    # split-k: 42 = 32 + 10 chunks, two launches into one output
+    "pmsr7/6 parity 36x42": (_pmsr7().parity_matrix, 2, 64, 1),
+    "k=72 (three chunk groups)": (
+        np.random.default_rng(9).integers(0, 256, (3, 72), dtype=np.uint8), 3, 40, 2),
+    "k=33, one row": (
+        np.random.default_rng(10).integers(0, 256, (1, 33), dtype=np.uint8), 1, 1, 1),
+}
+
+
+@pytest.mark.parametrize("label", list(K1_CASES))
+def test_k1_host_build_matches_reference_oracle(host_lib, label):
+    mat, b, l, grid = K1_CASES[label]
+    mat = np.ascontiguousarray(mat, np.uint8)
+    r, k = mat.shape
+    x = np.random.default_rng(len(label)).integers(0, 256, (b, k, l),
+                                                   dtype=np.uint8)
+    out = np.full((b, r, l), 0x5A, np.uint8)
+    tiles = gk._w_popc_device(mat.tobytes(), r, k, torch.device("cpu"))
+    for (j0, kg, i0, rg), w in zip(gk.popc_plan(k, r), tiles):
+        w = np.ascontiguousarray(w.numpy())
+        assert host_lib.k1_host(w.ctypes.data, x.ctypes.data, out.ctypes.data,
+                                b, k, j0, kg, r, i0, rg, l, int(j0 > 0),
+                                grid) == 0
+    want = np.stack([ref_gf.gf_matmul(mat, x[i]) for i in range(b)])
+    assert np.array_equal(out, want)

@@ -240,3 +240,31 @@ def test_codec_init_skips_speculative_compile_of_dense_parity():
     lrc = ErasureCodeLrc(device="cpu")
     lrc.init({"k": "8", "m": "4", "l": "3"})
     assert xs.cached_schedule(gk.bitmatrix_i8(lrc.parity_matrix)) is not None
+
+
+def test_pmsr_k7_dense_batches_match_reference(monkeypatch):
+    """k=7: the flat launch contracts over 42 sub-rows, past one K1 tile."""
+    monkeypatch.setenv("CEPH_TPU_XOR_SCHED", "0")
+    profile = {"k": "7", "m": "6"}
+    ref = RefRegistry().factory("pmsr", dict(profile))
+    port = ErasureCodePmsr(device="cpu")
+    port.init(dict(profile))
+    n, k, a = port.get_chunk_count(), port.k, port.alpha
+    assert port.get_alignment() == ref.get_alignment() == 192
+    assert np.array_equal(port.parity_matrix, ref.parity_matrix)
+    data = np.random.default_rng(1).integers(0, 256, (3, k, 192),
+                                             dtype=np.uint8)
+    parity = port.encode_batch(data, out_np=True)
+    assert np.array_equal(parity, np.asarray(ref.encode_batch(data,
+                                                              out_np=True)))
+    pos = {port.chunk_index(i): data[:, i] for i in range(k)}
+    pos.update({p: parity[:, r] for r, p in enumerate(port.coding_positions)})
+    for lost in ((1, 9), (0, 12), (7, 8)):
+        src, lost = port.decode_plan(set(lost), set(range(n)) - set(lost))
+        extra = port.pack_decode_extra(src, lost)
+        survivors = np.ascontiguousarray(np.stack([pos[p] for p in src], 1))
+        rec = port.decode_batch(extra, survivors, out_np=True)
+        assert np.array_equal(rec, np.stack([pos[p] for p in lost], 1))
+        assert np.array_equal(rec, np.asarray(
+            ref.decode_batch(extra, survivors, out_np=True)))
+    assert a * k > gk.POPC_GROUP          # K1's launch needs split-k
