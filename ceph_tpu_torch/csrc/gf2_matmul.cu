@@ -18,12 +18,13 @@
 //   coalesced 32-bit load per chunk row and thread (4 adjacent columns), a
 //   __byte_perm transpose into column words, W rows in shared memory read as
 //   broadcasts, one 32-bit store per output row.  Any L (ragged edge masked),
-//   any batch (grid.y walks the stripes with a grid-stride loop) and any k: one
-//   launch contracts over a group of at most 32 chunks and up to
-//   kPopcMaxRows output rows (a W tile that fits shared memory), and the
-//   wrapper splits a larger product into tiles (ops/gf2kernels.py
-//   popc_plan), the launches after a row tile's first XORing their partial
-//   products into the output (``acc``): GF(2) is linear, so split-k is exact.
+//   any batch and any k: one launch takes at most 65535 stripes (grid.y),
+//   contracts over a group of at most 32 chunks and writes up to
+//   kPopcMaxRows output rows (a W tile that fits shared memory); the wrapper
+//   splits a larger product into such launches (ops/gf2kernels.py
+//   popc_stripes, popc_plan), a row tile's launches after its first XORing
+//   their partial products into the output (``acc``): GF(2) is linear, so
+//   split-k is exact.
 //
 // gf2_matmul_mma (K2) replaces ceph_tpu/ops/gf2kernels.py
 // _make_pallas_batch_fn_gN (the packed kernel that put the bit-matmul on the
@@ -156,60 +157,59 @@ __device__ __forceinline__ void store4(uint8_t* row, long long c0, long long L,
 // j0..j0+kg-1 (kg <= 4*NQ).  wpk is that tile of W, (8*rg, NQ) words: word q
 // of row 8i+s holds W bits of chunks j0+4q..j0+4q+3.  With kAcc the partial
 // product is XORed into the output instead of stored.  grid.x covers the
-// columns; grid.y (at most 65535) walks the stripes with a grid-stride
-// loop, so any B fits.
+// columns, grid.y the stripes (at most 65535: the wrapper splits a larger
+// batch into launches on offset base pointers).
 template <int NQ, bool kAcc>
 __global__ void __launch_bounds__(kPopcThreads)
 gf2_popc_kernel(const uint32_t* __restrict__ wpk, const uint8_t* __restrict__ data,
-                uint8_t* __restrict__ out, long long B, int k, int j0, int kg, int r,
-                int i0, int rg, long long L, bool vec) {
+                uint8_t* __restrict__ out, int k, int j0, int kg, int r, int i0, int rg,
+                long long L, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* w_s = reinterpret_cast<uint32_t*>(smem);
   for (int i = threadIdx.x; i < 8 * rg * NQ; i += blockDim.x) w_s[i] = wpk[i];
   __syncthreads();
 
+  const long long b = blockIdx.y;
   const long long c0 =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kPopcCols;
   if (c0 >= L) return;
-  const unsigned nb = static_cast<unsigned>(B);   // B < 2^31: the C entry
-  for (unsigned b = blockIdx.y; b < nb; b += gridDim.y) {
-    const uint8_t* src = data + (static_cast<long long>(b) * k + j0) * L;
-    uint32_t col[kPopcCols][NQ];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      uint32_t v[4], t[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * q + jj;
-        v[jj] = j < kg ? load4(src + j * L, c0, L, vec) : 0u;
-      }
-      transpose4(v, t);
-#pragma unroll
-      for (int c = 0; c < kPopcCols; ++c) col[c][q] = t[c];
-    }
 
-    uint8_t* dst = out + (static_cast<long long>(b) * r + i0) * L;
-    for (int i = 0; i < rg; ++i) {
-      uint32_t word = 0;
+  const uint8_t* src = data + (b * k + j0) * L;
+  uint32_t col[kPopcCols][NQ];
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const uint32_t* w = w_s + (8 * i + s) * NQ;
+  for (int q = 0; q < NQ; ++q) {
+    uint32_t v[4], t[4];
 #pragma unroll
-        for (int c = 0; c < kPopcCols; ++c) {
-          uint32_t a = 0;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) a ^= w[q] & col[c][q];
-          word |= static_cast<uint32_t>(__popc(a) & 1) << (8 * c + s);
-        }
-      }
-      if constexpr (kAcc) word ^= load4(dst + i * L, c0, L, vec);
-      store4(dst + i * L, c0, L, vec, word);
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * q + jj;
+      v[jj] = j < kg ? load4(src + j * L, c0, L, vec) : 0u;
     }
+    transpose4(v, t);
+#pragma unroll
+    for (int c = 0; c < kPopcCols; ++c) col[c][q] = t[c];
+  }
+
+  uint8_t* dst = out + (b * r + i0) * L;
+  for (int i = 0; i < rg; ++i) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const uint32_t* w = w_s + (8 * i + s) * NQ;
+#pragma unroll
+      for (int c = 0; c < kPopcCols; ++c) {
+        uint32_t acc = 0;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) acc ^= w[q] & col[c][q];
+        word |= static_cast<uint32_t>(__popc(acc) & 1) << (8 * c + s);
+      }
+    }
+    if constexpr (kAcc) word ^= load4(dst + i * L, c0, L, vec);
+    store4(dst + i * L, c0, L, vec, word);
   }
 }
 
-using PopcKernel = void (*)(const uint32_t*, const uint8_t*, uint8_t*, long long, int,
-                            int, int, int, int, int, long long, bool);
+using PopcKernel = void (*)(const uint32_t*, const uint8_t*, uint8_t*, int, int, int,
+                            int, int, int, long long, bool);
 
 template <bool kAcc>
 PopcKernel popc_kernel_nq(int kg) {
@@ -506,17 +506,17 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
 
 extern "C" {
 
-// One K1 launch (see gf2_popc_kernel): data (B,k,L) uint8, out (B,r,L);
-// wpk the (8*rg, ceil(kg/4)) uint32 W tile of output rows i0.. over chunks
-// j0..j0+kg-1, kg <= 32, rg <= kPopcMaxRows; acc XORs into out.
-int gf2_matmul_popc(const void* wpk, const void* data, void* out, long long B, int k,
-                    int j0, int kg, int r, int i0, int rg, long long L, int acc,
-                    int device, void* stream) {
+// One K1 launch (see gf2_popc_kernel): data (B,k,L) uint8, out (B,r,L),
+// B <= 65535; wpk the (8*rg, ceil(kg/4)) uint32 W tile of output rows i0..
+// over chunks j0..j0+kg-1, kg <= 32, rg <= kPopcMaxRows; acc XORs into out.
+int gf2_matmul_popc(const void* wpk, const void* data, void* out, int B, int k, int j0,
+                    int kg, int r, int i0, int rg, long long L, int acc, int device,
+                    void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (B < 1 || B > 0x7fffffffLL || k < 1 || kg < 1 || kg > 4 * kPopcMaxNQ ||
-      j0 < 0 || j0 + kg > k ||
-      r < 1 || rg < 1 || rg > kPopcMaxRows || i0 < 0 || i0 + rg > r || L < 1)
+  if (B < 1 || B > 65535 || k < 1 || kg < 1 || kg > 4 * kPopcMaxNQ || j0 < 0 ||
+      j0 + kg > k || r < 1 || rg < 1 || rg > kPopcMaxRows || i0 < 0 || i0 + rg > r ||
+      L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const PopcKernel kernel = popc_kernel_for(kg, acc != 0);
   const size_t smem = static_cast<size_t>(8) * rg * ((kg + 3) / 4) * sizeof(uint32_t);
@@ -525,13 +525,12 @@ int gf2_matmul_popc(const void* wpk, const void* data, void* out, long long B, i
   const long long per_block = static_cast<long long>(kPopcThreads) * kPopcCols;
   const long long ncb = (L + per_block - 1) / per_block;
   if (ncb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(ncb),
-                  static_cast<unsigned>(B < 65535 ? B : 65535));
+  const dim3 grid(static_cast<unsigned>(ncb), static_cast<unsigned>(B));
   const bool vec = (L % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(out) % 4 == 0);
   kernel<<<grid, kPopcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(wpk), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), B, k, j0, kg, r, i0, rg, L, vec);
+      static_cast<uint8_t*>(out), k, j0, kg, r, i0, rg, L, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,10 @@ product-matrix MSR is the alpha=k-1 case.
     repair and a global decode are the same call with other sources;
   * the batched data plane: ``encode_batch``/``decode_batch`` reshape
     (B, chunks, L) to (B, sub-chunks, L/alpha) and run through
-    ``ops.gf2kernels.gf_matmul_batch_device``, where the XOR-schedule cost
-    model picks the scheduled kernel (K3) or the dense ones (K1/K2).  The
+    ``ops.gf2kernels.gf_matmul_batch_device`` (``ops.torch_backend.
+    gf_matmul_chunks``), where the XOR-schedule cost model picks the
+    scheduled kernel (K3) or the dense ones (K1/K2); ``encode_batch_crc``
+    adds the chunk CRC32Cs (kernel K4) in the same round trip.  The
     local parities and repair matrices are the sparse matrices greedy CSE
     minimises best, so their schedules are warmed when they are built.
 
@@ -33,7 +35,9 @@ import torch
 
 from ..device import resolve_device
 from ..gf import gf_matmul, gf_solve_rows
-from ..ops.gf2kernels import gf_matmul_batch_device
+from ..ops.crc32c_batch import to_uint32
+from ..ops.gf2kernels import _to_device
+from ..ops.torch_backend import gf_matmul_chunks, gf_matmul_chunks_crc
 from ..ops.xor_schedule import warm_gf8_schedule
 from .base import ErasureCode, SIMD_ALIGN
 
@@ -195,20 +199,29 @@ class LinearSubchunkCodec(ErasureCode):
         return tuple(sorted(available)[:self.k])
 
     # -- batched entry points -------------------------------------------------
-    def _batch_matmul(self, matrix: np.ndarray, arr, out_chunks: int,
-                      out_np: bool):
-        b, c, lane = arr.shape
-        sub = arr.reshape(b, c * self.alpha, lane // self.alpha)
-        device = None if isinstance(arr, torch.Tensor) else self.device
-        out = gf_matmul_batch_device(matrix, sub, out_np=out_np,
-                                     device=device)
-        return out.reshape(b, out_chunks, lane)
+    def _on_device(self, arr) -> torch.Tensor:
+        """A tensor stays on its own device; a numpy batch goes to the
+        codec's."""
+        return _to_device(arr, None if isinstance(arr, torch.Tensor)
+                          else self.device)
+
+    def _batch_matmul(self, matrix: np.ndarray, arr, out_np: bool):
+        out = gf_matmul_chunks(matrix, self._on_device(arr), self.alpha)
+        return out.cpu().numpy() if out_np else out
 
     def encode_batch(self, data, out_np: bool = False):
         """(B, k, L) data chunks (logical order) -> (B, m, L) coding
         chunks in ``coding_positions`` order, one launch."""
-        return self._batch_matmul(self.parity_matrix, data, self.m,
-                                  out_np)
+        return self._batch_matmul(self.parity_matrix, data, out_np)
+
+    def encode_batch_crc(self, data):
+        """encode_batch plus device-fused integrity: ((B, m, L) coding
+        chunks, (B, k+m) chunk CRC32Cs as np.uint32) from one device round
+        trip, the CRCs by K4 over the data and the fresh coding chunks (a
+        chunk's sub-chunk rows are its bytes in order)."""
+        parity, crcs = gf_matmul_chunks_crc(
+            self.parity_matrix, self._on_device(data), self.alpha)
+        return parity.cpu().numpy(), to_uint32(crcs)
 
     @staticmethod
     def pack_decode_extra(src, lost) -> tuple[int, ...]:
@@ -254,7 +267,7 @@ class LinearSubchunkCodec(ErasureCode):
         Returns (B, len(lost), L)."""
         src, lost = self.unpack_decode_extra(erasures)
         matrix = self.repair_matrix(src, lost)
-        return self._batch_matmul(matrix, survivors, len(lost), out_np)
+        return self._batch_matmul(matrix, survivors, out_np)
 
     def decode_flat_matrix(self, erasures) -> np.ndarray:
         """The repair matrix for a packed extra (the MeshCodec flat

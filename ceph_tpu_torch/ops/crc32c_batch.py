@@ -292,14 +292,12 @@ def crc32c_numpy_one(data, crc: int = SEED) -> int:
 
 # -- batched entry points ---------------------------------------------------
 
-def crc32c_rows(arr, lengths=None, seed: int = SEED,
-                backend: str | None = None) -> np.ndarray:
-    """CRCs of the rows of a (N, L) uint8 array in one pass.
+def crc32c_rows(arr, lengths=None, seed: int = SEED) -> np.ndarray:
+    """CRCs of the rows of a (N, L) uint8 array in one pass of the numpy
+    engine.
 
     ``lengths`` (optional, per-row) truncates row i to its first
-    ``lengths[i]`` bytes; the bytes beyond may be anything.  The numpy
-    engine serves; ``backend="native"`` raises, as the reference does
-    where its native library is missing.
+    ``lengths[i]`` bytes; the bytes beyond may be anything.
     """
     arr = np.ascontiguousarray(arr, np.uint8)
     assert arr.ndim == 2, arr.shape
@@ -309,8 +307,6 @@ def crc32c_rows(arr, lengths=None, seed: int = SEED,
     PERF.inc("batched_calls")
     PERF.inc("batched_bufs", n)
     PERF.inc("batched_bytes", int(lens.sum()))
-    if backend == "native":
-        raise RuntimeError("native crc32c batch unavailable")
     PERF.inc("numpy_batches")
     if lengths is not None and bool((lens < l).any()):
         arr = arr.copy()
@@ -318,12 +314,10 @@ def crc32c_rows(arr, lengths=None, seed: int = SEED,
     return _crc_rows_numpy(arr, lens, seed)
 
 
-def crc32c_batch(bufs, seed: int = SEED,
-                 backend: str | None = None) -> np.ndarray:
+def crc32c_batch(bufs, seed: int = SEED) -> np.ndarray:
     """CRCs of a ragged sequence of buffers (bytes-like or uint8
-    arrays) in one pass; empty buffers come back as the seed, exactly
-    like the scalar call.  The numpy engine serves (``backend`` as in
-    ``crc32c_rows``)."""
+    arrays) in one pass of the numpy engine; empty buffers come back as
+    the seed, exactly like the scalar call."""
     bufs = bufs if isinstance(bufs, (list, tuple)) else list(bufs)
     n = len(bufs)
     views = [np.ascontiguousarray(b, np.uint8).reshape(-1)
@@ -335,8 +329,6 @@ def crc32c_batch(bufs, seed: int = SEED,
     PERF.inc("batched_bytes", int(lens.sum()))
     if n == 0:
         return np.zeros(0, np.uint32)
-    if backend == "native":
-        raise RuntimeError("native crc32c batch unavailable")
     PERF.inc("numpy_batches")
     # bucket by power-of-two padded length so one huge buffer cannot
     # blow the padded matrix up to N x max(L)

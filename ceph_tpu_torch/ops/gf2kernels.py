@@ -9,8 +9,10 @@ with W the bit-expanded coefficient matrix (``bitmatrix_i8``).  Two hand
 written kernels in ``csrc/gf2_matmul.cu`` compute it:
 
   * ``gf2_matmul_popc`` (K1): AND + popcount on CUDA cores, any shape: a
-    product over more than 32 chunks or ``POPC_MAX_ROWS`` rows is split into
-    tiles, one launch each (``popc_plan``), XORed into one output;
+    batch of more than ``POPC_MAX_STRIPES`` stripes is split into stripe
+    ranges (``popc_stripes``) and a product over more than 32 chunks or
+    ``POPC_MAX_ROWS`` rows into tiles (``popc_plan``), one launch each, a
+    row tile's launches XORed into one output;
   * ``gf2_matmul_mma`` (K2): g stripes per block on the int8 tensor cores
     with the plane-major, block-diagonal ``w_gN_planemajor``.
 
@@ -46,9 +48,11 @@ LANE_TILE = 8192
 # byte columns K2 handles per step; every K2 shape has L % MMA_COLS == 0
 MMA_COLS = 128
 # one K1 launch contracts over at most POPC_GROUP chunks into at most
-# POPC_MAX_ROWS output rows (csrc/gf2_matmul.cu kPopcMaxNQ, kPopcMaxRows)
+# POPC_MAX_ROWS output rows (csrc/gf2_matmul.cu kPopcMaxNQ, kPopcMaxRows) of
+# at most POPC_MAX_STRIPES stripes (its grid.y)
 POPC_GROUP = 32
 POPC_MAX_ROWS = 512
+POPC_MAX_STRIPES = 65535
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0, "xor_sched": 0}
@@ -133,10 +137,17 @@ def popc_plan(k: int, r: int) -> list[tuple[int, int, int, int]]:
             for j0 in range(0, k, POPC_GROUP)]
 
 
+def popc_stripes(b: int) -> list[tuple[int, int]]:
+    """K1's stripe ranges for a batch of b: (b0, nb) with nb <=
+    ``POPC_MAX_STRIPES``, each launched on base pointers offset to stripe
+    b0."""
+    n = POPC_MAX_STRIPES
+    return [(b0, min(n, b - b0)) for b0 in range(0, b, n)]
+
+
 def popc_accepts(b: int, k: int, r: int, l: int) -> bool:
-    """K1's shape rule: any (B, k, L) batch of fewer than 2^31 stripes
-    and any (r, k) matrix."""
-    return 0 <= b < 1 << 31 and k >= 1 and r >= 1 and l >= 0
+    """K1's shape rule: any (B, k, L) batch and any (r, k) matrix."""
+    return b >= 0 and k >= 1 and r >= 1 and l >= 0
 
 
 def mma_accepts(b: int, k: int, r: int, g: int, l: int,
@@ -221,7 +232,7 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("gf2_matmul")
-    lib.gf2_matmul_popc.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _I,
+    lib.gf2_matmul_popc.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                                     _LL, _I, _I, _VP]
     lib.gf2_matmul_popc.restype = _I
     lib.gf2_matmul_mma.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _VP]
@@ -293,7 +304,7 @@ def _w_mma_device(mat_bytes: bytes, r: int, k: int, g: int,
 
 def gf2_matmul_popc(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     """K1: (r,k) GF(2^8) matrix x (B,k,L) uint8 -> (B,r,L) uint8, any shape;
-    one launch per ``popc_plan`` tile."""
+    one launch per ``popc_stripes`` range and ``popc_plan`` tile."""
     matrix = _as_matrix(matrix)
     r, k = matrix.shape
     _check_data(data, k)
@@ -307,10 +318,12 @@ def gf2_matmul_popc(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     if b == 0 or l == 0:
         return out
     tiles = _w_popc_device(matrix.tobytes(), r, k, data.device)
-    for (j0, kg, i0, rg), w in zip(popc_plan(k, r), tiles):
-        _launch("gf2_matmul_popc", w.data_ptr(), data.data_ptr(),
-                out.data_ptr(), b, k, j0, kg, r, i0, rg, l, int(j0 > 0),
-                data.device.index, _stream(data.device))
+    for b0, nb in popc_stripes(b):
+        src, dst = data[b0:].data_ptr(), out[b0:].data_ptr()
+        for (j0, kg, i0, rg), w in zip(popc_plan(k, r), tiles):
+            _launch("gf2_matmul_popc", w.data_ptr(), src, dst, nb, k, j0, kg,
+                    r, i0, rg, l, int(j0 > 0), data.device.index,
+                    _stream(data.device))
     return out
 
 
@@ -389,7 +402,7 @@ def _to_device(data, device) -> torch.Tensor:
 def gf_matmul_batch_device(matrix: np.ndarray, data, *, out_np: bool = False,
                            device=None):
     """Batched stripes: (B, k, L) -> (B, r, L), one kernel launch (K1: one
-    per ``popc_plan`` tile).
+    per ``popc_stripes`` range and ``popc_plan`` tile).
 
     ``data`` is a numpy array or a tensor; it runs on ``device`` (default:
     the tensor's own device, else CUDA).  The scheduled engine (K3) serves

@@ -6,7 +6,35 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .crc32c_batch import PERF, crc32c_chunks, to_uint32
 from .gf2kernels import _to_device, gf_matmul_device, gf_matmul_batch_device
+
+
+def gf_matmul_chunks(matrix: np.ndarray, x: torch.Tensor,
+                     alpha: int = 1) -> torch.Tensor:
+    """(B, k, L) chunks -> (B, r, L) chunks in one launch, on x's device:
+    ``matrix`` applied to ``alpha`` sub-chunk rows of L/alpha bytes a
+    chunk (the flat sub-chunk codecs; alpha=1 is the chunks
+    themselves).  The reshapes are views, so a chunk and its sub-chunk
+    rows are the same bytes."""
+    b, k, lane = x.shape
+    out = gf_matmul_batch_device(matrix,
+                                 x.reshape(b, k * alpha, lane // alpha))
+    return out.reshape(b, -1, lane)
+
+
+def gf_matmul_chunks_crc(matrix: np.ndarray, x: torch.Tensor,
+                         alpha: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gf_matmul_chunks`` and the (B, k+r) CRC32C registers (int64) of
+    x's chunks and the result's, computed before anything crosses back
+    to the host: two K4 launches, one over the data chunks and one over
+    the fresh parity, on the same device tensors.  Counted once in the
+    CRC module's ``PERF`` (``fused_launches``, ``fused_crcs``)."""
+    out = gf_matmul_chunks(matrix, x, alpha)
+    crcs = torch.cat([crc32c_chunks(x), crc32c_chunks(out)], dim=1)
+    PERF.inc("fused_launches")
+    PERF.inc("fused_crcs", int(crcs.numel()))
+    return out, crcs
 
 
 class TorchBackend:
@@ -32,13 +60,8 @@ class TorchBackend:
 
     def matmul_batch_crc(self, matrix: np.ndarray, data):
         """Batched stripes (B, k, L) -> ((B, r, L) parity, (B, k+r) chunk
-        CRC32Cs as np.uint32), all computed before anything crosses back
-        to the host: one ``matmul_batch`` launch, then two K4 launches (one
-        over the data chunks, one over the fresh parity) on the same
-        device tensors."""
-        from .crc32c_batch import crc32c_device_chunks, to_uint32
-        x = _to_device(data, self.device)
-        parity = self.matmul_batch(matrix, x, out_np=False)
-        crcs = torch.cat([crc32c_device_chunks(x),
-                          crc32c_device_chunks(parity)], dim=1)
+        CRC32Cs as np.uint32): ``gf_matmul_chunks_crc`` on the device,
+        then the results to the host."""
+        parity, crcs = gf_matmul_chunks_crc(matrix,
+                                            _to_device(data, self.device))
         return parity.cpu().numpy(), to_uint32(crcs)

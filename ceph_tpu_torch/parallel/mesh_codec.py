@@ -11,8 +11,9 @@ partitions the batch over a 1-D jax mesh of every visible device with
     which asks the XOR-schedule cost model first (K3) and then routes
     dense (K1/K2), so the reference's scheduled twins (``_apply_sched``,
     ``_rmw_sched``) collapse into that one call;
-  * the fused CRC32C rides the same device round trip: K4 over the batch
-    and over the fresh parity while both are on the card;
+  * the fused CRC32C rides the same device round trip, in both dialects:
+    K4 over the batch and over the fresh parity while both are on the card
+    (``ops.torch_backend.gf_matmul_chunks_crc``);
   * donation becomes buffer reuse: with ``donate`` (the default) a batch
     that is already a tensor on the card is launched as it is, and RMW
     XORs M.delta into the old-parity tensor IN PLACE
@@ -35,8 +36,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.crc32c_batch import PERF, crc32c_chunks, to_uint32
-from ..ops.gf2kernels import bucket_batch, gf_matmul_batch_device
+from ..ops.crc32c_batch import to_uint32
+from ..ops.gf2kernels import bucket_batch
+from ..ops.torch_backend import gf_matmul_chunks, gf_matmul_chunks_crc
 
 
 @functools.lru_cache(maxsize=256)
@@ -60,10 +62,10 @@ class MeshCodec:
     """One card presented as one giant erasure codec.
 
     ``encode``/``decode``/``rmw`` each run ONE launch of the GF(2^8)
-    product (K1 makes one per ``popc_plan`` tile) for a whole (B, k, L)
-    stripe batch on ``device`` (CUDA unless the caller passes
-    ``device="cpu"``, which runs the plain versions).  ``pad_batch`` gives
-    the bucketed size the CodecBatcher pads to.
+    product (K1 one per ``popc_stripes`` range and ``popc_plan`` tile) for
+    a whole (B, k, L) stripe batch on ``device`` (CUDA unless the caller
+    passes ``device="cpu"``, which runs the plain versions).
+    ``pad_batch`` gives the bucketed size the CodecBatcher pads to.
     """
 
     def __init__(self, n_devices: int = 0, donate: bool = True,
@@ -88,8 +90,8 @@ class MeshCodec:
         build_decode_matrix product decode_batch uses) and the flat
         sub-chunk family (the ``mesh_flat_ok`` marker, ec/linear_codec.py:
         chunks reshape to alpha sub-chunk rows around the same launches,
-        matrices from ``parity_matrix``/``decode_flat_matrix``; fused CRC
-        stays with the first dialect, whose CRCs are chunk-granular)."""
+        matrices from ``parity_matrix``/``decode_flat_matrix``).  Both
+        dialects fuse the chunk CRCs into ``encode``."""
         if getattr(codec, "mesh_flat_ok", False):
             return True
         return (hasattr(codec, "encode_batch_crc")
@@ -130,13 +132,23 @@ class MeshCodec:
             a = a.copy()
         return torch.from_numpy(a).to(self.device)
 
-    def _apply(self, matrix: np.ndarray, batch, with_crc: bool):
+    @classmethod
+    def _alpha(cls, codec) -> int:
+        """Sub-chunk rows a chunk: the flat dialect's alpha, else 1."""
+        return codec.alpha if cls._flat(codec) else 1
+
+    @classmethod
+    def _parity_matrix(cls, codec) -> np.ndarray:
+        return (codec.parity_matrix if cls._flat(codec)
+                else codec.encode_matrix[codec.k:])
+
+    def _apply(self, matrix: np.ndarray, batch, alpha: int,
+               with_crc: bool = False):
         x = self._put(batch)
-        out = gf_matmul_batch_device(matrix, x)
         self._count(x.shape[0])
-        if not with_crc:
-            return out
-        return out, torch.cat([crc32c_chunks(x), crc32c_chunks(out)], dim=1)
+        if with_crc:
+            return gf_matmul_chunks_crc(matrix, x, alpha)
+        return gf_matmul_chunks(matrix, x, alpha)
 
     def encode(self, codec, batch, with_crc: bool = False,
                out_np: bool = True):
@@ -146,24 +158,11 @@ class MeshCodec:
         with ``out_np=False``).  ``out_np=False`` leaves the result on the
         device (the pipelined batcher defers the materialization)."""
         self._check_codec(codec)
-        if self._flat(codec):
-            # sub-chunk dialect: (B, k, L) -> (B, k*alpha, L/alpha) rows
-            # around the same launch; fused CRC is the other dialect's
-            if with_crc:
-                raise ValueError("the flat dialect has no fused CRC")
-            a = codec.alpha
-            b, kc, lane = batch.shape
-            out = self._apply(codec.parity_matrix,
-                              batch.reshape(b, kc * a, lane // a), False)
-            out = out.reshape(b, -1, lane)
-            return _host(out) if out_np else out
-        mat = codec.encode_matrix[codec.k:]
+        mat = self._parity_matrix(codec)
         if not with_crc:
-            out = self._apply(mat, batch, False)
+            out = self._apply(mat, batch, self._alpha(codec))
             return _host(out) if out_np else out
-        out, crcs = self._apply(mat, batch, True)
-        PERF.inc("fused_launches")
-        PERF.inc("fused_crcs", int(crcs.numel()))
+        out, crcs = self._apply(mat, batch, self._alpha(codec), True)
         if not out_np:
             return out, crcs
         return _host(out), to_uint32(crcs)
@@ -177,13 +176,7 @@ class MeshCodec:
             # the packed (sources, lost) extra selects the SAME cached
             # repair matrix decode_batch uses
             matrix = codec.decode_flat_matrix(list(erasures))
-            a = codec.alpha
-            b, s, lane = batch.shape
-            out = self._apply(matrix, batch.reshape(b, s * a, lane // a),
-                              False)
-            out = out.reshape(b, -1, lane)
-            return _host(out) if out_np else out
-        if hasattr(codec, "decode_matrix_for"):
+        elif hasattr(codec, "decode_matrix_for"):
             # the plugin's DecodeTableCache: the SAME matrix decode_batch
             # would use
             matrix = codec.decode_matrix_for(list(erasures))
@@ -191,7 +184,7 @@ class MeshCodec:
             enc = np.ascontiguousarray(codec.encode_matrix, np.uint8)
             matrix = _decode_matrix_cached(enc.tobytes(), *enc.shape,
                                            codec.k, erasures)
-        out = self._apply(matrix, batch, False)
+        out = self._apply(matrix, batch, self._alpha(codec))
         return _host(out) if out_np else out
 
     def rmw(self, codec, old_parity, delta, out_np: bool = True):
@@ -200,29 +193,10 @@ class MeshCodec:
         linearity.  One launch; the result is the old-parity device
         tensor, updated in place."""
         self._check_codec(codec)
-        if self._flat(codec):
-            # GF linearity holds per sub-chunk row identically
-            out = self._rmw_flat(codec, old_parity, delta, codec.alpha)
-        else:
-            out = self._rmw(codec.encode_matrix[codec.k:], old_parity, delta)
+        mat = self._parity_matrix(codec)
+        old = self._put(old_parity)
+        # GF linearity holds per sub-chunk row identically (flat dialect)
+        old.bitwise_xor_(self._apply(mat, delta, self._alpha(codec)))
         if self.perf is not None:
             self.perf.inc("mesh_rmw_launches")
-        return _host(out) if out_np else out
-
-    def _rmw(self, mat: np.ndarray, old_parity, delta) -> torch.Tensor:
-        """old_parity ^= M . delta on the device, one launch."""
-        old = self._put(old_parity)
-        old.bitwise_xor_(gf_matmul_batch_device(mat, self._put(delta)))
-        self._count(old.shape[0])
-        return old
-
-    def _rmw_flat(self, codec, old_parity, delta, a: int) -> torch.Tensor:
-        """Flat-dialect RMW: both operands reshape to sub-chunk rows
-        around the same in-place update with the codec's parity
-        matrix."""
-        b, m, lane = old_parity.shape
-        k = delta.shape[1]
-        out = self._rmw(codec.parity_matrix,
-                        old_parity.reshape(b, m * a, lane // a),
-                        delta.reshape(b, k * a, lane // a))
-        return out.reshape(b, m, lane)
+        return _host(old) if out_np else old

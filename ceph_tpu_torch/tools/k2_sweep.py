@@ -1,4 +1,4 @@
-"""Time variants of kernels K2 (``gf2_matmul_mma``) and K1 on the card, in turns.
+"""Time variants of kernel K2 (``gf2_matmul_mma``) on the card, in turns.
 
     python -m ceph_tpu_torch.tools.k2_sweep [--set kMmaRing=2 ...] \
         [--source OTHER/gf2_matmul.cu ...] [--iters 10]
@@ -11,12 +11,9 @@ variants build at once, one nvcc each.  At each of K2's paths (RS k=8,m=3
 encode and decode [1,9], Cauchy 10/4 decode [2,11], LRC k=8,m=4,l=3 dense
 encode, at the sizes ``chip_smoke.py`` drives) every variant's output must
 equal the first variant's byte for byte, and the first variant's the plain
-version's on 8 stripes.  K1 (``gf2_matmul_popc``, the same source file) is
-timed the same way at RS k=8,m=3 encode, through either of its C entries
-(one launch per tile since K1 takes any k, or the single launch before).
-Times are CUDA-event means over ``--iters`` launches, taken in turns
-(first to last, then last to first).  Prints one JSON object with the
-card's name and power limit.
+version's on 8 stripes.  Times are CUDA-event means over ``--iters``
+launches, taken in turns (first to last, then last to first).  Prints one
+JSON object with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -63,35 +60,12 @@ def variant_text(base: str, knobs: dict[str, int]) -> str:
     return base
 
 
-# K1's path: RS k=8,m=3 encode at the main path's size (one W tile)
-K1_PATH = ("rs8/3 encode (K1)", (1024, 8, 131072))
-
-
-def _tiled_k1(text: str) -> bool:
-    """Whether a source's K1 C entry takes a W tile (j0, kg, i0, rg, acc)."""
-    return "int j0" in text
-
-
-def _load(name: str, text: str) -> ctypes.CDLL:
+def _load(name: str) -> ctypes.CDLL:
     lib = _build.library(name)
-    v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gf2_matmul_mma.argtypes = [v, v, v, i, i, i, i, ll, i, v]
+    v, i = ctypes.c_void_p, ctypes.c_int
+    lib.gf2_matmul_mma.argtypes = [v, v, v, i, i, i, i, ctypes.c_longlong, i, v]
     lib.gf2_matmul_mma.restype = i
-    lib.gf2_matmul_popc.argtypes = (
-        [v, v, v, ll, i, i, i, i, i, i, ll, i, i, v] if _tiled_k1(text)
-        else [v, v, v, i, i, i, ll, i, v])
-    lib.gf2_matmul_popc.restype = i
     return lib
-
-
-def _turns(launches: dict, iters: int) -> dict:
-    """Each variant's launch timed in turns: first to last, then back."""
-    order = list(launches)
-    times = {v: [] for v in order}
-    for turn in (order, order[::-1]):
-        for v in turn:
-            times[v].append(_time_ms(launches[v], iters))
-    return times
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -131,7 +105,7 @@ def main(argv: list[str] | None = None) -> int:
         names[label] = f"gf2_matmul_k2v{i}"
         _build.add_generated(names[label], text)
     _build.build(list(names.values()))
-    libs = {label: _load(name, variants[label]) for label, name in names.items()}
+    libs = {label: _load(name) for label, name in names.items()}
 
     dev = torch.device("cuda", torch.cuda.current_device())
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -164,7 +138,11 @@ def main(argv: list[str] | None = None) -> int:
         for v in libs:
             if not torch.equal(outs[v], outs["base"]):
                 raise RuntimeError(f"{label}: {v} differs from base")
-        times = _turns({v: (lambda v=v: launch(v)) for v in libs}, args.iters)
+        order = list(libs)
+        times = {v: [] for v in order}
+        for turn in (order, order[::-1]):
+            for v in turn:
+                times[v].append(_time_ms(lambda: launch(v), args.iters))
         config = {}
         for v, lib in libs.items():
             try:
@@ -181,40 +159,6 @@ def main(argv: list[str] | None = None) -> int:
             "ms_turns": {v: [round(t, 4) for t in ts] for v, ts in times.items()},
         }
         del x, outs
-
-    label, (b, k, l) = K1_PATH
-    mat = np.ascontiguousarray(gen_rs_matrix(k + 3, k)[k:])
-    r = mat.shape[0]
-    x = torch.randint(0, 256, (b, k, l), dtype=torch.uint8, device=dev,
-                      generator=gen)
-    (w,) = gk._w_popc_device(mat.tobytes(), r, k, dev)   # one tile at k=8
-    outs = {v: torch.empty((b, r, l), dtype=torch.uint8, device=dev)
-            for v in libs}
-
-    def launch_k1(v: str) -> None:
-        args_ = (w.data_ptr(), x.data_ptr(), outs[v].data_ptr(), b, k)
-        args_ += (0, k, r, 0, r, l, 0) if _tiled_k1(variants[v]) else (r, l)
-        err = libs[v].gf2_matmul_popc(*args_, dev.index, stream)
-        if err:
-            raise RuntimeError(f"{v}: K1 launch failed with CUDA error {err}")
-
-    for v in libs:
-        launch_k1(v)
-    torch.cuda.synchronize()
-    plain = gk.gf2_matmul_plain(torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev),
-                                x[:8])
-    if not torch.equal(outs["base"][:8], plain):
-        raise RuntimeError(f"{label}: base differs from the plain version")
-    for v in libs:
-        if not torch.equal(outs[v], outs["base"]):
-            raise RuntimeError(f"{label}: {v} differs from base")
-    times = _turns({v: (lambda v=v: launch_k1(v)) for v in libs}, args.iters)
-    report[label] = {
-        "shape": [b, k, l], "r": r,
-        "ms": {v: round(sum(t) / len(t), 4) for v, t in times.items()},
-        "ms_turns": {v: [round(t, 4) for t in ts] for v, ts in times.items()},
-    }
-    del x, outs
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

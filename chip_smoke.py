@@ -21,7 +21,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
     row and many, and a misaligned base;
  3b. the dense kernels past their old limits: PMSR k=7,m=6 at (1024, 7,
     131136) through the dense route (K1 at k=42, split into two launches),
-    encode and a 2-erasure decode; one K1 launch at B=70000 and one K2
+    encode and a 2-erasure decode; K1 at B=70000 (two launches: the wrapper
+    splits the batch into ranges of at most 65535 stripes) and one K2
     launch at B/g=70000; byte-exact against the plain versions and the host
     oracle;
  4. the RS main path at full width: the ``cuda`` plugin at RS k=8,m=3
@@ -44,8 +45,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
     k=8,m=3 ``encode(with_crc=True)`` submissions of (16, 8, 131072)
     coalesce into one (1024, 8, 131072) launch plus the K4 CRCs; then a
     coalesced ``decode([1, 9])``, an ``rmw`` (new parity == re-encode), an
-    LRC k=8,m=4,l=3 encode and local repair and a PMSR k=5,m=4 decode
-    through the flat dialect; byte-exact against the codecs' own
+    LRC k=8,m=4,l=3 encode with fused CRCs and local repair and a PMSR
+    k=5,m=4 decode through the flat dialect; byte-exact against the codecs' own
     ``encode_batch`` / ``decode_batch`` and the host CRC engine, one mesh
     launch per batch and no fallback; the batcher's wall clock per batch
     (host clock: marshal, PCIe and launch) and ``MeshCodec.encode
@@ -471,16 +472,19 @@ def phase_repair(dev: torch.device) -> dict:
         for i, want in zip(pick, host_stripes(rs, x, pick)):
             if not np.array_equal(out[i].cpu().numpy(), want):
                 raise RuntimeError(f"{name} at B={bw}: stripe {i} differs")
-        if diff or count != 1:
+        want_count = len(gk.popc_stripes(bw)) if name == "gf2_matmul_popc" \
+            else 1
+        if diff or count != want_count:
             raise RuntimeError(f"{name} at B={bw}: max |kernel - plain| "
                                f"{diff}, {count} launches")
         wide[name] = {"shape": [bw, kw, lw], "g": g, "launches": count}
     log(f"repair: pmsr7/6 ({b}, {k}, {l}) -> flat ({b}, {k * a}, {l // a}) "
         f"dense: encode {enc_ms:.3f} ms, decode {list(src)} -> {list(lost)} "
         f"{dec_ms:.3f} ms, recovered == lost, 4 stripes == host, launches "
-        f"{launches}; K1 at {list(K1_WIDE)} and K2 at {list(K2_WIDE[:3])} "
-        f"g={K2_WIDE[3]}: one launch each, == plain and host oracle "
-        f"(stripes 0, 65535, 65536, B-1)")
+        f"{launches}; K1 at {list(K1_WIDE)} "
+        f"({wide['gf2_matmul_popc']['launches']} launches, one per stripe "
+        f"range) and K2 at {list(K2_WIDE[:3])} g={K2_WIDE[3]} (one launch): "
+        f"== plain and host oracle (stripes 0, 65535, 65536, B-1)")
     return {"pmsr7_launches": launches, "pmsr7_ms": (enc_ms, dec_ms),
             "wide": wide}
 
@@ -805,6 +809,22 @@ def phase_osd(dev: torch.device) -> dict:
             raise RuntimeError(f"osd {tag}: differs from the codec's own "
                                f"batch entry point")
 
+    rng = np.random.default_rng(SEED + 17)
+
+    def check_crcs(tag, kk, par, crcs):
+        """64 sampled chunk CRCs == the host engine; K4 launched."""
+        pick = [(int(i), int(j)) for i, j in zip(
+            rng.integers(0, total, 64), rng.integers(0, crcs.shape[1], 64))]
+        rows = np.stack([data[i, j] if j < kk else par[i, j - kk]
+                         for i, j in pick])
+        if crcs.dtype != np.uint32 or not np.array_equal(
+                np.array([crcs[i, j] for i, j in pick], np.uint32),
+                crc.crc32c_rows(rows)):
+            raise RuntimeError(f"osd {tag}: chunk CRCs differ from the host "
+                               f"engine")
+        if paths[tag]["launches"].get("crc32c_chunks", 0) < 1:
+            raise RuntimeError(f"osd {tag}: K4 was not launched")
+
     # RS encode with fused CRCs: 64 submissions -> one (1024, 8, L) launch
     def encodes():
         return [batcher.encode(codec, data[p], with_crc=True) for p in parts]
@@ -812,18 +832,7 @@ def phase_osd(dev: torch.device) -> dict:
     parity = np.concatenate([p for p, _ in res])
     crcs = np.concatenate([c for _, c in res])
     check("rs8/3 encode", parity, codec.encode_batch(data_d).cpu().numpy())
-    rng = np.random.default_rng(SEED + 17)
-    pick = [(int(i), int(j)) for i, j in zip(rng.integers(0, total, 64),
-                                              rng.integers(0, k + m, 64))]
-    rows = np.stack([data[i, j] if j < k else parity[i, j - k]
-                     for i, j in pick])
-    if crcs.dtype != np.uint32 or not np.array_equal(
-            np.array([crcs[i, j] for i, j in pick], np.uint32),
-            crc.crc32c_rows(rows)):
-        raise RuntimeError("osd rs8/3 encode: chunk CRCs differ from the host "
-                           "engine")
-    if paths["rs8/3 encode+crc"]["launches"].get("crc32c_chunks", 0) < 1:
-        raise RuntimeError("osd rs8/3 encode: K4 was not launched")
+    check_crcs("rs8/3 encode+crc", k, parity, crcs)
     encode_s = []
     for _ in range(3):
         drive("rs8/3 encode+crc", encodes)
@@ -869,12 +878,15 @@ def phase_osd(dev: torch.device) -> dict:
           codec.encode_batch(data ^ delta).cpu().numpy())
     del delta
 
-    # LRC k=8,m=4,l=3 encode and local repair of chunk 0, flat dialect
+    # LRC k=8,m=4,l=3 encode with fused CRCs and local repair of chunk 0,
+    # flat dialect
     lrc = registry().factory("lrc", dict(LRC[2]))
-    res = drive("lrc8/4/3 encode", lambda: [
-        batcher.encode(lrc, data[p]) for p in parts])
-    lparity = np.concatenate(res)
+    res = drive("lrc8/4/3 encode+crc", lambda: [
+        batcher.encode(lrc, data[p], with_crc=True) for p in parts])
+    lparity = np.concatenate([p for p, _ in res])
     check("lrc8/4/3 encode", lparity, lrc.encode_batch(data_d).cpu().numpy())
+    check_crcs("lrc8/4/3 encode+crc", lrc.k, lparity,
+               np.concatenate([c for _, c in res]))
     n = lrc.get_chunk_count()
     src, lost = lrc.decode_plan({0}, set(range(n)) - {0})
     extra = lrc.pack_decode_extra(src, lost)
@@ -933,7 +945,8 @@ def phase_osd(dev: torch.device) -> dict:
         f"ms); "
         f"MeshCodec.encode(with_crc) device-resident {fused_ms:.3f} ms "
         f"(CUDA events) = GF(2^8) {gf_ms:.3f} + K4 {k4_ms:.3f}; all paths == "
-        f"the codecs' own batch entry points, 64 CRC rows == host engine; "
+        f"the codecs' own batch entry points, 64 CRC rows a path == host "
+        f"engine; "
         + "; ".join(f"{tag}: {p['launches']}, {p['host_s'] * 1e3:.1f} ms"
                     for tag, p in paths.items()))
     return {"paths": paths, "batch_ms": batch_s * 1e3, "parts_ms": parts_ms,

@@ -104,6 +104,9 @@ def test_decode_and_rmw_coalesce_and_match_reference():
 
 
 def test_flat_codec_crcs_take_the_host_pass():
+    """The reference's flat codecs take its host CRC pass; the port's
+    fuse their chunk CRCs into the one mesh launch (kernel K4 on the card)
+    and must give the same CRCs, ragged tails included."""
     profile = {"k": "4", "m": "2", "l": "3"}
     ref = ref_registry().factory("lrc", dict(profile))
     port = ErasureCodeLrc(device="cpu")
@@ -115,7 +118,10 @@ def test_flat_codec_crcs_take_the_host_pass():
     got = run(_gather(CodecBatcher(perf=perf, device="cpu"), calls))
     want = run(_gather(RefBatcher(), calls))
     assert all(_same(g, w) for g, w in zip(got, want))
-    assert perf.get("crc_host_batches") == 1 and perf.get("mesh_launches") == 1
+    # the reference's flat codecs take its host CRC pass; the port fuses
+    # them into the mesh launch, with the same CRCs
+    assert perf.get("crc_fused_launches") == 1 and perf.get("mesh_launches") == 1
+    assert perf.get("crc_host_batches") == 0
 
 
 def test_without_the_mesh_the_codecs_fused_crc_serves():

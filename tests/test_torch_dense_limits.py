@@ -3,9 +3,9 @@ ladder takes.
 
 ``ceph_tpu``'s dense ladder ends in an XLA program that takes any k and any
 batch.  K1 (``gf2_matmul_popc``) now splits a product over more than 32
-chunks into tiles XORed into one output and walks any batch with a
-grid-stride loop; K2 (``gf2_matmul_mma``) folds its batch into grid.x.  The
-rules are pure functions, asked before the CPU/CUDA split, so they are
+chunks into tiles XORed into one output and a batch of more than 65535
+stripes into launches of at most that many; K2 (``gf2_matmul_mma``) folds
+its batch into grid.x.  The rules are pure functions, asked before the CPU/CUDA split, so they are
 checked here without a card.
 """
 
@@ -76,6 +76,16 @@ def test_popc_plan_splits_rows_and_chunks():
     assert gk.popc_plan(72, 600) == [
         (0, 32, 0, 512), (32, 32, 0, 512), (64, 8, 0, 512),
         (0, 32, 512, 88), (32, 32, 512, 88), (64, 8, 512, 88)]
+
+
+@pytest.mark.parametrize("b", [1, 65535, 65536, 140000])
+def test_popc_stripes_cover_the_batch_in_grid_sized_ranges(b):
+    ranges = gk.popc_stripes(b)
+    assert len(ranges) == -(-b // gk.POPC_MAX_STRIPES)
+    assert all(1 <= nb <= gk.POPC_MAX_STRIPES for _, nb in ranges)
+    assert [b0 for b0, _ in ranges] == list(
+        np.cumsum([0] + [nb for _, nb in ranges])[:-1])
+    assert sum(nb for _, nb in ranges) == b
 
 
 def test_wide_products_on_the_plain_versions_match_the_oracle(monkeypatch):

@@ -9,9 +9,14 @@ PTX ISA's fragment layouts, and calls the kernel at the grid ``gf2_matmul_mma``
 would launch.  That checks K2's staging ring, operand order, W permutation,
 parity pack and output stores without a card, against the reference package's
 host GF(2^8) oracle, byte for byte.  K1 runs the same way, one launch per
-``popc_plan`` tile with a small grid, so its split-k tiles (k > 32) and the
-grid-stride walk over (stripe, column block) pairs are checked too.  The card
-itself runs both in ``chip_smoke.py``.
+``popc_stripes`` range and ``popc_plan`` tile, so its split-k tiles (k > 32)
+and the split of a batch into launches on offset base pointers are checked
+too (at a stripe cap of a few, as ``POPC_MAX_STRIPES`` = 65535 splits a
+larger batch on the card).  The card itself runs both in ``chip_smoke.py``.
+
+The harness is built with hidden visibility: its CUDA stand-ins are inline
+variables, which would otherwise be process-wide unique symbols shared with
+(and clobbered by) another harness loaded into the same process.
 """
 
 import ctypes
@@ -38,6 +43,7 @@ HARNESS = r"""
 #include <thread>
 #include <vector>
 using std::min;
+#define HOST_ENTRY __attribute__((visibility("default")))
 #define __global__
 #define __device__
 #define __host__
@@ -122,11 +128,10 @@ void run_block(unsigned bx, int threads, Body body, unsigned by = 0) {
     });
   for (auto& th : pool) th.join();
 }
-// one K1 launch (gf2_matmul_popc's checks aside) with `grid_y` blocks along
-// the stripes (the card takes min(B, 65535))
-extern "C" int k1_host(const void* wpk, const void* data, void* out, long long B,
-                       int k, int j0, int kg, int r, int i0, int rg, long long L,
-                       int acc, int grid_y) {
+// one K1 launch (gf2_matmul_popc's checks aside): B stripes along grid.y
+extern "C" HOST_ENTRY int k1_host(const void* wpk, const void* data, void* out, int B,
+                                  int k, int j0, int kg, int r, int i0, int rg,
+                                  long long L, int acc) {
   const PopcKernel kernel = popc_kernel_for(kg, acc != 0);
   const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 4 == 0;
@@ -134,17 +139,17 @@ extern "C" int k1_host(const void* wpk, const void* data, void* out, long long B
   const long long per_block = static_cast<long long>(kPopcThreads) * kPopcCols;
   blockDim.x = kPopcThreads;
   gridDim.x = static_cast<unsigned>((L + per_block - 1) / per_block);
-  gridDim.y = grid_y;
+  gridDim.y = B;
   for (unsigned by = 0; by < gridDim.y; ++by)
     for (unsigned bx = 0; bx < gridDim.x; ++bx)
       run_block(bx, kPopcThreads, [&] {
         kernel(static_cast<const uint32_t*>(wpk), static_cast<const uint8_t*>(data),
-               static_cast<uint8_t*>(out), B, k, j0, kg, r, i0, rg, L, vec);
+               static_cast<uint8_t*>(out), k, j0, kg, r, i0, rg, L, vec);
       }, by);
   return 0;
 }
 // gf2_matmul_mma's grid, each block's threads run at once
-extern "C" int k2_host(const void* wt, const void* data, void* out, int B, int k,
+extern "C" HOST_ENTRY int k2_host(const void* wt, const void* data, void* out, int B, int k,
                        int r, int g, long long L) {
   const MmaKernel kernel = mma_kernel_for(k, r);
   if (mma_smem_bytes(mma_reg_w(k, r), mma_ntiles(k, r), mma_ksteps(k), r, g, k) >
@@ -177,13 +182,14 @@ def host_lib(tmp_path_factory):
     src.write_text(HARNESS)
     lib = tmp / "libk2_host.so"
     subprocess.run([cxx, "-O1", "-std=c++20", "-shared", "-fPIC", "-pthread",
-                    "-I", str(_build.CSRC), "-o", str(lib), str(src)],
+                    "-fvisibility=hidden", "-I", str(_build.CSRC), "-o",
+                    str(lib), str(src)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
     v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dll.k2_host.argtypes = [v, v, v, i, i, i, i, ll]
     dll.k2_host.restype = i
-    dll.k1_host.argtypes = [v, v, v, ll, i, i, i, i, i, i, ll, i, i]
+    dll.k1_host.argtypes = [v, v, v, i, i, i, i, i, i, i, ll, i]
     dll.k1_host.restype = i
     return dll
 
@@ -262,7 +268,7 @@ def _pmsr7():
     return codec
 
 
-K1_CASES = {   # label: (matrix, B, L, grid.y: the stripe walk's stride)
+K1_CASES = {   # label: (matrix, B, L, stripes a launch: POPC_MAX_STRIPES)
     "rs8/3 ragged L, grid-stride": (RS83[8:], 3, 1001, 2),
     "rs8/3 misaligned rows (L % 4)": (RS83[8:], 2, 130, 1),
     # split-k: 42 = 32 + 10 chunks, two launches into one output
@@ -275,18 +281,20 @@ K1_CASES = {   # label: (matrix, B, L, grid.y: the stripe walk's stride)
 
 
 @pytest.mark.parametrize("label", list(K1_CASES))
-def test_k1_host_build_matches_reference_oracle(host_lib, label):
-    mat, b, l, grid = K1_CASES[label]
+def test_k1_host_build_matches_reference_oracle(host_lib, label, monkeypatch):
+    mat, b, l, most = K1_CASES[label]
+    monkeypatch.setattr(gk, "POPC_MAX_STRIPES", most)
     mat = np.ascontiguousarray(mat, np.uint8)
     r, k = mat.shape
     x = np.random.default_rng(len(label)).integers(0, 256, (b, k, l),
                                                    dtype=np.uint8)
     out = np.full((b, r, l), 0x5A, np.uint8)
     tiles = gk._w_popc_device(mat.tobytes(), r, k, torch.device("cpu"))
-    for (j0, kg, i0, rg), w in zip(gk.popc_plan(k, r), tiles):
-        w = np.ascontiguousarray(w.numpy())
-        assert host_lib.k1_host(w.ctypes.data, x.ctypes.data, out.ctypes.data,
-                                b, k, j0, kg, r, i0, rg, l, int(j0 > 0),
-                                grid) == 0
+    for b0, nb in gk.popc_stripes(b):
+        for (j0, kg, i0, rg), w in zip(gk.popc_plan(k, r), tiles):
+            w = np.ascontiguousarray(w.numpy())
+            assert host_lib.k1_host(w.ctypes.data, x[b0:].ctypes.data,
+                                    out[b0:].ctypes.data, nb, k, j0, kg, r,
+                                    i0, rg, l, int(j0 > 0)) == 0
     want = np.stack([ref_gf.gf_matmul(mat, x[i]) for i in range(b)])
     assert np.array_equal(out, want)

@@ -9,6 +9,11 @@ segment split, the slice-by-8 and byte paths, the misaligned head and the
 fold tree (inside a warp and across warps) without a card, against the
 reference package's CRCs, bit for bit.  The card runs it in
 ``chip_smoke.py``.
+
+The harness is built with hidden visibility: its CUDA stand-ins are inline
+variables, which would otherwise be process-wide unique symbols shared with
+(and clobbered by) another harness loaded into the same process, such as
+K2's.
 """
 
 import ctypes
@@ -55,8 +60,9 @@ inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int d) {
 namespace { alignas(256) unsigned char smem[65536]; }
 #include "crc32c.cu"
 // the grid the C entry launches, each block's threads at once
-extern "C" int k4_host(const void* data, void* out, long long n, long long l,
-                       long long seg, int log_s, unsigned seed, const void* consts) {
+extern "C" __attribute__((visibility("default")))
+int k4_host(const void* data, void* out, long long n, long long l, long long seg,
+            int log_s, unsigned seed, const void* consts) {
   const int threads = (1 << log_s) > kCrcMinThreads ? (1 << log_s) : kCrcMinThreads;
   const long long blocks = ((n << log_s) + threads - 1) / threads;
   std::memset(smem, 0xA5, sizeof smem);   // stale bytes, as on the card
@@ -93,7 +99,8 @@ def k4_host(tmp_path_factory):
     src.write_text(HARNESS)
     lib = tmp / "libk4_host.so"
     subprocess.run([cxx, "-O1", "-std=c++20", "-shared", "-fPIC", "-pthread",
-                    "-I", str(_build.CSRC), "-o", str(lib), str(src)],
+                    "-fvisibility=hidden", "-I", str(_build.CSRC), "-o",
+                    str(lib), str(src)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
     v, ll = ctypes.c_void_p, ctypes.c_longlong

@@ -4,7 +4,9 @@ The reference runs its real 8-way SPMD program on the conftest's forced
 8-device CPU mesh; the port's one-card plane runs with ``device="cpu"``,
 where the kernels' plain versions serve.  Encode, fused CRC, decode
 (parity erasures included), RMW and the flat LRC / PMSR dialect must give
-the same bytes on the same seeded inputs (tolerance 0).
+the same bytes on the same seeded inputs (tolerance 0).  The reference's
+flat dialect has no fused CRC; the port's flat CRCs are held against the
+reference's host CRC engine.
 """
 
 import asyncio
@@ -15,6 +17,7 @@ import torch
 
 from ceph_tpu.common.perf import PerfCounters as RefPerf
 from ceph_tpu.ec import registry as ref_registry
+from ceph_tpu.ops import crc32c_batch as ref_crc
 from ceph_tpu.osd.codec_batcher import CodecBatcher as RefBatcher
 from ceph_tpu.parallel.mesh_codec import MeshCodec as RefMesh
 from ceph_tpu_torch.common.perf import PerfCounters
@@ -161,8 +164,18 @@ def test_flat_dialect_matches_reference(plugin, profile, cls):
                           mesh.encode(port, data ^ delta))
     assert np.array_equal(mesh.rmw(port, parity, delta),
                           rmesh.rmw(ref, parity, delta))
-    with pytest.raises(ValueError, match="no fused CRC"):
-        mesh.encode(port, data, with_crc=True)
+    # the fused chunk CRCs: the reference's flat dialect has none, so they
+    # are held against its host engine over the same data and coding chunks
+    before = crc.PERF.get("fused_launches")
+    fused_parity, crcs = mesh.encode(port, data, with_crc=True)
+    assert np.array_equal(fused_parity, parity)
+    want = ref_crc.crc32c_rows(np.concatenate([data, parity], 1).reshape(
+        -1, data.shape[2]), backend="numpy").reshape(8, n)
+    assert crcs.dtype == np.uint32 and np.array_equal(crcs, want)
+    assert crc.PERF.get("fused_launches") == before + 1
+    codec_parity, codec_crcs = port.encode_batch_crc(data)
+    assert np.array_equal(codec_parity, parity)
+    assert np.array_equal(codec_crcs, want)
 
 
 def test_one_launch_per_coalesced_batch_like_the_reference():
