@@ -18,8 +18,10 @@ Port of ``ceph_tpu/ops/crc32c_batch.py``.
   CPU tensor.  It also carries the reference's ``crc32c_chunks_traced``
   contract (the same math with no counters, for use inside a fused
   launch): PyTorch traces nothing, so the codec paths call it directly.
-  ``crc32c_device_chunks`` adds the ``PERF`` counters, ``crc32c_resident``
-  checksums a whole buffer in one launch plus a host fold.
+  ``crc32c_chunks_pair`` checksums two sets of rows (a fused encode's data
+  and parity) in one launch.  ``crc32c_device_chunks`` adds the ``PERF``
+  counters, ``crc32c_resident`` checksums a whole buffer in one launch
+  plus a host fold.
 
 CRCs on the device are int64 tensors holding the 32-bit register
 (``torch.uint32`` has few operations); ``to_uint32`` converts them to the
@@ -349,11 +351,19 @@ def crc32c_batch(bufs, seed: int = SEED) -> np.ndarray:
 # launches of K4, counted where the wrapper launches it
 LAUNCHES = {"crc32c_chunks": 0}
 
-# the segment plan: about this many threads, segments of at least
-# _MIN_SEG bytes, at most 2^_MAX_LOG_S segments a row (csrc/crc32c.cu)
-_TARGET_THREADS = 1 << 18
-_MIN_SEG = 256
-_MAX_LOG_S = 10
+# the span plan (csrc/crc32c.cu): a warp checksums a span of 512 * rounds
+# bytes of a row; rounds is a power of two up to _MAX_ROUNDS, halved while a
+# launch has fewer than _TARGET_ITEMS (row, span) items for the card's
+# resident warps (~4,224 on an H100) to walk, or while half a span still
+# covers the row
+_ROUND = 512
+_GAP = _ROUND - 4          # bytes between two 4-byte words of one stream
+_MAX_ROUNDS = 32
+_TARGET_ITEMS = 1 << 14
+# a row whose start or end is not 16-byte aligned is covered from its end
+# rounded up to 16 back to before its start rounded down: l + 30 bytes at most
+_EDGE_SLACK = 31
+_FOLD_SHIFTS = (4, 16, 32, 64, 128, 256)
 
 
 def fused_enabled() -> bool:
@@ -369,36 +379,80 @@ def to_uint32(crcs) -> np.ndarray:
     return np.asarray(crcs).astype(np.uint32)
 
 
-def crc_plan(n: int, l: int) -> tuple[int, int]:
-    """K4's split of n rows of l bytes: (log2 S, seg).  S segments a row,
-    doubled while rows x S is under ~2^18 threads and segments stay at
-    least 256 bytes; seg % 16 == 0, and the first segment takes the
-    rest, l - (S-1)*seg >= seg."""
-    log_s = 0
-    while (log_s < _MAX_LOG_S and (n << log_s) < _TARGET_THREADS
-           and l >> (log_s + 1) >= _MIN_SEG):
-        log_s += 1
-    seg = (l >> log_s) & ~15 if log_s else 0
-    return log_s, seg
+def crc_plan(n: int, l: int, aligned: bool = True) -> tuple[int, int]:
+    """K4's split of n rows of l bytes: (rounds, spans).  Each row is
+    ``spans`` spans of 512 * rounds bytes, ending at the row's end rounded
+    up to 16 bytes; ``aligned`` says the rows start and end on 16 bytes,
+    else the spans reach _EDGE_SLACK bytes further."""
+    reach = l if aligned else l + _EDGE_SLACK
+    rounds = _MAX_ROUNDS
+    while rounds > 1 and (rounds // 2 * _ROUND >= reach or
+                          n * -(-reach // (rounds * _ROUND)) < _TARGET_ITEMS):
+        rounds //= 2
+    return rounds, -(-reach // (rounds * _ROUND))
+
+
+def _byte_tables(mat: np.ndarray) -> np.ndarray:
+    """(4, 256) words: mat . (v << 8k) at [k, v], a matrix as 4 lookups."""
+    v = np.arange(256, dtype=np.uint32)[None, :] \
+        << (8 * np.arange(4, dtype=np.uint32))[:, None]
+    return _mat_apply(mat, v)
+
+
+@functools.lru_cache(maxsize=1)
+def _fixed_consts() -> np.ndarray:
+    """K4's constants that no plan changes: the step tables T'_m = M^508 .
+    T_m (m < 4), the fold matrices M^4 and M^(16 * 2^i) as byte tables,
+    and M^-(508 + z) for z < 16 as columns."""
+    step = _mat_apply(_zeros_matrix(_GAP), _tables()[:4])
+    folds = [_byte_tables(_zeros_matrix(a)) for a in _FOLD_SHIFTS]
+    tails = [_mat_inv(_zeros_matrix(_GAP + z)) for z in range(16)]
+    return np.concatenate([a.reshape(-1) for a in [step, *folds, *tails]])
 
 
 @functools.lru_cache(maxsize=64)
-def _consts(seg: int, log_s: int, device: torch.device) -> torch.Tensor:
-    """K4's constants: the tables, then M^(seg * 2^i) for each fold level."""
-    words = [_tables().reshape(-1)]
-    words += [_zeros_matrix(seg << i) for i in range(log_s)]
+def _consts(rounds: int, n_ladder: int, device: torch.device) -> torch.Tensor:
+    """K4's constants for a plan: the fixed ones, then the ladder
+    M^(512 * rounds * 2^i), i < n_ladder, that moves a span's register
+    over the spans after it."""
+    words = [_fixed_consts()]
+    words += [_zeros_matrix((_ROUND * rounds) << i) for i in range(n_ladder)]
     return torch.from_numpy(
         np.concatenate(words).astype(np.uint32).view(np.int32)).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def _seed_term(l: int, seed: int) -> int:
+    """M^l . seed: the seed's share of every CRC of l bytes, which K4's
+    rows start from."""
+    return int(_mat_apply(_zeros_matrix(l), seed))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """The built library ``name`` with K4's C entries typed."""
+    lib = _build.library(name)
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.crc32c_chunks.argtypes = [vp, ll, vp, ll, vp, ll, i, ll, vp, i, i, vp]
+    lib.crc32c_chunks.restype = i
+    lib.crc32c_config.argtypes = [i, vp]
+    lib.crc32c_config.restype = i
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("crc32c")
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.crc32c_chunks.argtypes = [vp, vp, ll, ll, ll, i, ctypes.c_uint, vp,
-                                  i, vp]
-    lib.crc32c_chunks.restype = i
-    return lib
+    return _load("crc32c")
+
+
+def kernel_config(device: torch.device) -> dict:
+    """K4's registers, shared memory, resident blocks a SM and local
+    memory bytes, as the CUDA runtime reports them."""
+    info = (ctypes.c_int * 4)()
+    err = _lib().crc32c_config(device.index, info)
+    if err:
+        raise RuntimeError(f"crc32c_config failed with CUDA error {err}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), info))
 
 
 def crc32c_chunks_plain(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
@@ -429,34 +483,70 @@ def crc32c_chunks_plain(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
     return crc.to(torch.int64) & 0xFFFFFFFF
 
 
-def crc32c_chunks(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
-    """(..., l) uint8 -> (...,) int64 CRC32C of each row, raw register
-    (no final XOR) from ``seed``: K4 on a CUDA tensor, the plain version
-    on a CPU tensor.  l == 0 gives the seed without a launch.  No
-    counters: the fused codec paths call this inside their launch."""
+def _rows(x: torch.Tensor) -> tuple[tuple, torch.Tensor]:
+    """(..., l) uint8 -> (leading dims, contiguous (n, l) rows)."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
         raise TypeError("crc32c_chunks takes a uint8 torch.Tensor")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     lead, l = tuple(x.shape[:-1]), x.shape[-1]
     n = int(np.prod(lead, dtype=np.int64))
-    if l == 0 or n == 0:
-        return torch.full(lead, seed, dtype=torch.int64, device=x.device)
-    flat = x.reshape(n, l).contiguous()
-    if x.device.type == "cpu":
-        return crc32c_chunks_plain(flat, seed).reshape(lead)
-    log_s, seg = crc_plan(n, l)
-    consts = _consts(seg, log_s, x.device)
-    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    return lead, x.reshape(n, l).contiguous()
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor | None,
+            seed: int) -> torch.Tensor:
+    """One K4 launch over the rows of (n_a, l) and, if given, (n_b, l)
+    contiguous CUDA rows (n_a, l >= 1) -> (n_a + n_b,) int64 CRCs, which
+    the kernel XORs into the low words of the seed's share."""
+    dev, l = a.device, a.shape[1]
+    nb = 0 if b is None else b.shape[0]
+    n = a.shape[0] + nb
+    aligned = l % 16 == 0 and a.data_ptr() % 16 == 0 and (
+        b is None or b.data_ptr() % 16 == 0)
+    rounds, spans = crc_plan(n, l, aligned)
+    n_ladder = (spans - 1).bit_length()
+    consts = _consts(rounds, n_ladder, dev)
+    out = torch.full((n,), _seed_term(l, seed), dtype=torch.int64, device=dev)
     err = _lib().crc32c_chunks(
-        flat.data_ptr(), out.data_ptr(), n, l, seg, log_s, seed,
-        consts.data_ptr(), x.device.index,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        a.data_ptr(), a.shape[0], b.data_ptr() if nb else None, nb,
+        out.data_ptr(), l, rounds, spans, consts.data_ptr(), n_ladder,
+        dev.index,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(
             f"crc32c_chunks: kernel launch failed with CUDA error {err}")
     LAUNCHES["crc32c_chunks"] += 1
-    return (out.to(torch.int64) & 0xFFFFFFFF).reshape(lead)
+    return out
+
+
+def crc32c_chunks(x: torch.Tensor, seed: int = SEED) -> torch.Tensor:
+    """(..., l) uint8 -> (...,) int64 CRC32C of each row, raw register
+    (no final XOR) from ``seed``: K4 on a CUDA tensor, the plain version
+    on a CPU tensor.  l == 0 gives the seed without a launch.  No
+    counters: the fused codec paths call this inside their launch."""
+    lead, flat = _rows(x)
+    n, l = flat.shape
+    if l == 0 or n == 0:
+        return torch.full(lead, seed, dtype=torch.int64, device=x.device)
+    if x.device.type == "cpu":
+        return crc32c_chunks_plain(flat, seed).reshape(lead)
+    return _launch(flat, None, seed).reshape(lead)
+
+
+def crc32c_chunks_pair(x: torch.Tensor, y: torch.Tensor,
+                       seed: int = SEED) -> tuple[torch.Tensor, torch.Tensor]:
+    """``crc32c_chunks`` of x and of y, rows of one length on one device:
+    one K4 launch for both on CUDA (a fused encode's data and parity)."""
+    (lead_x, fx), (lead_y, fy) = _rows(x), _rows(y)
+    if x.device != y.device or fx.shape[1] != fy.shape[1]:
+        raise ValueError("crc32c_chunks_pair takes rows of one length on "
+                         "one device")
+    if x.device.type == "cpu" or 0 in (fx.shape[1], fx.shape[0], fy.shape[0]):
+        return crc32c_chunks(x, seed), crc32c_chunks(y, seed)
+    out = _launch(fx, fy, seed)
+    return (out[:fx.shape[0]].reshape(lead_x),
+            out[fx.shape[0]:].reshape(lead_y))
 
 
 def crc32c_device_chunks(x, device=None) -> torch.Tensor:

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .crc32c_batch import PERF, crc32c_chunks, to_uint32
+from .crc32c_batch import PERF, crc32c_chunks_pair, to_uint32
 from .gf2kernels import _to_device, gf_matmul_device, gf_matmul_batch_device
 
 
@@ -27,11 +27,11 @@ def gf_matmul_chunks_crc(matrix: np.ndarray, x: torch.Tensor,
                          alpha: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """``gf_matmul_chunks`` and the (B, k+r) CRC32C registers (int64) of
     x's chunks and the result's, computed before anything crosses back
-    to the host: two K4 launches, one over the data chunks and one over
-    the fresh parity, on the same device tensors.  Counted once in the
-    CRC module's ``PERF`` (``fused_launches``, ``fused_crcs``)."""
+    to the host: one K4 launch over the data chunks and the fresh parity,
+    on the same device tensors.  Counted once in the CRC module's
+    ``PERF`` (``fused_launches``, ``fused_crcs``)."""
     out = gf_matmul_chunks(matrix, x, alpha)
-    crcs = torch.cat([crc32c_chunks(x), crc32c_chunks(out)], dim=1)
+    crcs = torch.cat(crc32c_chunks_pair(x, out), dim=1)
     PERF.inc("fused_launches")
     PERF.inc("fused_crcs", int(crcs.numel()))
     return out, crcs

@@ -56,7 +56,7 @@ def variant_text(base: str, knobs: dict[str, int]) -> str:
         base, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};",
                           base)
         if n != 1:
-            raise ValueError(f"knob {name} not found once in the K2 source")
+            raise ValueError(f"knob {name} not found once in the source")
     return base
 
 

@@ -18,7 +18,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
     matrices with a unit, a zero and a repeated row, with ragged L, odd B
     and a misaligned base; K4 (CRC32C) against its plain version and the
     host numpy engine at l in {0, 1, 7, 8, 9, 127, 4096, 4099, 131072}, one
-    row and many, and a misaligned base;
+    row and many, and a misaligned base, and at the edges of its braid: rows
+    shorter than 512 bytes, l = 16 mod 512, a ragged head on a misaligned
+    base, spans of 8 rounds with masked ends, and the one-launch entry for
+    two sets of rows;
  3b. the dense kernels past their old limits: PMSR k=7,m=6 at (1024, 7,
     131136) through the dense route (K1 at k=42, split into two launches),
     encode and a 2-erasure decode; K1 at B=70000 (two launches: the wrapper
@@ -375,6 +378,10 @@ def phase_k4_small(dev: torch.device) -> int:
     cases = [(n, l, False) for l in (0, 1, 7, 8, 9, 127, 4096, 4099)
              for n in (1, 3000)]
     cases += [(64, 131072, False), (37, 4099, True), (3, 1001, True)]
+    # the braid's edges: under one 512-byte round, l = 16 mod 512, a ragged
+    # head on a misaligned base, spans of 8 rounds with masked ends
+    cases += [(5, 300, False), (700, 512 * 5 + 16, False), (3, 2055, True),
+              (4096, 16384 + 5, True)]
     rng = np.random.default_rng(SEED + 9)
     err = 0
     for n, l, misaligned in cases:
@@ -387,6 +394,10 @@ def phase_k4_small(dev: torch.device) -> int:
             x = torch.from_numpy(host).to(dev)
         got = crc.crc32c_chunks(x)
         ref = crc.crc32c_chunks_plain(x)
+        if n > 1 and l:   # the one-launch entry over the rows in two parts
+            pair = torch.cat(crc.crc32c_chunks_pair(x[:n // 2], x[n // 2:]))
+            if not torch.equal(pair, got):
+                raise RuntimeError(f"crc32c_chunks_pair differs on N={n} l={l}")
         torch.cuda.synchronize()
         diff = int((got - ref).abs().max())
         err = max(err, diff)
@@ -396,7 +407,8 @@ def phase_k4_small(dev: torch.device) -> int:
                                f"{' misaligned' if misaligned else ''}: max "
                                f"|kernel - plain| = {diff}")
     log(f"K4 crc32c_chunks vs plain and host engine: {len(cases)} shapes "
-        f"bit-exact (l in 0..131072, N 1..3000, misaligned base included)")
+        f"bit-exact (l in 0..131072, N 1..4096, misaligned base included; "
+        f"crc32c_chunks_pair == crc32c_chunks on every split)")
     return err
 
 
@@ -718,6 +730,10 @@ def phase_k4_full(dev: torch.device, main: dict) -> dict:
     crc_d = crc.crc32c_device_chunks(data)
     crc_p = crc.crc32c_device_chunks(parity)
     crcs = torch.cat([crc_d, crc_p], dim=1)
+    if not torch.equal(torch.cat(crc.crc32c_chunks_pair(data, parity), dim=1),
+                       crcs):
+        raise RuntimeError("crc32c_chunks_pair differs from crc32c_chunks at "
+                           "full width")
     r = parity.shape[1]
     rng = np.random.default_rng(SEED + 14)
     pick = [(int(i), int(j)) for i, j in zip(rng.integers(0, b, 48),
@@ -748,15 +764,21 @@ def phase_k4_full(dev: torch.device, main: dict) -> dict:
     buf = torch.randint(0, 256, (RESIDENT_BYTES,), dtype=torch.uint8,
                         device=dev, generator=gen)
     got_res = crc.crc32c_resident(buf)
+    # K4 alone at the whole rows crc32c_resident cuts the buffer into
+    chunk = max(64, crc._next_pow2(-(-RESIDENT_BYTES // 256)))
+    res_rows = buf[:RESIDENT_BYTES // chunk * chunk].view(-1, chunk)
+    resident_ms = time_ms(lambda: crc.crc32c_chunks(res_rows))
     want_res = int(crc.crc32c_rows(buf.cpu().numpy().reshape(1, -1))[0])
     if got_res != want_res:
         raise RuntimeError(f"crc32c_resident {got_res:#x} != host "
                            f"{want_res:#x} over {RESIDENT_BYTES} bytes")
     log(f"K4 full width: ({b}, {k}+{r}, {l}) chunk CRCs == host engine on 48 "
         f"sampled rows and == plain on all {b * (k + r)} rows (plain "
-        f"{plain_ms:.1f} ms); crc32c_resident over {RESIDENT_BYTES} bytes "
+        f"{plain_ms:.1f} ms), == the one-launch pair; crc32c_resident over "
+        f"{RESIDENT_BYTES} bytes "
         f"== host engine ({got_res:#010x})")
-    return {"data": data, "parity": parity, "plain_ms": plain_ms, "err": err}
+    return {"data": data, "parity": parity, "plain_ms": plain_ms, "err": err,
+            "resident_ms": resident_ms, "resident_shape": list(res_rows.shape)}
 
 
 def phase_osd(dev: torch.device) -> dict:
@@ -923,15 +945,17 @@ def phase_osd(dev: torch.device) -> dict:
     loop.close()
 
     # MeshCodec.encode(with_crc=True) on a device-resident batch, and its
-    # two parts: the GF(2^8) launch and K4 over data + parity
+    # two parts: the GF(2^8) launch and K4 over data + parity (one launch,
+    # as the path runs it; beside it K4 as two launches)
     mesh = MeshCodec(device=dev)
     mat = codec.encode_matrix[k:]
     parity_d = gf_matmul_batch_device(mat, data_d)
     fused_ms = time_ms(lambda: mesh.encode(codec, data_d, with_crc=True,
                                            out_np=False), iters=5)
     gf_ms = time_ms(lambda: gf_matmul_batch_device(mat, data_d), iters=5)
-    k4_ms = time_ms(lambda: (crc.crc32c_chunks(data_d),
-                             crc.crc32c_chunks(parity_d)), iters=5)
+    k4_ms = time_ms(lambda: crc.crc32c_chunks_pair(data_d, parity_d), iters=5)
+    k4_two_ms = time_ms(lambda: (crc.crc32c_chunks(data_d),
+                                 crc.crc32c_chunks(parity_d)), iters=5)
     del parity_d
     gib = data.nbytes / GiB
     batch_s = sum(encode_s) / len(encode_s)
@@ -944,14 +968,15 @@ def phase_osd(dev: torch.device) -> dict:
         f"{parts_ms['to_card']:.1f}, parity back {parts_ms['parity_back']:.1f} "
         f"ms); "
         f"MeshCodec.encode(with_crc) device-resident {fused_ms:.3f} ms "
-        f"(CUDA events) = GF(2^8) {gf_ms:.3f} + K4 {k4_ms:.3f}; all paths == "
+        f"(CUDA events) = GF(2^8) {gf_ms:.3f} + K4 {k4_ms:.3f} (as two "
+        f"launches {k4_two_ms:.3f}); all paths == "
         f"the codecs' own batch entry points, 64 CRC rows a path == host "
         f"engine; "
         + "; ".join(f"{tag}: {p['launches']}, {p['host_s'] * 1e3:.1f} ms"
                     for tag, p in paths.items()))
     return {"paths": paths, "batch_ms": batch_s * 1e3, "parts_ms": parts_ms,
             "batch_gibps": gib / batch_s, "fused_ms": fused_ms,
-            "gf_ms": gf_ms, "k4_ms": k4_ms,
+            "gf_ms": gf_ms, "k4_ms": k4_ms, "k4_two_ms": k4_two_ms,
             "k4_launches": paths["rs8/3 encode+crc"]["launches"][
                 "crc32c_chunks"]}
 
@@ -993,7 +1018,8 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
                       osd: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
-    K2 also with its other paths' times and its launch configuration."""
+    K2 and K4 also with their other paths' times and launch configuration."""
+    from ceph_tpu_torch.ops import crc32c_batch as crc
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_schedule as xs
 
@@ -1084,9 +1110,10 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         raise RuntimeError(f"xor_sched differs from its plain version at the "
                            f"headline shape: max {err}")
 
-    # K4 at the fused RS encode: the CRCs of (1024 x 11) rows of 131072 B;
-    # bound: each byte read once, or one shared-memory table lookup per
-    # byte at 32 a clock per SM
+    # K4 at the fused RS encode: the CRCs of (1024 x 11) rows of 131072 B in
+    # one launch; the work's bound: each byte read once and each CRC written
+    # once, or one shared-memory table lookup per byte at 32 a clock per SM
+    # (the work's count, not the lookups a design makes)
     nrows = k4["data"].shape[0] * (k4["data"].shape[1] + k4["parity"].shape[1])
     l = k4["data"].shape[2]
     t_bytes = (nrows * l + 4 * nrows) / HBM_BYTES_PER_S * 1e3
@@ -1104,6 +1131,12 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         "library_ms": None,
         "library_note": "no PyTorch call computes CRC32C",
         "shape": [nrows, l], "sm_clock_mhz": mhz,
+        "ms_by_path": {
+            "rs8/3 fused data + parity as two launches": round(
+                osd["k4_two_ms"], 4),
+            f"resident rows {tuple(k4['resident_shape'])}": round(
+                k4["resident_ms"], 4)},
+        **crc.kernel_config(dev),
     })
     return {"kernels": rows}
 

@@ -118,14 +118,74 @@ def test_device_chunks_count_and_stay_on_the_device():
 
 def test_crc_plan_splits_rows_for_the_card():
     for n, l in [(11264, 131072), (256, 262144), (129, 524288), (1, 1),
-                 (3, 4099), (70000, 128), (1, 65541)]:
-        log_s, seg = crc.crc_plan(n, l)
-        s = 1 << log_s
-        assert 0 <= log_s <= 10
-        if log_s:
-            assert seg % 16 == 0 and seg >= 256
-            assert l - (s - 1) * seg >= seg
-    assert crc.crc_plan(11264, 131072) == (5, 4096)   # ~2^18 threads
+                 (3, 4099), (70000, 128), (1, 65541), (3072, 131072)]:
+        for aligned in (True, False):
+            rounds, spans = crc.crc_plan(n, l, aligned)
+            reach = l if aligned else l + crc._EDGE_SLACK
+            span = 512 * rounds
+            assert 1 <= rounds <= crc._MAX_ROUNDS
+            assert rounds & (rounds - 1) == 0
+            assert spans * span >= reach > (spans - 1) * span
+            # fewer items than the card's warps want only at the shortest span
+            assert rounds == 1 or n * spans >= crc._TARGET_ITEMS
+            # no span is twice what the row needs
+            assert rounds == 1 or span // 2 < reach
+    # the fused encode's data, parity and both: 16 KiB spans
+    assert crc.crc_plan(8192, 131072) == (32, 8)
+    assert crc.crc_plan(3072, 131072) == (32, 8)
+    assert crc.crc_plan(11264, 131072) == (32, 8)
+    # crc32c_resident's 64 MiB in 256 rows: 4 KiB spans for the warps
+    assert crc.crc_plan(256, 262144) == (8, 64)
+
+
+def test_k4_constants_hold_the_register_algebra():
+    """The seed term and the step, fold and tail constants K4 reads, held
+    against the reference's register algebra."""
+    rng = np.random.default_rng(6)
+    for l in (1, 7, 4096, 131072):
+        assert crc._seed_term(l, crc.SEED) == ref.crc32c_zeros(crc.SEED, l)
+    words = crc._fixed_consts()
+    assert words.dtype == np.uint32
+    step = words[:1024].reshape(4, 256)
+    # T'_m[v]: byte v, then m + 508 zero bytes, from register 0
+    for m in range(4):
+        for v in rng.integers(0, 256, 4):
+            buf = np.zeros(1 + m + 508, np.uint8)
+            buf[0] = v
+            assert int(step[m, v]) == int(ref.crc32c_rows(
+                buf[None], seed=0, backend="numpy")[0])
+    regs = rng.integers(0, 1 << 32, 8, dtype=np.uint64).astype(np.uint32)
+    for i, shift in enumerate(crc._FOLD_SHIFTS):
+        t = words[1024 * (1 + i):1024 * (2 + i)].reshape(4, 256)
+        got = t[0][regs & 0xFF] ^ t[1][(regs >> 8) & 0xFF] \
+            ^ t[2][(regs >> 16) & 0xFF] ^ t[3][regs >> 24]
+        assert np.array_equal(got, ref.crc32c_zeros(regs, shift))
+    tails = words[1024 * 7:].reshape(16, 32)
+    for z in (0, 5, 15):
+        back = crc._mat_apply(tails[z], ref.crc32c_zeros(regs, 508 + z))
+        assert np.array_equal(back, regs)
+    ladder = crc._consts(4, 3, torch.device("cpu")).numpy().view(np.uint32)
+    assert np.array_equal(ladder[:words.size], words)
+    for i in range(3):
+        m = ladder[words.size + 32 * i:words.size + 32 * (i + 1)]
+        assert np.array_equal(crc._mat_apply(m, regs),
+                              ref.crc32c_zeros(regs, 2048 << i))
+
+
+@pytest.mark.parametrize("l", [0, 9, 4099])
+def test_chunks_pair_matches_reference(l):
+    rng = np.random.default_rng(l + 11)
+    x = rng.integers(0, 256, (2, 3, l), dtype=np.uint8)
+    y = rng.integers(0, 256, (2, 1, l), dtype=np.uint8)
+    cx, cy = crc.crc32c_chunks_pair(torch.from_numpy(x), torch.from_numpy(y))
+    assert cx.shape == (2, 3) and cy.shape == (2, 1)
+    assert np.array_equal(crc.to_uint32(cx),
+                          np.asarray(ref.crc32c_device_chunks(x)))
+    assert np.array_equal(crc.to_uint32(cy),
+                          np.asarray(ref.crc32c_device_chunks(y)))
+    with pytest.raises(ValueError):
+        crc.crc32c_chunks_pair(torch.from_numpy(x),
+                               torch.zeros((1, l + 1), dtype=torch.uint8))
 
 
 def test_fused_crc_env_gate(monkeypatch):
