@@ -64,7 +64,6 @@ constexpr int kCopies = 32;    // copies of each table entry (power of two <= 32
 constexpr int kUnroll = 2;     // rounds whose loads are issued before lookups
 constexpr int kThreads = 1024; // threads a block
 constexpr int kMinBlocks = 1;  // resident blocks a SM the registers allow
-constexpr int kEvictFirst = 1; // 1: loads marked evict-first (__ldcs): each byte is read once
 
 constexpr int kRound = 512;             // bytes a warp loads in one round
 constexpr int kStepWords = 4 * 256;     // T'_0..T'_3, one copy
@@ -108,11 +107,11 @@ __device__ __forceinline__ uint32_t apply_warp(const uint32_t* cols, uint32_t v,
 template <bool kEdge>
 __device__ __forceinline__ uint4 load_word(const uint8_t* w, uintptr_t lo, uintptr_t hi) {
   const uint4* p = reinterpret_cast<const uint4*>(w);
-  if (!kEdge) return kEvictFirst ? __ldcs(p) : *p;
+  if (!kEdge) return __ldcs(p);
   const uintptr_t a = reinterpret_cast<uintptr_t>(w);
   uint4 v = {0u, 0u, 0u, 0u};
   if (a + 16 <= lo) return v;
-  v = kEvictFirst ? __ldcs(p) : *p;
+  v = __ldcs(p);
   uint32_t* q = &v.x;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

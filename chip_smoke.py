@@ -689,7 +689,7 @@ def phase_linear(dev: torch.device, plugin: str, spec: tuple, lost: tuple,
         f"8 stripes == host, 4 stripes == plain; launches {launches}")
     return {"launches": launches, "data": data, "sched": sched,
             "matrix": codec.parity_matrix, "dense_name": dense_name,
-            "dense_ms": times["0"]}
+            "dense_ms": times["0"], "sched_ms": times["1"]}
 
 
 def phase_autotune() -> None:
@@ -1109,6 +1109,27 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     if err:
         raise RuntimeError(f"xor_sched differs from its plain version at the "
                            f"headline shape: max {err}")
+
+    # PMSR k=5,m=4 parity, (b, k * a, l / a) sub-rows -> (b, m * a, l / a):
+    # K1 (dense) and K3 compute the same function, so one bound for both:
+    # its bytes, or the fewest operations the repo knows (K3's XOR terms,
+    # under K1's int8 products)
+    data, sched = pmsr["data"], pmsr["sched"]
+    b, k, l = data.shape
+    sub = l // (sched.n_in // 8 // k)
+    t_bytes = (data.numel() + b * (sched.n_out // 8) * sub) / HBM_BYTES_PER_S * 1e3
+    t_ops = sched.n_terms * b * -(-sub // 32) / (INT32_OPS_PER_CLOCK * mhz * 1e6) * 1e3
+    pmsr_path = (f"pmsr5/4 parity ({b},{sched.n_in // 8},{sub})->"
+                 f"{sched.n_out // 8}")
+    pmsr_bound = {pmsr_path: {
+        "bound_ms": round(max(t_bytes, t_ops), 4),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "n_terms": sched.n_terms}}
+    rows[-1]["ms_by_path"] = {pmsr_path: round(pmsr["sched_ms"][0], 4)}
+    rows[-1]["bound_by_path"] = pmsr_bound
+    if pmsr["dense_name"] == "K1":
+        rows[0]["ms_by_path"] = {pmsr_path: round(pmsr["dense_ms"][0], 4)}
+        rows[0]["bound_by_path"] = pmsr_bound
 
     # K4 at the fused RS encode: the CRCs of (1024 x 11) rows of 131072 B in
     # one launch; the work's bound: each byte read once and each CRC written

@@ -219,7 +219,7 @@ def test_k4_host_one_launch_data_and_parity(k4_host, misaligned):
 
 
 # the variants the card times against the committed knobs (k4_time.py --set)
-VARIANTS = ["kCopies=1", "kCopies=8,kUnroll=4", "kUnroll=1", "kEvictFirst=0"]
+VARIANTS = ["kCopies=1", "kCopies=8,kUnroll=4", "kUnroll=1", "kCopies=16,kUnroll=3"]
 
 
 @pytest.mark.parametrize("knobs", VARIANTS)
