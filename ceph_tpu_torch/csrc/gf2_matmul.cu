@@ -11,20 +11,43 @@
 // (the flat kernel) and _make_pallas_batch_fn (the per-stripe batch kernel).
 //   Because of the plane order, the 8k-bit input vector of a byte column is
 //   exactly the k bytes data[b,0..k-1,n] laid end to end, so an output bit is
-//   popc(Wrow & colbits) & 1 with W rows packed into ceil(k/4) 32-bit words.
-//   Bound on the H100: integer issue, not memory -- 8r popcounts plus 2*8r*
-//   ceil(k/4) AND/XOR per byte column (24 popc per column at k=8,m=3) against
-//   16 popc per clock per SM.  The design keeps everything else cheap: one
-//   coalesced 32-bit load per chunk row and thread (4 adjacent columns), a
-//   __byte_perm transpose into column words, W rows in shared memory read as
-//   broadcasts, one 32-bit store per output row.  Any L (ragged edge masked),
-//   any batch and any k: one launch takes at most 65535 stripes (grid.y),
-//   contracts over a group of at most 32 chunks and writes up to
-//   kPopcMaxRows output rows (a W tile that fits shared memory); the wrapper
-//   splits a larger product into such launches (ops/gf2kernels.py
-//   popc_stripes, popc_plan), a row tile's launches after its first XORing
-//   their partial products into the output (``acc``): GF(2) is linear, so
-//   split-k is exact.
+//   popc(Wrow & colbits) & 1 with W rows packed into ceil(k/4) 32-bit words:
+//   exactly the single-bit tensor-core product mma.sync m16n8k256 .b1
+//   .and.popc, with byte columns as A's 16 rows, 256 contraction bits (32
+//   chunks) a k-step, and 8 W rows as B's columns.  On CUDA cores the same
+//   function costs a popcount and ceil(k/4) AND/XORs per output bit, which
+//   bound the earlier design at 2-11x its HBM bytes; here one MMA does 16
+//   columns x 8 output bits x 32 chunks.  What is left around the MMAs:
+//   - what holds it is instruction issue around the MMAs (addressing,
+//     staging, the parity pack), not the MMAs: at RS k=8,m=3 a byte column
+//     needs 1/4 MMA, so a first version that loaded A straight into
+//     registers, 64 columns a step, ran at twice the earlier design.  So a
+//     grid sized to the card walks (stripe, tile) pairs without a division,
+//     a tile is popc_span (up to kPopcMaxSpan) 64-column halves, each warp
+//     stages its next tile's k rows into shared memory with cp.async (a ring
+//     of kPopcRing), and the A reads are lane constants plus immediates;
+//   - A operands from the staged rows: lane (grp, tig) reads one 32-bit
+//     word (4 adjacent columns) of chunk rows 4q..4q+3 for q = tig and
+//     tig + 4 at columns 4grp and 32 + 4grp of the tile (rows placed so the
+//     32 lanes hit 32 banks), and a __byte_perm transpose gives column
+//     words; m-tile t's rows grp / grp+8 are columns 4grp+t / 32+4grp+t, so
+//     each word is an A register as it stands;
+//   - k > 32: every k-step accumulates into the same s32 counts (parity of a
+//     sum = sum of parities), so split-k is a loop inside the launch; up to
+//     kPopcRegSteps k-steps of A stay in registers, more (k > 64) are read
+//     from global memory per row group, unstaged;
+//   - B fragments in the order the MMA wants, built by the wrapper, copied
+//     into shared memory once a block (read from global memory when k > 64,
+//     so no k is too large for shared memory);
+//   - W rows ordered so that no exchange between lanes is needed: a group of
+//     4 output rows is 4 n-tiles, n-tile u column 2p+e = bit 2u+e of row p,
+//     so lane tig's accumulators hold all 8 bits of row tig at its columns;
+//     bit 0 of each count is gathered with __byte_perm into whole 32-bit
+//     words, stored coalesced (each store: 4 rows x 32 bytes).
+//   Any L (ragged edge masked; rows that are not 16-byte aligned are staged
+//   with plain loads), any k and any batch: one launch takes at most 65535
+//   stripes and kPopcMaxRows output rows (a row tile); the wrapper splits
+//   the rest (ops/gf2kernels.py popc_stripes, popc_plan).
 //
 // gf2_matmul_mma (K2) replaces ceph_tpu/ops/gf2kernels.py
 // _make_pallas_batch_fn_gN (the packed kernel that put the bit-matmul on the
@@ -67,8 +90,9 @@
 //
 // Without __CUDACC__ the kernels also compile as host C++ (no launchers, no C
 // entries): the includer supplies the CUDA built-ins they use and runs each
-// block's threads itself, and mma_u8 calls its host_mma_u8.  The CPU tests
-// build K2 that way and hold it against the host oracle.
+// block's threads itself, and mma_u8 / mma_b1 call its host_mma_u8 /
+// host_mma_b1.  The CPU tests build K1 and K2 that way and hold them against
+// the host oracle.
 
 #include <cstddef>
 #include <cstdint>
@@ -79,10 +103,15 @@
 
 namespace {
 
-constexpr int kPopcThreads = 256;
-constexpr int kPopcCols = 4;          // adjacent byte columns per thread
-constexpr int kPopcMaxNQ = 8;         // W words per row and launch: 32 chunks
-constexpr int kPopcMaxRows = 512;     // output rows per launch (W tile <= 128 KB)
+constexpr int kPopcWarps = 8;         // K1: warps a block
+constexpr int kPopcMinBlocks = 2;     // __launch_bounds__: caps registers at 128
+constexpr int kPopcRegSteps = 2;      // k-steps of A held in registers
+constexpr int kPopcRing = 2;          // tiles a warp has staged
+constexpr int kPopcMaxSpan = 4;       // 64-column halves of a tile, at most
+constexpr int kPopcSmemTarget = 112 * 1024;   // a block's shared memory: two a SM
+constexpr int kPopcThreads = 32 * kPopcWarps;
+constexpr int kPopcMaxRows = 256;     // output rows a launch: 64 row groups
+constexpr int kPopcGroupWords = 4 * 32 * 2;   // B words of a row group and k-step
 
 constexpr int kMmaCols = 128;         // byte columns per step, 32 per warp
 constexpr int kMmaWarps = kMmaCols / 32;
@@ -134,7 +163,7 @@ __device__ __forceinline__ void transpose4(const uint32_t v[4], uint32_t col[4])
 // Bytes c0..c0+3 of a row, zero past L.  vec: L % 4 == 0 and rows 4-aligned.
 __device__ __forceinline__ uint32_t load4(const uint8_t* row, long long c0,
                                           long long L, bool vec) {
-  if (vec) return *reinterpret_cast<const uint32_t*>(row + c0);
+  if (vec) return c0 < L ? *reinterpret_cast<const uint32_t*>(row + c0) : 0u;
   uint32_t v = 0;
 #pragma unroll
   for (int c = 0; c < 4; ++c)
@@ -145,7 +174,7 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, long long c0,
 __device__ __forceinline__ void store4(uint8_t* row, long long c0, long long L,
                                        bool vec, uint32_t v) {
   if (vec) {
-    *reinterpret_cast<uint32_t*>(row + c0) = v;
+    if (c0 < L) *reinterpret_cast<uint32_t*>(row + c0) = v;
     return;
   }
 #pragma unroll
@@ -153,82 +182,331 @@ __device__ __forceinline__ void store4(uint8_t* row, long long c0, long long L,
     if (c0 + c < L) row[c0 + c] = static_cast<uint8_t>(v >> (8 * c));
 }
 
-// One K1 launch: output rows i0..i0+rg-1 of every stripe over chunks
-// j0..j0+kg-1 (kg <= 4*NQ).  wpk is that tile of W, (8*rg, NQ) words: word q
-// of row 8i+s holds W bits of chunks j0+4q..j0+4q+3.  With kAcc the partial
-// product is XORed into the output instead of stored.  grid.x covers the
-// columns, grid.y the stripes (at most 65535: the wrapper splits a larger
-// batch into launches on offset base pointers).
-template <int NQ, bool kAcc>
-__global__ void __launch_bounds__(kPopcThreads)
-gf2_popc_kernel(const uint32_t* __restrict__ wpk, const uint8_t* __restrict__ data,
-                uint8_t* __restrict__ out, int k, int j0, int kg, int r, int i0, int rg,
-                long long L, bool vec) {
+// 16 bytes from global to shared memory, the first n (0 or 16) read and the
+// rest zero-filled, without waiting (commit and wait as cp_async16)
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, int n) {
+#ifdef __CUDACC__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(n)
+               : "memory");
+#else
+  std::memset(dst, 0, 16);
+  std::memcpy(dst, src, n);
+#endif
+}
+
+// d += popc(a AND b): a 16x256 bits (row-major), b 256x8 bits (column-
+// major), in the PTX fragment layouts for lane = 4*grp + tig: a.x / a.y hold
+// rows grp / grp+8 at k = 32tig..32tig+31 (bit = k % 32), a.z / a.w the same
+// at k + 128; b.x holds column grp at k = 32tig.., b.y at k + 128; d[0], d[1]
+// are row grp at columns 2tig, 2tig+1, d[2], d[3] row grp+8.
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint4& a, const uint2& b) {
+#ifdef __CUDACC__
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+#else
+  host_mma_b1(d, a, b);
+#endif
+}
+
+// byte t of the result = the low byte of x[t]
+__device__ __forceinline__ uint32_t low_bytes(int x0, int x1, int x2, int x3) {
+  return __byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040), 0x5410);
+}
+
+// A staged 64-column half holds chunk row j's 16-byte piece c (columns
+// 16c..16c+15) at byte staged(j, c) = 64 * (j ^ bit 2 of j) + 16 * (c ^ 2 *
+// bit 3 of j): rows of 64 bytes, placed so that the 32 lanes of one A read
+// (rows 4tig + const, words grp of a 32-column half) hit 32 different banks.
+// Row slots of a half of k rows:
+__host__ __device__ constexpr int popc_rows(int k) { return (k + 1) & ~1; }
+
+// One K1 launch: output rows i0..i0+rg-1 of B stripes, over all k chunks.
+// wfrag holds W's B fragments for those rows (the wrapper's
+// popc_fragments): per row group g4 (rows 4g4..4g4+3 of the tile), k-step ks
+// and n-tile u, 32 lanes x (b.x, b.y), at uint2 index ((g4*nks + ks)*4 + u)*32
+// + lane; n-tile u's column 2p+e is bit 2u+e of row 4g4+p, and lane (grp, tig)
+// holds that row's W words 8ks+tig and 8ks+tig+4 (chunks 4q..4q+3 a word).
+// The grid is sized to the card; each warp walks tiles of SPAN 64-column
+// halves (stripe b, columns c*64*SPAN..) at a stride of the grid's warps.
+// KS > 0: the launch has KS = ceil(k/32) k-steps; W is copied into shared
+// memory, each warp stages its next tiles' k rows into a ring of kPopcRing
+// (cp.async when async: L % 16 == 0 and 16-byte aligned data; plain loads
+// otherwise), and A stays in registers for the row groups; kHalfLast: the
+// last k-step's chunks 16..31 are past k, so their A words are 0.  KS = 0:
+// any number of k-steps, no staging: A is loaded from global memory per row
+// group (L1 hits) and W read from global memory.
+template <int KS, bool kHalfLast, int SPAN>
+__global__ void __launch_bounds__(kPopcThreads, kPopcMinBlocks)
+gf2_popc_kernel(const uint2* __restrict__ wfrag, const uint8_t* __restrict__ data,
+                uint8_t* __restrict__ out, int B, int k, int r, int i0, int rg,
+                long long L, bool vec, bool async) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* w_s = reinterpret_cast<uint32_t*>(smem);
-  for (int i = threadIdx.x; i < 8 * rg * NQ; i += blockDim.x) w_s[i] = wpk[i];
-  __syncthreads();
-
-  const long long b = blockIdx.y;
-  const long long c0 =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kPopcCols;
-  if (c0 >= L) return;
-
-  const uint8_t* src = data + (b * k + j0) * L;
-  uint32_t col[kPopcCols][NQ];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    uint32_t v[4], t[4];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = 4 * q + jj;
-      v[jj] = j < kg ? load4(src + j * L, c0, L, vec) : 0u;
-    }
-    transpose4(v, t);
-#pragma unroll
-    for (int c = 0; c < kPopcCols; ++c) col[c][q] = t[c];
+  const int nks = KS ? KS : (k + 31) / 32;
+  const int ngroups = (rg + 3) / 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int half_bytes = 64 * popc_rows(k);   // a staged 64-column half
+  const int stage_bytes = SPAN * half_bytes;
+  const uint2* wf = wfrag;
+  unsigned char* ring = smem;
+  if constexpr (KS > 0) {
+    const int w_words = ngroups * KS * kPopcGroupWords;
+    uint4* w_s = reinterpret_cast<uint4*>(smem);
+    const uint4* w_g = reinterpret_cast<const uint4*>(wfrag);
+    for (int e = threadIdx.x; e < w_words / 4; e += blockDim.x) w_s[e] = w_g[e];
+    __syncthreads();
+    wf = reinterpret_cast<const uint2*>(smem);
+    ring = smem + w_words * sizeof(uint32_t) + warp * kPopcRing * stage_bytes;
   }
 
-  uint8_t* dst = out + (b * r + i0) * L;
-  for (int i = 0; i < rg; ++i) {
-    uint32_t word = 0;
+  // this warp's tiles of 64*SPAN columns: (stripe b, tile c) of every
+  // nwarps-th tile, walked without a division per tile (the entry keeps the
+  // tiles of a stripe and the grid's warps under 2^31)
+  constexpr long long tile_cols = 64LL * SPAN;
+  const int ntl = static_cast<int>((L + tile_cols - 1) / tile_cols);
+  const int nwarps = gridDim.x * kPopcWarps;
+  const int first = blockIdx.x * kPopcWarps + warp;
+  const int step_b = nwarps / ntl, step_c = nwarps - step_b * ntl;
+  int at_b = first / ntl, at_c = first - at_b * ntl;   // the tile computed next
+  int ahead_b = at_b, ahead_c = at_c;                  // the tile staged next
+  const long long kL = static_cast<long long>(k) * L;
+
+  // staging: lane copies piece sc (16 bytes) of rows sj + 8n, n < nrow, to
+  // staged(sj + 8n, sc) = d_even / d_odd (n even / odd) + 512n
+  const int sj = lane >> 2, sc = lane & 3;
+  const int nrow = k > sj ? (k - sj + 7) >> 3 : 0;
+  const int d_even = 64 * (sj ^ ((sj >> 2) & 1)) + 16 * sc;
+  const int d_odd = d_even + 16 * ((sc ^ 2) - sc);
+  const uint8_t* s_lane = data + sj * L + 16 * sc;
+  // tile `ahead` -> ring slot `slot`, one commit group per call
+  auto stage = [&](int slot) {
+    if (ahead_b < B) {
+      const long long base = ahead_c * tile_cols;
+      const uint8_t* s0 = s_lane + ahead_b * kL + base;
+      unsigned char* d0 = ring + slot * stage_bytes;
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const uint32_t* w = w_s + (8 * i + s) * NQ;
+      for (int half = 0; half < SPAN; ++half) {
+        const long long rest = L - base - 16 * sc - 64 * half;   // of the piece's row
+        const uint8_t* src = s0 + 64 * half;
+        unsigned char* d = d0 + half * half_bytes;
+        for (int n = 0; n < nrow; ++n, src += 8 * L, d += 512) {
+          unsigned char* dst = d + ((n & 1) ? d_odd : d_even);
+          if (async) {
+            cp_async16z(dst, src, rest > 0 ? 16 : 0);
+          } else {
 #pragma unroll
-      for (int c = 0; c < kPopcCols; ++c) {
-        uint32_t acc = 0;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) acc ^= w[q] & col[c][q];
-        word |= static_cast<uint32_t>(__popc(acc) & 1) << (8 * c + s);
+            for (int w = 0; w < 4; ++w)
+              reinterpret_cast<uint32_t*>(dst)[w] = load4(src, 4 * w, rest, false);
+          }
+        }
+      }
+      ahead_b += step_b;
+      ahead_c += step_c;
+      if (ahead_c >= ntl) {
+        ahead_c -= ntl;
+        ++ahead_b;
       }
     }
-    if constexpr (kAcc) word ^= load4(dst + i * L, c0, L, vec);
-    store4(dst + i * L, c0, L, vec, word);
+    cp_async_commit();
+  };
+  if constexpr (KS > 0)
+    for (int i = 0; i < kPopcRing - 1; ++i) stage(i);
+
+  // A reads from a staged half: row 32ks + 16h2 + 4tig + jj, word grp of
+  // column half h is at staged(row, 2h + grp/4) + 4(grp%4) =
+  // a_off[jj%2][h] + 64(jj & 2) + 1024h2 + 2048ks (rows past k hold stale
+  // bytes: W's bits for them are 0)
+  const int t1 = tig & 1, t2 = tig >> 1;
+  int a_off[2][2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      a_off[p][h] = 256 * tig + 64 * (p ^ t1) + 32 * (h ^ t2) + 16 * (grp >> 2) + 4 * (grp & 3);
+  // this lane's output row tig of a row group, at columns 4grp (+32)
+  const long long o_lane = tig * L + 4 * grp;
+
+  for (int i = 0; at_b < B; ++i) {   // uniform in the warp
+    if constexpr (KS > 0) {
+      stage((i + kPopcRing - 1) % kPopcRing);   // the slot tile i-1 was read from
+      cp_async_wait<kPopcRing - 1>();
+      __syncwarp();                             // tile i's rows, from every lane, are in
+    }
+    const uint8_t* src_b = data + at_b * kL;
+    uint8_t* out_b = out + (static_cast<long long>(at_b) * r + i0) * L + o_lane;
+#pragma unroll
+    for (int half = 0; half < SPAN; ++half) {
+      const long long base = at_c * tile_cols + 64 * half;
+      if (base >= L) break;   // uniform in the warp
+      const bool full = vec && base + 64 <= L;
+      const unsigned char* st = ring + (i % kPopcRing) * stage_bytes + half * half_bytes;
+      // A of k-step ks, m-tiles t = 0..3: chunk rows 32ks + 4tig + 16h2 + jj
+      // at columns 32h + 4grp .. +3 of the half, transposed into column words
+      auto load_a = [&](int ks, uint4 (&at4)[4]) {
+        uint32_t cw[2][2][4];   // [column half h][word half h2][column t]
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          if (kHalfLast && ks == KS - 1 && h2 == 1) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int t = 0; t < 4; ++t) cw[h][h2][t] = 0u;
+            continue;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t v[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              if constexpr (KS > 0) {
+                v[jj] = *reinterpret_cast<const uint32_t*>(
+                    st + a_off[jj & 1][h] + 64 * (jj & 2) + 1024 * h2 + 2048 * ks);
+              } else {
+                const int j = 32 * ks + 4 * tig + 16 * h2 + jj;
+                v[jj] = j < k ? load4(src_b + j * L + base, 32 * h + 4 * grp, L - base, vec)
+                              : 0u;
+              }
+            }
+            transpose4(v, cw[h][h2]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          at4[t] = make_uint4(cw[0][0][t], cw[1][0][t], cw[0][1][t], cw[1][1][t]);
+      };
+      uint4 a[KS ? KS : 1][4];
+      if constexpr (KS > 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) load_a(ks, a[ks]);
+      }
+      uint8_t* po = out_b + base;
+      const long long rest = L - base - 4 * grp;
+      for (int g4 = 0; g4 < ngroups; ++g4, po += 4 * L) {
+        int acc[4][4][4] = {};   // [m-tile t][n-tile u][fragment]
+#pragma unroll(KS ? KS : 1)
+        for (int ks = 0; ks < nks; ++ks) {
+          if constexpr (KS == 0) load_a(ks, a[0]);
+          const uint4 (&ak)[4] = a[KS ? ks : 0];
+          const uint2* w = wf + (g4 * nks + ks) * 4 * 32 + lane;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint2 bu = w[u * 32];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) mma_b1(acc[t][u], ak[t], bu);
+          }
+        }
+        // this lane's row 4g4+tig: byte t of the word at columns 32h + 4grp
+        // is column 4grp+t of half h, bit 2u+e from acc[t][u][2h+e]
+        uint32_t word[2] = {0u, 0u};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int f = 2 * h + e;
+              word[h] |= (low_bytes(acc[0][u][f], acc[1][u][f], acc[2][u][f], acc[3][u][f]) &
+                          0x01010101u) << (2 * u + e);
+            }
+        if (4 * g4 + tig < rg) {
+          if (full) {
+            *reinterpret_cast<uint32_t*>(po) = word[0];
+            *reinterpret_cast<uint32_t*>(po + 32) = word[1];
+          } else {
+            store4(po, 0, rest, vec, word[0]);
+            store4(po + 32, 0, rest - 32, vec, word[1]);
+          }
+        }
+      }
+    }
+    if constexpr (KS > 0) __syncwarp();   // tile i's slot is read out
+    at_b += step_b;
+    at_c += step_c;
+    if (at_c >= ntl) {
+      at_c -= ntl;
+      ++at_b;
+    }
   }
 }
 
-using PopcKernel = void (*)(const uint32_t*, const uint8_t*, uint8_t*, int, int, int,
-                            int, int, int, long long, bool);
+using PopcKernel = void (*)(const uint2*, const uint8_t*, uint8_t*, int, int, int, int, int,
+                            long long, bool, bool);
 
-template <bool kAcc>
-PopcKernel popc_kernel_nq(int kg) {
-  switch ((kg + 3) / 4) {
-    case 1: return gf2_popc_kernel<1, kAcc>;
-    case 2: return gf2_popc_kernel<2, kAcc>;
-    case 3: return gf2_popc_kernel<3, kAcc>;
-    case 4: return gf2_popc_kernel<4, kAcc>;
-    case 5: return gf2_popc_kernel<5, kAcc>;
-    case 6: return gf2_popc_kernel<6, kAcc>;
-    case 7: return gf2_popc_kernel<7, kAcc>;
-    default: return gf2_popc_kernel<8, kAcc>;
-  }
+// k-steps of 32 chunks for k chunks
+constexpr int popc_ksteps(int k) { return (k + 31) / 32; }
+
+// k-steps held in registers: all of them up to kPopcRegSteps, else 0
+constexpr int popc_reg_steps(int k) {
+  return popc_ksteps(k) <= kPopcRegSteps ? popc_ksteps(k) : 0;
 }
 
-// The K1 instance for a group of kg <= 32 chunks (NQ = ceil(kg/4)) that
-// stores (a row tile's first launch) or XORs into the output (acc).
-PopcKernel popc_kernel_for(int kg, bool acc) {
-  return acc ? popc_kernel_nq<true>(kg) : popc_kernel_nq<false>(kg);
+// bytes of W's fragments in shared memory (when A stays in registers)
+constexpr size_t popc_w_bytes(int k, int rg) {
+  return static_cast<size_t>(popc_reg_steps(k)) * ((rg + 3) / 4) * kPopcGroupWords *
+         sizeof(uint32_t);
+}
+
+// 64-column halves a tile takes: kPopcMaxSpan, or half of it, as long as a
+// block's shared memory stays within kPopcSmemTarget, else 1 (and 1 without
+// staging)
+constexpr int popc_span(int k, int rg) {
+  auto fits = [&](int span) {
+    return popc_w_bytes(k, rg) + static_cast<size_t>(kPopcWarps) * kPopcRing * span * 64 *
+                                     popc_rows(k) <= kPopcSmemTarget;
+  };
+  return popc_reg_steps(k) == 0 ? 1
+         : fits(kPopcMaxSpan)   ? kPopcMaxSpan
+         : fits(kPopcMaxSpan / 2) && kPopcMaxSpan > 1 ? kPopcMaxSpan / 2
+                                                       : 1;
+}
+
+// shared memory of a launch when A stays in registers: W's fragments, then
+// each warp's ring of staged tiles (popc_span halves of popc_rows(k) rows of
+// 64 bytes), then room for the last half's A reads of rows up to 32*KS
+constexpr size_t popc_smem_bytes(int k, int rg) {
+  return popc_reg_steps(k) == 0
+             ? 0
+             : popc_w_bytes(k, rg) +
+                   static_cast<size_t>(kPopcWarps) * kPopcRing * popc_span(k, rg) * 64 *
+                       popc_rows(k) +
+                   64 * (32 * popc_reg_steps(k) - popc_rows(k));
+}
+
+// K1 with KS k-steps in registers, where kPopcRegSteps allows that many;
+// kHalfLast when the last k-step has at most 16 of its 32 chunks
+template <int KS, int SPAN>
+PopcKernel popc_instance(int k) {
+  if constexpr (KS <= kPopcRegSteps)
+    return k - 32 * (KS - 1) <= 16 ? gf2_popc_kernel<KS, true, SPAN>
+                                   : gf2_popc_kernel<KS, false, SPAN>;
+  else
+    return gf2_popc_kernel<0, false, 1>;
+}
+
+template <int KS>
+PopcKernel popc_instance(int k, int span) {
+  static_assert(kPopcMaxSpan == 1 || kPopcMaxSpan == 2 || kPopcMaxSpan == 4 ||
+                kPopcMaxSpan == 8 || kPopcMaxSpan == 16);
+  return span >= kPopcMaxSpan     ? popc_instance<KS, kPopcMaxSpan>(k)
+         : span >= kPopcMaxSpan / 2 ? popc_instance<KS, (kPopcMaxSpan > 1 ? kPopcMaxSpan / 2 : 1)>(k)
+                                    : popc_instance<KS, 1>(k);
+}
+
+// The K1 instance for k chunks and row tiles of rg rows (popc_span halves a
+// tile: kPopcMaxSpan, half of it, or 1).
+PopcKernel popc_kernel_for(int k, int rg) {
+  const int span = popc_span(k, rg);
+  switch (popc_reg_steps(k)) {
+    case 1: return popc_instance<1>(k, span);
+    case 2: return popc_instance<2>(k, span);
+    case 3: return popc_instance<3>(k, span);
+    case 4: return popc_instance<4>(k, span);
+    default: return gf2_popc_kernel<0, false, 1>;
+  }
 }
 
 // Shared memory of one K2 block, in this order (every part 16-byte aligned):
@@ -507,31 +785,63 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
 extern "C" {
 
 // One K1 launch (see gf2_popc_kernel): data (B,k,L) uint8, out (B,r,L),
-// B <= 65535; wpk the (8*rg, ceil(kg/4)) uint32 W tile of output rows i0..
-// over chunks j0..j0+kg-1, kg <= 32, rg <= kPopcMaxRows; acc XORs into out.
-int gf2_matmul_popc(const void* wpk, const void* data, void* out, int B, int k, int j0,
-                    int kg, int r, int i0, int rg, long long L, int acc, int device,
-                    void* stream) {
+// B <= 65535; wfrag W's B fragments for output rows i0..i0+rg-1,
+// rg <= kPopcMaxRows: ceil(rg/4) * ceil(k/32) * kPopcGroupWords uint32,
+// 16-byte aligned.  The grid: the card's SMs x resident blocks, or fewer
+// when there are fewer tiles.
+int gf2_matmul_popc(const void* wfrag, const void* data, void* out, int B, int k, int r,
+                    int i0, int rg, long long L, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (B < 1 || B > 65535 || k < 1 || kg < 1 || kg > 4 * kPopcMaxNQ || j0 < 0 ||
-      j0 + kg > k || r < 1 || rg < 1 || rg > kPopcMaxRows || i0 < 0 || i0 + rg > r ||
-      L < 1)
+  if (B < 1 || B > 65535 || k < 1 || r < 1 || rg < 1 || rg > kPopcMaxRows || i0 < 0 ||
+      i0 + rg > r || L < 1 || reinterpret_cast<uintptr_t>(wfrag) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PopcKernel kernel = popc_kernel_for(kg, acc != 0);
-  const size_t smem = static_cast<size_t>(8) * rg * ((kg + 3) / 4) * sizeof(uint32_t);
-  const cudaError_t err = prepare_smem(kernel, smem);
+  const PopcKernel kernel = popc_kernel_for(k, rg);
+  const size_t smem = popc_smem_bytes(k, rg);
+  cudaError_t err = prepare_smem(kernel, smem);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPopcThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_block = static_cast<long long>(kPopcThreads) * kPopcCols;
-  const long long ncb = (L + per_block - 1) / per_block;
-  if (ncb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(ncb), static_cast<unsigned>(B));
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int span = popc_span(k, rg);
+  const long long ntl = (L + 64LL * span - 1) / (64LL * span);
+  const long long want = (B * ntl + kPopcWarps - 1) / kPopcWarps;
+  const long long full = static_cast<long long>(sms) * per_sm;
+  if (ntl > 0x7fffffffLL || full * kPopcWarps > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = (L % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(out) % 4 == 0);
-  kernel<<<grid, kPopcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(wpk), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), k, j0, kg, r, i0, rg, L, vec);
+  const bool async = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+  kernel<<<static_cast<unsigned>(want < full ? want : full), kPopcThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(wfrag), static_cast<const uint8_t*>(data),
+      static_cast<uint8_t*>(out), B, k, r, i0, rg, L, vec, async);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The K1 instance gf2_matmul_popc launches for k chunks and a row tile of rg
+// rows: info[0] registers per thread, info[1] shared memory per block
+// (dynamic + static), info[2] resident blocks per SM, info[3] local memory
+// per thread in bytes.
+int gf2_popc_config(int k, int rg, int device, int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k < 1 || rg < 1 || rg > kPopcMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const PopcKernel kernel = popc_kernel_for(k, rg);
+  const size_t smem = popc_smem_bytes(k, rg);
+  cudaFuncAttributes attr;
+  if ((err = prepare_smem(kernel, smem)) != cudaSuccess ||
+      (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel,
+                                                           kPopcThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(smem + attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // wt: W_gN padded and tile-major, (ceil(g*r/2), ceil(g*k/2), 16, 16) int8;

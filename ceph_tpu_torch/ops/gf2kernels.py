@@ -8,11 +8,11 @@ GF(2), so the whole stripe encode is
 with W the bit-expanded coefficient matrix (``bitmatrix_i8``).  Two hand
 written kernels in ``csrc/gf2_matmul.cu`` compute it:
 
-  * ``gf2_matmul_popc`` (K1): AND + popcount on CUDA cores, any shape: a
-    batch of more than ``POPC_MAX_STRIPES`` stripes is split into stripe
-    ranges (``popc_stripes``) and a product over more than 32 chunks or
-    ``POPC_MAX_ROWS`` rows into tiles (``popc_plan``), one launch each, a
-    row tile's launches XORed into one output;
+  * ``gf2_matmul_popc`` (K1): AND + popcount on the single-bit tensor
+    cores (``mma.sync`` m16n8k256 ``.b1``), any shape: all k chunks in one
+    launch, a batch of more than ``POPC_MAX_STRIPES`` stripes split into
+    stripe ranges (``popc_stripes``) and more than ``POPC_MAX_ROWS`` output
+    rows into row tiles (``popc_plan``), one launch each;
   * ``gf2_matmul_mma`` (K2): g stripes per block on the int8 tensor cores
     with the plane-major, block-diagonal ``w_gN_planemajor``.
 
@@ -47,11 +47,11 @@ from . import _build
 LANE_TILE = 8192
 # byte columns K2 handles per step; every K2 shape has L % MMA_COLS == 0
 MMA_COLS = 128
-# one K1 launch contracts over at most POPC_GROUP chunks into at most
-# POPC_MAX_ROWS output rows (csrc/gf2_matmul.cu kPopcMaxNQ, kPopcMaxRows) of
-# at most POPC_MAX_STRIPES stripes (its grid.y)
+# K1 contracts POPC_GROUP chunks (256 bits) a k-step, all k-steps in one
+# launch, into at most POPC_MAX_ROWS output rows (csrc/gf2_matmul.cu
+# kPopcMaxRows) of at most POPC_MAX_STRIPES stripes (its grid.y)
 POPC_GROUP = 32
-POPC_MAX_ROWS = 512
+POPC_MAX_ROWS = 256
 POPC_MAX_STRIPES = 65535
 
 # launches of each kernel, counted where the wrapper launches it
@@ -128,13 +128,11 @@ def w_gN_planemajor(matrix: np.ndarray, g: int) -> np.ndarray:
     return _w_gN_cached(matrix.tobytes(), *matrix.shape, g)
 
 
-def popc_plan(k: int, r: int) -> list[tuple[int, int, int, int]]:
-    """K1's launches for an (r, k) matrix: (j0, kg, i0, rg) tiles, chunks
-    j0..j0+kg-1 into output rows i0..i0+rg-1; a row tile's launches after
-    its first XOR their partial products into the output."""
-    return [(j0, min(POPC_GROUP, k - j0), i0, min(POPC_MAX_ROWS, r - i0))
-            for i0 in range(0, r, POPC_MAX_ROWS)
-            for j0 in range(0, k, POPC_GROUP)]
+def popc_plan(r: int) -> list[tuple[int, int]]:
+    """K1's launches for r output rows: (i0, rg) row tiles, output rows
+    i0..i0+rg-1 over all the chunks (split-k is a loop in the kernel)."""
+    return [(i0, min(POPC_MAX_ROWS, r - i0))
+            for i0 in range(0, r, POPC_MAX_ROWS)]
 
 
 def popc_stripes(b: int) -> list[tuple[int, int]]:
@@ -229,17 +227,24 @@ def gf2_matmul_grouped_plain(w_gN: torch.Tensor, data: torch.Tensor,
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("gf2_matmul")
-    lib.gf2_matmul_popc.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                                    _LL, _I, _I, _VP]
+def _load(name: str) -> ctypes.CDLL:
+    """The built library ``name`` with K1's and K2's C entries typed."""
+    lib = _build.library(name)
+    lib.gf2_matmul_popc.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
+                                    _I, _VP]
     lib.gf2_matmul_popc.restype = _I
+    lib.gf2_popc_config.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.gf2_popc_config.restype = _I
     lib.gf2_matmul_mma.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _VP]
     lib.gf2_matmul_mma.restype = _I
     lib.gf2_mma_config.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.gf2_mma_config.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    return _load("gf2_matmul")
 
 
 def _check_data(data: torch.Tensor, k: int) -> None:
@@ -272,23 +277,37 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return _VP(torch.cuda.current_stream(device).cuda_stream)
 
 
+def popc_fragments(w: np.ndarray, i0: int, rg: int) -> np.ndarray:
+    """K1's B fragments for output rows i0..i0+rg-1 of the (8r, 8k) bit
+    matrix ``w``: (ceil(rg/4), ceil(k/32), 4, 32, 2) uint32, [g4, ks, u,
+    lane, h] = word 8ks + tig + 4h of W row 8(i0 + 4g4 + grp//2) + 2u +
+    grp%2 (lane = 4grp + tig; word q of a row holds chunks 4q..4q+3, bit t of
+    chunk 4q+jj at bit 8jj+t; rows past the tile are zero).  So n-tile u of
+    row group g4 has column 2p+e = bit 2u+e of row 4g4+p, the order in which
+    each lane's accumulators hold whole output bytes."""
+    k = w.shape[1] // 8
+    ng, nks = -(-rg // 4), -(-k // POPC_GROUP)
+    bits = np.zeros((32 * ng, 256 * nks), np.uint8)
+    bits[:8 * rg, :8 * k] = w[8 * i0:8 * (i0 + rg)]
+    words = np.packbits(bits.reshape(32 * ng, 8 * nks, 32), axis=-1,
+                        bitorder="little").view("<u4")[..., 0]
+    g4, ks, u, lane, h = np.ix_(range(ng), range(nks), range(4), range(32),
+                                range(2))
+    grp, tig = lane >> 2, lane & 3
+    return words[8 * (4 * g4 + (grp >> 1)) + 2 * u + (grp & 1),
+                 8 * ks + tig + 4 * h]
+
+
 @functools.lru_cache(maxsize=256)
 def _w_popc_device(mat_bytes: bytes, r: int, k: int,
                    device: torch.device) -> tuple[torch.Tensor, ...]:
-    """W packed for K1, one tile per ``popc_plan`` launch: (8*rg,
-    ceil(kg/4)) 32-bit words, word q of a row = its bits of chunks
-    j0+4q..j0+4q+3."""
+    """K1's B fragments (``popc_fragments``), one flat int32 tensor per
+    ``popc_plan`` row tile."""
     w = _bitmatrix_cached(mat_bytes, r, k)
-    tiles = []
-    for j0, kg, i0, rg in popc_plan(k, r):
-        nq = (kg + 3) // 4
-        t = np.zeros((8 * rg, 32 * nq), np.uint8)
-        t[:, :8 * kg] = w[8 * i0:8 * (i0 + rg), 8 * j0:8 * (j0 + kg)]
-        words = np.packbits(t.reshape(8 * rg, nq, 32), axis=-1,
-                            bitorder="little")
-        tiles.append(torch.from_numpy(np.ascontiguousarray(words).view(
-            "<i4").reshape(8 * rg, nq)).to(device))
-    return tuple(tiles)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            popc_fragments(w, i0, rg)).view("<i4").reshape(-1)).to(device)
+        for i0, rg in popc_plan(r))
 
 
 @functools.lru_cache(maxsize=256)
@@ -320,10 +339,9 @@ def gf2_matmul_popc(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     tiles = _w_popc_device(matrix.tobytes(), r, k, data.device)
     for b0, nb in popc_stripes(b):
         src, dst = data[b0:].data_ptr(), out[b0:].data_ptr()
-        for (j0, kg, i0, rg), w in zip(popc_plan(k, r), tiles):
-            _launch("gf2_matmul_popc", w.data_ptr(), src, dst, nb, k, j0, kg,
-                    r, i0, rg, l, int(j0 > 0), data.device.index,
-                    _stream(data.device))
+        for (i0, rg), w in zip(popc_plan(r), tiles):
+            _launch("gf2_matmul_popc", w.data_ptr(), src, dst, nb, k, r, i0,
+                    rg, l, data.device.index, _stream(data.device))
     return out
 
 
@@ -349,19 +367,30 @@ def gf2_matmul_mma(matrix: np.ndarray, data: torch.Tensor,
     return out
 
 
-def mma_config(k: int, r: int, g: int, device=None) -> dict:
-    """The K2 instance ``gf2_matmul_mma`` launches for (k, r, g), as the CUDA
-    runtime reports it: registers and local (spill) bytes per thread, shared
-    memory per block and resident blocks per SM."""
+def _config(entry: str, *args, device) -> dict:
+    """A kernel instance as the CUDA runtime reports it: registers and local
+    (spill) bytes per thread, shared memory per block and resident blocks
+    per SM."""
     dev = resolve_device(device)
     if dev.type != "cuda":
-        raise ValueError("mma_config describes a kernel on a CUDA device")
+        raise ValueError(f"{entry} describes a kernel on a CUDA device")
     info = (_I * 4)()
-    err = _lib().gf2_mma_config(k, r, g, dev.index, info)
+    err = getattr(_lib(), entry)(*args, dev.index, info)
     if err:
-        raise RuntimeError(f"gf2_mma_config failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} failed with CUDA error {err}")
     return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
                      "local_bytes"), info))
+
+
+def popc_config(k: int, r: int, device=None) -> dict:
+    """The K1 instance ``gf2_matmul_popc`` launches for k chunks and r rows
+    (its first row tile)."""
+    return _config("gf2_popc_config", k, popc_plan(r)[0][1], device=device)
+
+
+def mma_config(k: int, r: int, g: int, device=None) -> dict:
+    """The K2 instance ``gf2_matmul_mma`` launches for (k, r, g)."""
+    return _config("gf2_mma_config", k, r, g, device=device)
 
 
 # ---------------------------------------------------------------------------

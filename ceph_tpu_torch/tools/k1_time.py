@@ -1,27 +1,34 @@
 """Time kernel K1 (``gf2_matmul_popc``) through its wrapper on the card.
 
-    python ceph_tpu_torch/tools/k1_time.py [--root TREE]
+    python ceph_tpu_torch/tools/k1_time.py [--root TREE] \
+        [--set kPopcWarps=4,kPopcMaxSpan=8]
 
 Imports ``ceph_tpu_torch`` from the repository checkout ``--root`` (default:
 the checkout this file is in), builds its K1 and times
-``gf2kernels.gf2_matmul_popc`` at the two shapes the card's dense route
-sends to K1 at full width: RS k=8,m=3 encode on (1024, 8, 131072) and the
-PMSR k=5,m=4 parity product on its sub-chunk rows, (1024, 20, 32768).  The
-wrapper's Python signature is the same in every tree that has K1, so one
-run per tree, in turns (parent, change, change, parent), compares two
-commits on one card.  Each result must equal the plain version on 8
-stripes.  Each of ``REPEATS`` readings is a CUDA-event mean over
-``ITERS`` calls after one warm call; the median is reported beside them
-all (the host that feeds the calls is shared, and a stalled reading shows
-as an outlier).  The XOR-schedule compiler is switched off
-(``CEPH_TPU_XOR_SCHED=0``): the codec's init then compiles no schedule K1
-does not use.  Prints one JSON object with the root, the card's name and
-power limit.
+``gf2kernels.gf2_matmul_popc`` at the shapes the card's dense route sends to
+K1 at full width: RS k=8,m=3 encode on (1024, 8, 131072), the PMSR k=5,m=4
+parity product on its sub-chunk rows, (1024, 20, 32768) -> 16, and the PMSR
+k=7,m=6 parity product, (1024, 42, 21856) -> 36; and K2
+(``gf2_matmul_mma``) at the RS shape beside K1, the other engine for that
+shape.  The wrappers' Python signatures are the same in every tree that has
+K1 and K2, so one run per tree, in turns (parent, change, change, parent),
+compares two commits on one card.  ``--set`` builds a variant of the tree's
+``csrc/gf2_matmul.cu`` with those ``constexpr int`` knobs changed, for a
+tree whose wrapper has ``_load``.  Each result must equal the plain version
+on 8 stripes.  Each of ``REPEATS`` readings is a CUDA-event mean over
+``ITERS`` calls after one warm call; the median is reported beside them all
+(the host that feeds the calls is shared, and a stalled reading shows as an
+outlier).  The XOR-schedule compiler is switched off
+(``CEPH_TPU_XOR_SCHED=0``): the codecs' init then compiles no schedule K1
+does not use.  Prints one JSON object with the root, the variant, the card's
+name and power limit and, where the tree reports them, K1's registers,
+shared memory and spills at each shape.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -32,58 +39,110 @@ ITERS = 20
 REPEATS = 5
 
 
+def _knobs(specs: list[str]) -> dict[str, int]:
+    return {k: int(v) for spec in specs for k, v in
+            (kv.split("=", 1) for kv in spec.split(","))}
+
+
+def _ptxas_k1(log: str) -> list[str]:
+    """ptxas's register and spill lines for each K1 instance in a build log."""
+    out = []
+    for part in log.split("Compiling entry function")[1:]:
+        name = part.split("'")[1]
+        if "popc_kernel" in name:
+            lines = [ln.split(":", 1)[-1].strip() for ln in part.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            out.append(f"{name}: {'; '.join(lines)}")
+    return out
+
+
+def _time(fn) -> list[float]:
+    import torch
+    fn()
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ITERS):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / ITERS)
+    return runs
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--set", action="append", default=[],
+                    help="NAME=VALUE[,NAME=VALUE]: knobs of csrc/gf2_matmul.cu")
     args = ap.parse_args(argv)
-    sys.path.insert(0, str(Path(args.root).resolve()))
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
     os.environ["CEPH_TPU_XOR_SCHED"] = "0"
     import numpy as np
     import torch
     from ceph_tpu_torch.ec.plugins.pmsr import ErasureCodePmsr
     from ceph_tpu_torch.gf import gen_rs_matrix
+    from ceph_tpu_torch.ops import _build
     from ceph_tpu_torch.ops import gf2kernels as gk
 
     if not torch.cuda.is_available():
         print("k1_time: no CUDA device", file=sys.stderr)
         return 2
+    knobs = _knobs(args.set)
+    name = "gf2_matmul"
+    if knobs:
+        from ceph_tpu_torch.tools.k2_sweep import variant_text
+        name = "gf2_matmul_k1v"
+        _build.add_generated(name, variant_text(
+            (_build.CSRC / "gf2_matmul.cu").read_text(), knobs))
+        gk._lib = functools.lru_cache(maxsize=1)(lambda: gk._load(name))
+    built = _build.build([name])
+    ptxas = _ptxas_k1(built[name].log) if name in built else []
+
     dev = torch.device("cuda", torch.cuda.current_device())
-    pmsr = ErasureCodePmsr(device=dev)
-    pmsr.init({"k": "5", "m": "4"})
+    pmsr5, pmsr7 = ErasureCodePmsr(device=dev), ErasureCodePmsr(device=dev)
+    pmsr5.init({"k": "5", "m": "4"})
+    pmsr7.init({"k": "7", "m": "6"})
     paths = [("rs8/3 encode", gen_rs_matrix(11, 8)[8:], (1024, 8, 131072)),
-             ("pmsr5/4 parity", pmsr.parity_matrix,
-              (1024, 5 * pmsr.alpha, 131072 // pmsr.alpha))]
+             ("pmsr5/4 parity", pmsr5.parity_matrix,
+              (1024, 5 * pmsr5.alpha, 131072 // pmsr5.alpha)),
+             ("pmsr7/6 parity", pmsr7.parity_matrix,
+              (1024, 7 * pmsr7.alpha, 131136 // pmsr7.alpha))]
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {}
     for label, mat, shape in paths:
         mat = np.ascontiguousarray(mat, np.uint8)
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                           generator=gen)
-        out = gk.gf2_matmul_popc(mat, x)
+        runs = {"gf2_matmul_popc": lambda: gk.gf2_matmul_popc(mat, x)}
+        if label == "rs8/3 encode":
+            g = gk.pick_group(shape[1], shape[0])
+            runs["gf2_matmul_mma"] = lambda: gk.gf2_matmul_mma(mat, x, g)
         plain = gk.gf2_matmul_plain(
             torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev), x[:8])
-        if not torch.equal(out[:8], plain):
-            raise RuntimeError(f"{label}: K1 differs from the plain version")
-        runs = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(ITERS):
-                gk.gf2_matmul_popc(mat, x)
-            end.record()
-            end.synchronize()
-            runs.append(start.elapsed_time(end) / ITERS)
-        report[label] = {"shape": list(shape), "r": mat.shape[0],
-                         "ms": float(np.median(runs)), "ms_runs": runs}
-        del x, out
+        entry = {"shape": list(shape), "r": mat.shape[0]}
+        for kernel, fn in runs.items():
+            if not torch.equal(fn()[:8], plain):
+                raise RuntimeError(f"{label}: {kernel} differs from the plain "
+                                   f"version")
+            ms = _time(fn)
+            tag = "" if kernel == "gf2_matmul_popc" else "k2_"
+            entry[f"{tag}ms"] = float(np.median(ms))
+            entry[f"{tag}ms_runs"] = ms
+        if hasattr(gk, "popc_config"):
+            entry["config"] = gk.popc_config(shape[1], mat.shape[0], dev)
+        report[label] = entry
+        del x
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(json.dumps({"root": str(Path(args.root).resolve()),
+    print(json.dumps({"root": str(root), "set": knobs,
                       "card": smi.stdout.strip().splitlines()[0],
-                      "paths": report}))
+                      "ptxas": ptxas, "paths": report}))
     return 0
 
 

@@ -13,7 +13,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
     on seeded inputs at small shapes, byte-exact (for K2: one step, a whole
     block plus a ragged tail at g=2 and g=1, RS decode, Cauchy at k=10, the
-    LRC parity and local-repair matrices; for K1: split-k at k=42 and 72);
+    LRC parity and local-repair matrices; for K1: k-steps at k=42 and 72,
+    the PMSR k=5 parity matrix, a partial last W word at k=13);
+ 2b. the tensor-core MMA rates K1 and K2 stand on (``tools/mma_rate.py``):
+    b1 m16n8k256 and u8 m16n8k32, in MMAs a clock a SM; no data sheet gives
+    the b1 rate, so K1's bounds take the measured one as its peak;
  3. K3 likewise, on the schedules of RS, LRC and PMSR matrices and of
     matrices with a unit, a zero and a repeated row, with ragged L, odd B
     and a misaligned base; K4 (CRC32C) against its plain version and the
@@ -23,7 +27,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     base, spans of 8 rounds with masked ends, and the one-launch entry for
     two sets of rows;
  3b. the dense kernels past their old limits: PMSR k=7,m=6 at (1024, 7,
-    131136) through the dense route (K1 at k=42, split into two launches),
+    131136) through the dense route (K1 at k=42: two k-steps in one launch),
     encode and a 2-erasure decode; K1 at B=70000 (two launches: the wrapper
     splits the batch into ranges of at most 65535 stripes) and one K2
     launch at B/g=70000; byte-exact against the plain versions and the host
@@ -58,9 +62,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
  9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
     for K1/K2, phases 6-7 for K3, phase 8c for K4), its time at its headline
     shape, its bound, its plain version's time and its largest difference
-    from the plain version; K2 also its times on the other paths it serves
-    (phases 4-6) and its registers, shared memory, blocks per SM and spill
-    bytes as the CUDA runtime reports them;
+    from the plain version; K1, K2 and K3 also their times and bounds on the
+    other paths they serve (``ms_by_path`` / ``bound_by_path``: each bound
+    the larger of the bytes and the fewest operations known, of K3's XOR
+    terms where the schedule is compiled, b1 MMAs at the measured rate and
+    int8 products), and K1/K2 their registers, shared memory, blocks per
+    SM and spill bytes as the CUDA runtime reports them;
 10. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
@@ -86,8 +93,9 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
-INT32_OPS_PER_CLOCK = 64 * 132   # H100 SXM: 64 INT32 lanes per SM, 132 SMs
-SMEM_LOOKUPS_PER_CLOCK = 32 * 132  # H100: 32 shared-memory banks per SM
+SMS = 132                        # H100 SXM
+INT32_OPS_PER_CLOCK = 64 * SMS   # H100 SXM: 64 INT32 lanes per SM
+SMEM_LOOKUPS_PER_CLOCK = 32 * SMS  # H100: 32 shared-memory banks per SM
 GiB = float(1 << 30)
 # (stripes, k, m, chunk bytes): BASELINE.json configs 2 and 3, 1 MiB stripes
 MAIN = (1024, 8, 3, 131072)
@@ -281,6 +289,16 @@ def phase_kernels(dev: torch.device) -> dict:
                                                      dtype=np.uint8), 3, 1001))
     cases.append(("k=72 r=3 split-k", wide.integers(0, 256, (3, 72),
                                                     dtype=np.uint8), 2, 512))
+    # K1's row groups at PMSR k=5 parity (16 x 20), a partial last W word
+    from ceph_tpu_torch.ec.plugins.pmsr import ErasureCodePmsr
+    pmsr = ErasureCodePmsr()
+    pmsr.init(dict(PMSR[2]))
+    cases.append(("pmsr5/4 parity 16x20", pmsr.parity_matrix, 3, 1001))
+    # K1's staged tiles (L % 16 == 0) with a ragged last tile
+    cases.append(("pmsr5/4 parity staged, ragged", pmsr.parity_matrix, 2, 4112))
+    cases.append(("rs8/3 staged, ragged", gen83[8:], 3, 1008))
+    cases.append(("k=13 r=5", wide.integers(0, 256, (5, 13), dtype=np.uint8),
+                  2, 4100))
 
     err = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
     checked = {"gf2_matmul_popc": 0, "gf2_matmul_mma": 0}
@@ -355,6 +373,17 @@ def phase_k3_small(dev: torch.device, built: dict) -> int:
         f"{len({c[0] for c in cases})} digests byte-exact (ragged L, odd B, "
         f"misaligned base included)")
     return err
+
+
+def phase_mma_rate(dev: torch.device) -> dict:
+    """The b1 and u8 mma.sync rates, MMAs a clock a SM."""
+    from ceph_tpu_torch.tools import mma_rate
+    rates = mma_rate.measure(dev)
+    log("mma rates: " + "; ".join(
+        f"{name} {r['mma_per_clock_per_sm']:.4f} a clock a SM ({r['mmas']} "
+        f"MMAs in {r['ms']:.4f} ms at {r['sm_clock_mhz']:.0f} MHz)"
+        for name, r in rates.items()))
+    return {name: r["mma_per_clock_per_sm"] for name, r in rates.items()}
 
 
 def reset_launches() -> None:
@@ -454,9 +483,12 @@ def phase_repair(dev: torch.device) -> dict:
         want = gf_matmul(codec.parity_matrix, sub).reshape(m, l)
         if not np.array_equal(parity[int(i)].cpu().numpy(), want):
             raise RuntimeError(f"pmsr7/6: encode stripe {i} differs from host")
-    if launches["gf2_matmul_popc"] < 4 or launches["gf2_matmul_mma"] \
+    want = len(gk.popc_stripes(b)) * (len(gk.popc_plan(m * a))
+                                      + len(gk.popc_plan(len(lost) * a)))
+    if launches["gf2_matmul_popc"] != want or launches["gf2_matmul_mma"] \
             or launches["xor_sched"]:
-        raise RuntimeError(f"pmsr7/6 left K1's split-k route: {launches}")
+        raise RuntimeError(f"pmsr7/6 left K1's route ({want} launches): "
+                           f"{launches}")
     with xor_sched_env("0"):
         enc_ms = time_ms(lambda: codec.encode_batch(data), iters=3)
         dec_ms = time_ms(lambda: codec.decode_batch(extra, survivors), iters=3)
@@ -498,6 +530,8 @@ def phase_repair(dev: torch.device) -> dict:
         f"range) and K2 at {list(K2_WIDE[:3])} g={K2_WIDE[3]} (one launch): "
         f"== plain and host oracle (stripes 0, 65535, 65536, B-1)")
     return {"pmsr7_launches": launches, "pmsr7_ms": (enc_ms, dec_ms),
+            "pmsr7_shapes": ((b, k * a, l // a, m * a),
+                             (b, len(src) * a, l // a, len(lost) * a)),
             "wide": wide}
 
 
@@ -687,9 +721,14 @@ def phase_linear(dev: torch.device, plugin: str, spec: tuple, lost: tuple,
         f"{gibps(dec_bytes, times['0'][1]):.2f} GiB/s ({times['0'][1]:.3f} "
         f"ms) [GiB/s of input read]; scheduled == dense, recovered == lost, "
         f"8 stripes == host, 4 stripes == plain; launches {launches}")
+    dsched = xs.schedule_for(gk.bitmatrix_i8(codec.repair_matrix(src, lost)),
+                             compile_missing=False)
     return {"launches": launches, "data": data, "sched": sched,
-            "matrix": codec.parity_matrix, "dense_name": dense_name,
-            "dense_ms": times["0"], "sched_ms": times["1"]}
+            "dsched": dsched, "matrix": codec.parity_matrix,
+            "dense_name": dense_name, "dense_ms": times["0"],
+            "sched_ms": times["1"],
+            "shapes": ((b, k * a, l // a, m * a),
+                       (b, len(src) * a, l // a, len(lost) * a))}
 
 
 def phase_autotune() -> None:
@@ -1013,12 +1052,41 @@ def plain_in_slices(plain, data: torch.Tensor, out: torch.Tensor,
     return start.elapsed_time(end), err
 
 
+def path_bound(shape: tuple, mhz: float, b1_rate: float, sched=None) -> dict:
+    """The least time for a GF(2^8) product of shape (B, k, L) -> r rows:
+    the larger of its bytes (each input read once, each output written once)
+    and the fewest operations known for it, the least of: K3's XOR terms a
+    32-byte column (where the schedule is compiled) on the INT32 lanes; the
+    b1 m16n8k256 MMAs its 8r x 8k bits need, at the measured b1 rate (no data
+    sheet gives one); its int8 products 2*8r*8k a byte column at the int8
+    peak."""
+    b, k, l, r = shape
+    t_bytes = b * (k + r) * l / HBM_BYTES_PER_S * 1e3
+    ops = {"int8 products": 2 * (8 * r) * (8 * k) * b * l / INT8_OPS_PER_S * 1e3,
+           "b1 MMAs": b * l * (8 * r) * (8 * k) / (16 * 8 * 256)
+           / (b1_rate * SMS * mhz * 1e6) * 1e3}
+    if sched is not None:
+        ops["XOR terms"] = sched.n_terms * b * -(-l // 32) / (
+            INT32_OPS_PER_CLOCK * mhz * 1e6) * 1e3
+    ops_by, t_ops = min(ops.items(), key=lambda kv: kv[1])
+    return {"bound_ms": round(max(t_bytes, t_ops), 4),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": round(t_bytes, 4), "ops_ms": round(t_ops, 4),
+            "ops_by": ops_by}
+
+
+def path_label(name: str, shape: tuple) -> str:
+    b, k, l, r = shape
+    return f"{name} ({b},{k},{l})->{r}"
+
+
 def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
-                      osd: dict) -> dict:
+                      osd: dict, repair: dict, rates: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
-    K2 and K4 also with their other paths' times and launch configuration."""
+    K1, K2 and K3 also with their other paths' times and bounds, K1, K2 and
+    K4 with their launch configuration."""
     from ceph_tpu_torch.ops import crc32c_batch as crc
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_schedule as xs
@@ -1075,6 +1143,11 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         k2["ms_by_path"]["lrc8/4/3 dense local repair (1024,3,131072)->1"] = \
             round(lrc["dense_ms"][1], 4)
     k2.update(gk.mma_config(k, r, g, dev))
+    k2["u8_mma_per_clock_per_sm"] = round(rates["u8 m16n8k32"], 4)
+    k1 = rows[0]
+    k1.update(gk.popc_config(k, r, dev))
+    b1_rate = rates["b1 m16n8k256 and.popc"]
+    k1["b1_mma_per_clock_per_sm"] = round(b1_rate, 4)
 
     # K3 at LRC k=8,m=4,l=3 encode: n_terms XORs per 32 byte columns
     data, sched = lrc["data"], lrc["sched"]
@@ -1110,26 +1183,41 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         raise RuntimeError(f"xor_sched differs from its plain version at the "
                            f"headline shape: max {err}")
 
-    # PMSR k=5,m=4 parity, (b, k * a, l / a) sub-rows -> (b, m * a, l / a):
-    # K1 (dense) and K3 compute the same function, so one bound for both:
-    # its bytes, or the fewest operations the repo knows (K3's XOR terms,
-    # under K1's int8 products)
-    data, sched = pmsr["data"], pmsr["sched"]
-    b, k, l = data.shape
-    sub = l // (sched.n_in // 8 // k)
-    t_bytes = (data.numel() + b * (sched.n_out // 8) * sub) / HBM_BYTES_PER_S * 1e3
-    t_ops = sched.n_terms * b * -(-sub // 32) / (INT32_OPS_PER_CLOCK * mhz * 1e6) * 1e3
-    pmsr_path = (f"pmsr5/4 parity ({b},{sched.n_in // 8},{sub})->"
-                 f"{sched.n_out // 8}")
-    pmsr_bound = {pmsr_path: {
-        "bound_ms": round(max(t_bytes, t_ops), 4),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "n_terms": sched.n_terms}}
-    rows[-1]["ms_by_path"] = {pmsr_path: round(pmsr["sched_ms"][0], 4)}
-    rows[-1]["bound_by_path"] = pmsr_bound
-    if pmsr["dense_name"] == "K1":
-        rows[0]["ms_by_path"] = {pmsr_path: round(pmsr["dense_ms"][0], 4)}
-        rows[0]["bound_by_path"] = pmsr_bound
+    # the other paths, as the flat (B, sub-rows, sub-lane) -> rows products
+    # they launch; K1 (dense) and K3 compute the same function on a path,
+    # so one bound for both
+    enc5, dec5 = pmsr["shapes"]
+    enc7, dec7 = repair["pmsr7_shapes"]
+    lrc_rep = lrc["shapes"][1]
+    k1_ms = pmsr["dense_ms"] if pmsr["dense_name"] == "K1" else (None, None)
+    paths = {   # label: (shape, schedule or None, K3 ms, K1 ms)
+        path_label("pmsr5/4 parity", enc5): (
+            enc5, pmsr["sched"], pmsr["sched_ms"][0], k1_ms[0]),
+        path_label(f"pmsr5/4 decode{list(PMSR_LOST)}", dec5): (
+            dec5, pmsr["dsched"], pmsr["sched_ms"][1], k1_ms[1]),
+        path_label("pmsr7/6 dense encode", enc7): (
+            enc7, None, None, repair["pmsr7_ms"][0]),
+        path_label(f"pmsr7/6 dense decode{list(PMSR7_LOST)}", dec7): (
+            dec7, None, None, repair["pmsr7_ms"][1]),
+        path_label("lrc8/4/3 local repair", lrc_rep): (
+            lrc_rep, lrc["dsched"], lrc["sched_ms"][1], None),
+    }
+    k3 = rows[-1]
+    k3["ms_by_path"], k3["bound_by_path"] = {}, {}
+    k1["ms_by_path"], k1["bound_by_path"] = {}, {}
+    for label, (shape, sch, k3_ms, k1_ms) in paths.items():
+        bound = path_bound(shape, mhz, b1_rate, sch)
+        for row, ms in ((k3, k3_ms), (k1, k1_ms)):
+            if ms is not None:
+                row["ms_by_path"][label] = round(ms, 4)
+                row["bound_by_path"][label] = bound
+    k1["launches_by_path"] = {
+        "rs8/3 main path (per-op encode + decode)": launches["gf2_matmul_popc"],
+        "pmsr5/4 dense encode + decode": pmsr["launches"]["gf2_matmul_popc"],
+        "pmsr7/6 dense encode + decode":
+            repair["pmsr7_launches"]["gf2_matmul_popc"]}
+    k1["config_by_path"] = {path_label("pmsr7/6 dense encode", enc7):
+                            gk.popc_config(enc7[1], enc7[3], dev)}
 
     # K4 at the fused RS encode: the CRCs of (1024 x 11) rows of 131072 B in
     # one launch; the work's bound: each byte read once and each CRC written
@@ -1172,9 +1260,10 @@ def main() -> int:
     t0 = time.perf_counter()
     built = phase_build()
     small_err = phase_kernels(dev)
+    rates = phase_mma_rate(dev)
     k3_small_err = phase_k3_small(dev, built)
     k4_small_err = phase_k4_small(dev)
-    phase_repair(dev)
+    repair = phase_repair(dev)
     with xor_sched_env(None):          # the RS main path keeps its routing
         launches, main_inputs = phase_main_path(dev)
         cauchy_ms = phase_cauchy(dev)
@@ -1186,7 +1275,8 @@ def main() -> int:
         k4 = phase_k4_full(dev, main_inputs)
         osd = phase_osd(dev)
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
-                             k3_small_err, cauchy_ms, k4, k4_small_err, osd)
+                             k3_small_err, cauchy_ms, k4, k4_small_err, osd,
+                             repair, rates)
     log(json.dumps(line))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")

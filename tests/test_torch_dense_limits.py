@@ -2,9 +2,9 @@
 ladder takes.
 
 ``ceph_tpu``'s dense ladder ends in an XLA program that takes any k and any
-batch.  K1 (``gf2_matmul_popc``) now splits a product over more than 32
-chunks into tiles XORed into one output and a batch of more than 65535
-stripes into launches of at most that many; K2 (``gf2_matmul_mma``) folds
+batch.  K1 (``gf2_matmul_popc``) contracts any k in one launch, splits more
+than ``POPC_MAX_ROWS`` output rows into row tiles and a batch of more than
+65535 stripes into launches of at most that many; K2 (``gf2_matmul_mma``) folds
 its batch into grid.x.  The rules are pure functions, asked before the CPU/CUDA split, so they are
 checked here without a card.
 """
@@ -50,11 +50,11 @@ def test_dense_route_accepts_every_shape(b, k, r, l):
         assert b % g == 0 and 8 * g * k <= 128
     else:
         assert name == "gf2_matmul_popc" and g == 1
-    # every (row, chunk) pair of W is in exactly one K1 tile
-    cover = np.zeros((r, k), np.int64)
-    for j0, kg, i0, rg in gk.popc_plan(k, r):
-        assert 1 <= kg <= gk.POPC_GROUP and 1 <= rg <= gk.POPC_MAX_ROWS
-        cover[i0:i0 + rg, j0:j0 + kg] += 1
+    # every output row is in exactly one K1 row tile, over all k chunks
+    cover = np.zeros(r, np.int64)
+    for i0, rg in gk.popc_plan(r):
+        assert 1 <= rg <= gk.POPC_MAX_ROWS
+        cover[i0:i0 + rg] += 1
     assert (cover == 1).all()
 
 
@@ -71,11 +71,10 @@ def test_k2_takes_batches_past_the_old_grid_limit():
 
 
 def test_popc_plan_splits_rows_and_chunks():
-    assert gk.popc_plan(8, 3) == [(0, 8, 0, 3)]
-    assert gk.popc_plan(42, 36) == [(0, 32, 0, 36), (32, 10, 0, 36)]
-    assert gk.popc_plan(72, 600) == [
-        (0, 32, 0, 512), (32, 32, 0, 512), (64, 8, 0, 512),
-        (0, 32, 512, 88), (32, 32, 512, 88), (64, 8, 512, 88)]
+    # chunks are not split: every k-step is a loop inside one launch
+    assert gk.popc_plan(3) == [(0, 3)]
+    assert gk.popc_plan(36) == [(0, 36)]          # PMSR k=7,m=6: one launch
+    assert gk.popc_plan(600) == [(0, 256), (256, 256), (512, 88)]
 
 
 @pytest.mark.parametrize("b", [1, 65535, 65536, 140000])

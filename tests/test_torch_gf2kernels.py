@@ -115,23 +115,31 @@ def test_shape_rules_match_reference():
 
 def test_kernel_weight_layouts_unpack_to_w():
     """The device-side W of each kernel carries exactly the reference W:
-    K1's packed 32-bit rows and K2's zero-padded tile-major W_gN."""
+    K1's B fragments (lane (grp, tig) of n-tile u in row group g4 holds
+    words 8ks+tig and 8ks+tig+4 of W row 8(4g4 + grp//2) + 2u + grp%2) and
+    K2's zero-padded tile-major W_gN."""
     cpu = torch.device("cpu")
     for k, m, g in [(8, 3, 2), (10, 4, 1), (4, 2, 4), (5, 2, 1), (32, 3, 1),
-                    (42, 3, 1), (72, 4, 1)]:
+                    (42, 3, 1), (72, 4, 1), (13, 9, 1)]:
         mat = np.ascontiguousarray(gf.gen_cauchy1_matrix(k + m, k)[k:])
         w = ref_k.bitmatrix_i8(mat)
         tiles = gk._w_popc_device(mat.tobytes(), m, k, cpu)
-        plan = gk.popc_plan(k, m)
-        assert len(tiles) == len(plan) == -(-k // gk.POPC_GROUP)
-        for (j0, kg, i0, rg), words in zip(plan, tiles):
-            words = words.numpy()
-            assert words.shape == (8 * rg, (kg + 3) // 4)
+        plan = gk.popc_plan(m)
+        assert len(tiles) == len(plan) == 1
+        for (i0, rg), frag in zip(plan, tiles):
+            ng, nks = -(-rg // 4), -(-k // gk.POPC_GROUP)
+            frag = frag.numpy().view(np.uint32).reshape(ng, nks, 4, 32, 2)
+            words = np.zeros((32 * ng, 8 * nks), np.uint32)
+            for g4, ks, u, lane, h in itertools.product(
+                    range(ng), range(nks), range(4), range(32), range(2)):
+                grp, tig = divmod(lane, 4)
+                row = 8 * (4 * g4 + grp // 2) + 2 * u + grp % 2
+                words[row, 8 * ks + tig + 4 * h] = frag[g4, ks, u, lane, h]
             bits = np.unpackbits(words.view(np.uint8), axis=1,
                                  bitorder="little")
-            assert np.array_equal(bits[:, :8 * kg],
-                                  w[8 * i0:8 * (i0 + rg), 8 * j0:8 * (j0 + kg)])
-            assert not bits[:, 8 * kg:].any()
+            assert np.array_equal(bits[:8 * rg, :8 * k],
+                                  w[8 * i0:8 * (i0 + rg)])
+            assert not bits[8 * rg:].any() and not bits[:, 8 * k:].any()
         if 8 * g * k > 128:
             continue
         tiles = gk._w_mma_device(mat.tobytes(), m, k, g, cpu).numpy()
