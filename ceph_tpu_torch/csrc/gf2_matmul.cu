@@ -34,7 +34,7 @@
 //     each word is an A register as it stands;
 //   - k > 32: every k-step accumulates into the same s32 counts (parity of a
 //     sum = sum of parities), so split-k is a loop inside the launch; up to
-//     kPopcRegSteps k-steps of A stay in registers, more (k > 64) are read
+//     two k-steps (k <= 64) of A stay in registers, more (k > 64) are read
 //     from global memory per row group, unstaged;
 //   - B fragments in the order the MMA wants, built by the wrapper, copied
 //     into shared memory once a block (read from global memory when k > 64,
@@ -45,7 +45,7 @@
 //     bit 0 of each count is gathered with __byte_perm into whole 32-bit
 //     words, stored coalesced (each store: 4 rows x 32 bytes).
 //   Any L (ragged edge masked; rows that are not 16-byte aligned are staged
-//   with plain loads), any k and any batch: one launch takes at most 65535
+//   by an instance with 4-byte cp.async, or byte loads), any k and any batch: one launch takes at most 65535
 //   stripes and kPopcMaxRows output rows (a row tile); the wrapper splits
 //   the rest (ops/gf2kernels.py popc_stripes, popc_plan).
 //
@@ -105,7 +105,6 @@ namespace {
 
 constexpr int kPopcWarps = 8;         // K1: warps a block
 constexpr int kPopcMinBlocks = 2;     // __launch_bounds__: caps registers at 128
-constexpr int kPopcRegSteps = 2;      // k-steps of A held in registers
 constexpr int kPopcRing = 2;          // tiles a warp has staged
 constexpr int kPopcMaxSpan = 4;       // 64-column halves of a tile, at most
 constexpr int kPopcSmemTarget = 112 * 1024;   // a block's shared memory: two a SM
@@ -196,6 +195,20 @@ __device__ __forceinline__ void cp_async16z(void* dst, const void* src, int n) {
 #endif
 }
 
+// 4 bytes from global to shared memory, the first n (0 or 4) read and the
+// rest zero-filled, without waiting (dst and src 4-byte aligned)
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src, int n) {
+#ifdef __CUDACC__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(n)
+               : "memory");
+#else
+  std::memset(dst, 0, 4);
+  std::memcpy(dst, src, n);
+#endif
+}
+
 // d += popc(a AND b): a 16x256 bits (row-major), b 256x8 bits (column-
 // major), in the PTX fragment layouts for lane = 4*grp + tig: a.x / a.y hold
 // rows grp / grp+8 at k = 32tig..32tig+31 (bit = k % 32), a.z / a.w the same
@@ -234,16 +247,17 @@ __host__ __device__ constexpr int popc_rows(int k) { return (k + 1) & ~1; }
 // halves (stripe b, columns c*64*SPAN..) at a stride of the grid's warps.
 // KS > 0: the launch has KS = ceil(k/32) k-steps; W is copied into shared
 // memory, each warp stages its next tiles' k rows into a ring of kPopcRing
-// (cp.async when async: L % 16 == 0 and 16-byte aligned data; plain loads
-// otherwise), and A stays in registers for the row groups; kHalfLast: the
-// last k-step's chunks 16..31 are past k, so their A words are 0.  KS = 0:
-// any number of k-steps, no staging: A is loaded from global memory per row
-// group (L1 hits) and W read from global memory.
-template <int KS, bool kHalfLast, int SPAN>
+// (kAsync16, for L % 16 == 0 and 16-byte aligned data: 16-byte cp.async;
+// else 4-byte cp.async when vec, byte loads otherwise), and A stays in
+// registers for the row groups; kHalfLast: the last k-step's chunks 16..31
+// are past k, so their A words are 0.  KS = 0: any number of k-steps, no
+// staging: A is loaded from global memory per row group (L1 hits) and W
+// read from global memory.
+template <int KS, bool kHalfLast, int SPAN, bool kAsync16>
 __global__ void __launch_bounds__(kPopcThreads, kPopcMinBlocks)
 gf2_popc_kernel(const uint2* __restrict__ wfrag, const uint8_t* __restrict__ data,
                 uint8_t* __restrict__ out, int B, int k, int r, int i0, int rg,
-                long long L, bool vec, bool async) {
+                long long L, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nks = KS ? KS : (k + 31) / 32;
   const int ngroups = (rg + 3) / 4;
@@ -295,8 +309,11 @@ gf2_popc_kernel(const uint2* __restrict__ wfrag, const uint8_t* __restrict__ dat
         unsigned char* d = d0 + half * half_bytes;
         for (int n = 0; n < nrow; ++n, src += 8 * L, d += 512) {
           unsigned char* dst = d + ((n & 1) ? d_odd : d_even);
-          if (async) {
+          if constexpr (kAsync16) {
             cp_async16z(dst, src, rest > 0 ? 16 : 0);
+          } else if (vec) {
+#pragma unroll
+            for (int w = 0; w < 4; ++w) cp_async4z(dst + 4 * w, src + 4 * w, rest > 4 * w ? 4 : 0);
           } else {
 #pragma unroll
             for (int w = 0; w < 4; ++w)
@@ -434,14 +451,14 @@ gf2_popc_kernel(const uint2* __restrict__ wfrag, const uint8_t* __restrict__ dat
 }
 
 using PopcKernel = void (*)(const uint2*, const uint8_t*, uint8_t*, int, int, int, int, int,
-                            long long, bool, bool);
+                            long long, bool);
 
 // k-steps of 32 chunks for k chunks
 constexpr int popc_ksteps(int k) { return (k + 31) / 32; }
 
-// k-steps held in registers: all of them up to kPopcRegSteps, else 0
+// k-steps held in registers: all of them up to two (k <= 64), else 0
 constexpr int popc_reg_steps(int k) {
-  return popc_ksteps(k) <= kPopcRegSteps ? popc_ksteps(k) : 0;
+  return popc_ksteps(k) <= 2 ? popc_ksteps(k) : 0;
 }
 
 // bytes of W's fragments in shared memory (when A stays in registers)
@@ -476,36 +493,38 @@ constexpr size_t popc_smem_bytes(int k, int rg) {
                    64 * (32 * popc_reg_steps(k) - popc_rows(k));
 }
 
-// K1 with KS k-steps in registers, where kPopcRegSteps allows that many;
-// kHalfLast when the last k-step has at most 16 of its 32 chunks
-template <int KS, int SPAN>
+// K1 with KS k-steps in registers; kHalfLast when the last k-step has at
+// most 16 of its 32 chunks.  The staging is a template (kAsync16) so that
+// the 16-byte aligned instances carry no other load path (timed in turns on
+// an H100 with tools/k1_time.py: a runtime branch cost RS encode 2-3%).
+template <int KS, int SPAN, bool kAsync16>
 PopcKernel popc_instance(int k) {
-  if constexpr (KS <= kPopcRegSteps)
-    return k - 32 * (KS - 1) <= 16 ? gf2_popc_kernel<KS, true, SPAN>
-                                   : gf2_popc_kernel<KS, false, SPAN>;
-  else
-    return gf2_popc_kernel<0, false, 1>;
+  return k - 32 * (KS - 1) <= 16 ? gf2_popc_kernel<KS, true, SPAN, kAsync16>
+                                 : gf2_popc_kernel<KS, false, SPAN, kAsync16>;
+}
+
+template <int KS, int SPAN>
+PopcKernel popc_instance(int k, bool async16) {
+  return async16 ? popc_instance<KS, SPAN, true>(k) : popc_instance<KS, SPAN, false>(k);
 }
 
 template <int KS>
-PopcKernel popc_instance(int k, int span) {
+PopcKernel popc_instance(int k, int span, bool async16) {
   static_assert(kPopcMaxSpan == 1 || kPopcMaxSpan == 2 || kPopcMaxSpan == 4 ||
                 kPopcMaxSpan == 8 || kPopcMaxSpan == 16);
-  return span >= kPopcMaxSpan     ? popc_instance<KS, kPopcMaxSpan>(k)
-         : span >= kPopcMaxSpan / 2 ? popc_instance<KS, (kPopcMaxSpan > 1 ? kPopcMaxSpan / 2 : 1)>(k)
-                                    : popc_instance<KS, 1>(k);
+  return span >= kPopcMaxSpan     ? popc_instance<KS, kPopcMaxSpan>(k, async16)
+         : span >= kPopcMaxSpan / 2 ? popc_instance<KS, (kPopcMaxSpan > 1 ? kPopcMaxSpan / 2 : 1)>(k, async16)
+                                    : popc_instance<KS, 1>(k, async16);
 }
 
 // The K1 instance for k chunks and row tiles of rg rows (popc_span halves a
-// tile: kPopcMaxSpan, half of it, or 1).
-PopcKernel popc_kernel_for(int k, int rg) {
+// tile: kPopcMaxSpan, half of it, or 1); async16: rows 16-byte aligned.
+PopcKernel popc_kernel_for(int k, int rg, bool async16) {
   const int span = popc_span(k, rg);
   switch (popc_reg_steps(k)) {
-    case 1: return popc_instance<1>(k, span);
-    case 2: return popc_instance<2>(k, span);
-    case 3: return popc_instance<3>(k, span);
-    case 4: return popc_instance<4>(k, span);
-    default: return gf2_popc_kernel<0, false, 1>;
+    case 1: return popc_instance<1>(k, span, async16);
+    case 2: return popc_instance<2>(k, span, async16);
+    default: return gf2_popc_kernel<0, false, 1, false>;
   }
 }
 
@@ -796,7 +815,8 @@ int gf2_matmul_popc(const void* wfrag, const void* data, void* out, int B, int k
   if (B < 1 || B > 65535 || k < 1 || r < 1 || rg < 1 || rg > kPopcMaxRows || i0 < 0 ||
       i0 + rg > r || L < 1 || reinterpret_cast<uintptr_t>(wfrag) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PopcKernel kernel = popc_kernel_for(k, rg);
+  const bool async16 = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+  const PopcKernel kernel = popc_kernel_for(k, rg, async16);
   const size_t smem = popc_smem_bytes(k, rg);
   cudaError_t err = prepare_smem(kernel, smem);
   int sms = 0, per_sm = 0;
@@ -814,23 +834,22 @@ int gf2_matmul_popc(const void* wfrag, const void* data, void* out, int B, int k
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = (L % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(out) % 4 == 0);
-  const bool async = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
   kernel<<<static_cast<unsigned>(want < full ? want : full), kPopcThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint2*>(wfrag), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), B, k, r, i0, rg, L, vec, async);
+      static_cast<uint8_t*>(out), B, k, r, i0, rg, L, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The K1 instance gf2_matmul_popc launches for k chunks and a row tile of rg
-// rows: info[0] registers per thread, info[1] shared memory per block
+// The K1 instance gf2_matmul_popc launches for k chunks, a row tile of rg
+// rows and 16-byte aligned rows: info[0] registers per thread, info[1] shared memory per block
 // (dynamic + static), info[2] resident blocks per SM, info[3] local memory
 // per thread in bytes.
 int gf2_popc_config(int k, int rg, int device, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k < 1 || rg < 1 || rg > kPopcMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const PopcKernel kernel = popc_kernel_for(k, rg);
+  const PopcKernel kernel = popc_kernel_for(k, rg, true);
   const size_t smem = popc_smem_bytes(k, rg);
   cudaFuncAttributes attr;
   if ((err = prepare_smem(kernel, smem)) != cudaSuccess ||

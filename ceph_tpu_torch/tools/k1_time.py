@@ -8,7 +8,11 @@ the checkout this file is in), builds its K1 and times
 ``gf2kernels.gf2_matmul_popc`` at the shapes the card's dense route sends to
 K1 at full width: RS k=8,m=3 encode on (1024, 8, 131072), the PMSR k=5,m=4
 parity product on its sub-chunk rows, (1024, 20, 32768) -> 16, and the PMSR
-k=7,m=6 parity product, (1024, 42, 21856) -> 36; and K2
+k=7,m=6 parity product, (1024, 42, 21856) -> 36; two shapes the default
+routes do not reach, since the codecs keep chunks 32-byte aligned: RS
+k=8,m=3 encode on rows of 131060 bytes (L % 16 = 4: rows that are not
+16-byte aligned) and a k=72,m=16 RS parity product on (128, 72, 131072)
+(k > 64: more k-steps than K1 holds in registers); and K2
 (``gf2_matmul_mma``) at the RS shape beside K1, the other engine for that
 shape.  The wrappers' Python signatures are the same in every tree that has
 K1 and K2, so one run per tree, in turns (parent, change, change, parent),
@@ -111,7 +115,10 @@ def main(argv: list[str] | None = None) -> int:
              ("pmsr5/4 parity", pmsr5.parity_matrix,
               (1024, 5 * pmsr5.alpha, 131072 // pmsr5.alpha)),
              ("pmsr7/6 parity", pmsr7.parity_matrix,
-              (1024, 7 * pmsr7.alpha, 131136 // pmsr7.alpha))]
+              (1024, 7 * pmsr7.alpha, 131136 // pmsr7.alpha)),
+             ("rs8/3 encode, L % 16 = 4", gen_rs_matrix(11, 8)[8:],
+              (1024, 8, 131060)),
+             ("k=72 r=16", gen_rs_matrix(88, 72)[72:], (128, 72, 131072))]
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {}
     for label, mat, shape in paths:

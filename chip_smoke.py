@@ -1057,13 +1057,14 @@ def path_bound(shape: tuple, mhz: float, b1_rate: float, sched=None) -> dict:
     the larger of its bytes (each input read once, each output written once)
     and the fewest operations known for it, the least of: K3's XOR terms a
     32-byte column (where the schedule is compiled) on the INT32 lanes; the
-    b1 m16n8k256 MMAs its 8r x 8k bits need, at the measured b1 rate (no data
-    sheet gives one); its int8 products 2*8r*8k a byte column at the int8
-    peak."""
+    b1 m16n8k256 MMAs its 8r x 8k bits need, at the measured mma.sync b1
+    rate (no data sheet gives one; one instruction's issue rate, not a peak,
+    so this term may read high); its int8 products 2*8r*8k a byte column at
+    the int8 peak."""
     b, k, l, r = shape
     t_bytes = b * (k + r) * l / HBM_BYTES_PER_S * 1e3
     ops = {"int8 products": 2 * (8 * r) * (8 * k) * b * l / INT8_OPS_PER_S * 1e3,
-           "b1 MMAs": b * l * (8 * r) * (8 * k) / (16 * 8 * 256)
+           "b1 MMAs at the mma.sync rate": b * l * (8 * r) * (8 * k) / (16 * 8 * 256)
            / (b1_rate * SMS * mhz * 1e6) * 1e3}
     if sched is not None:
         ops["XOR terms"] = sched.n_terms * b * -(-l // 32) / (

@@ -171,15 +171,15 @@ extern "C" HOST_ENTRY int mma_b1_host(const uint32_t* a, const uint32_t* b, int*
   return 0;
 }
 // one K1 launch (gf2_matmul_popc's checks aside) on a grid of `blocks`
-// blocks, whose warps walk the tiles; async: stage with cp.async (the
-// host build copies at once) where gf2_matmul_popc would
+// blocks, whose warps walk the tiles, staging with the instance
+// gf2_matmul_popc picks (cp.async: the host build copies at once)
 extern "C" HOST_ENTRY int k1_host(const void* wfrag, const void* data, void* out, int B,
                                   int k, int r, int i0, int rg, long long L, int blocks) {
-  const PopcKernel kernel = popc_kernel_for(k, rg);
+  const bool async16 = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+  const PopcKernel kernel = popc_kernel_for(k, rg, async16);
   if (popc_smem_bytes(k, rg) > sizeof smem) return 1;
   const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  const bool async = L % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
   std::memset(smem, 0xA5, sizeof smem);   // stale bytes, as on the card
   blockDim.x = kPopcThreads;
   gridDim.x = blocks;
@@ -187,7 +187,7 @@ extern "C" HOST_ENTRY int k1_host(const void* wfrag, const void* data, void* out
   for (unsigned bx = 0; bx < gridDim.x; ++bx)
     run_block(bx, kPopcThreads, [&] {
       kernel(static_cast<const uint2*>(wfrag), static_cast<const uint8_t*>(data),
-             static_cast<uint8_t*>(out), B, k, r, i0, rg, L, vec, async);
+             static_cast<uint8_t*>(out), B, k, r, i0, rg, L, vec);
     });
   return 0;
 }
@@ -419,10 +419,8 @@ def test_emulated_b1_mma_is_a_popcount_of_and(host_lib):
 
 
 K1_VARIANTS = {   # the knobs k1_time.py --set times, on cases they change
-    "one k-step in registers, 4 warps, 128-column tiles": {
-        "kPopcRegSteps": 1, "kPopcWarps": 4, "kPopcMaxSpan": 2},
-    "a ring of 3, 4 k-steps in registers, 64-column tiles": {
-        "kPopcRing": 3, "kPopcRegSteps": 4, "kPopcMaxSpan": 1},
+    "4 warps, 128-column tiles": {"kPopcWarps": 4, "kPopcMaxSpan": 2},
+    "a ring of 3, 64-column tiles": {"kPopcRing": 3, "kPopcMaxSpan": 1},
 }
 
 
