@@ -12,32 +12,50 @@
 //
 // This header holds everything but the schedule.  ops/xor_sched_codegen.py
 // emits one source per schedule digest that includes it, defines a Body
-// whose operator() is the schedule as straight-line code, and instantiates
-// the entry with XOR_SCHED_ENTRY.  A loop over a runtime op list would not
-// keep its values in registers; straight-line code does, as the TPU kernel
-// bakes the schedule into its trace.
+// (K, R, block size, launch bounds, shared-memory slots a thread, and the
+// stage() and operator() with the schedule's XORs written out) and
+// instantiates the entry with XOR_SCHED_ENTRY.  A loop over a runtime op
+// list would not keep its values in registers; XORs written out do, as the
+// TPU kernel bakes the schedule into its trace.
 //
 // Layout (bit-sliced): each thread owns 32 adjacent byte columns of one
-// stripe.  It loads 32 bytes of each input row (two 16-byte loads),
-// transposes them into 8 plane words (bit c of plane word s = bit s of byte
-// c), runs the schedule's XORs on 32-bit words -- 32 columns per XOR, the
-// least XOR work the schedule allows -- and, as soon as the 8 plane values of
-// an output row exist, transposes them back to 32 bytes and stores them.
-// Bound on the H100: HBM bytes for the sparse recovery matrices (n_terms
-// XORs per 32 columns against ~3.4 integer ops per byte for each transpose);
-// the 8k input planes stay live for the whole schedule, so large k (PMSR's
-// 20 sub-rows = 160 planes) may exceed the register file and spill, which
-// the build reports.  Any B and L: the ragged edge falls back to byte loads
-// and stores, as do rows that are not 16-byte aligned.
+// stripe.  It loads 32 bytes of an input row (two 16-byte loads), transposes
+// them into 8 plane words (bit c of plane word s = bit s of byte c), XORs
+// 32-bit words -- 32 columns per XOR -- and, once the 8 plane values of an
+// output row are final, transposes them back to 32 bytes and stores them.
+// Two designs, chosen per digest by the generator's design_for:
+//  * register (8k <= 24 input planes): the schedule's CSE'd XORs with all 8k
+//    input planes live for the whole schedule; the fewest XORs.
+//  * tiled (larger k): the bit-matrix rows in tiles of output rows.  A tile's
+//    output planes are accumulators in registers; a runtime loop streams
+//    the input rows past (the next row's loads in flight, a switch on the
+//    row to its XORs), and each accumulator takes one 3-input XOR per
+//    input row from a table of the XORs of the row's two nibbles of planes.
+//    Live values are a tile's accumulators and one row's planes and table,
+//    whatever k is, where the register design held all 8k planes (PMSR's 20
+//    sub-rows: 160 planes and 40 temporaries in 255 registers, chains 85
+//    XORs deep, 6.6x its HBM bound).  Written out as straight-line code
+//    instead, the tiles spilled: ptxas hoisted every row's loads ahead of
+//    the XORs.  With several tiles, each input row is transposed once into
+//    shared memory (Slots, [slot][thread], each thread its own) by a
+//    runtime loop, and every tile reads its planes from there.
+// Bound on the H100: HBM bytes, or the integer issue of the transposes
+// (~68 instructions per 32-byte row) plus the XORs (64 INT32 lanes a clock
+// a SM).  Any B and L: the ragged edge falls back to byte loads and stores,
+// as do rows that are not 16-byte aligned.
 //
 // The same arithmetic also compiles as host C++ (no __CUDACC__), where the
-// entry runs every thread in a loop: the CPU tests build it with the host
-// compiler and hold it against the plain PyTorch version.
+// entry runs each block's threads phase by phase over one shared buffer
+// (run_host): the CPU tests build it with the host compiler and hold it
+// against the plain PyTorch version.
 
 #pragma once
 
 #include <cstdint>
 #include <cstring>
+#ifndef __CUDACC__
+#include <vector>
+#endif
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -56,8 +74,13 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 
 namespace xor_sched {
 
-constexpr int kThreads = 128;   // threads per block
 constexpr int kCols = 32;       // byte columns per thread = bits of a plane word
+
+#ifdef __CUDACC__
+using Quad = uint4;
+#else
+struct Quad { uint32_t x, y, z, w; };
+#endif
 
 // 4x4 byte transpose: out[c] byte j = in[j] byte c.
 XS_FN void transpose4(const uint32_t* in, uint32_t* out) {
@@ -71,42 +94,54 @@ XS_FN void transpose4(const uint32_t* in, uint32_t* out) {
   out[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// 8x8 bit transpose of the 8 bytes (lo = bytes 0-3, hi = bytes 4-7): bit c
-// of byte s becomes bit s of byte c.  Three masked swaps (2x2, 4x4, 8x8
-// blocks); only the last crosses the two words.
-XS_FN void transpose8x8(uint32_t& lo, uint32_t& hi) {
-  uint32_t t;
-  t = (lo ^ (lo >> 7)) & 0x00AA00AAu;  lo ^= t ^ (t << 7);
-  t = (hi ^ (hi >> 7)) & 0x00AA00AAu;  hi ^= t ^ (t << 7);
-  t = (lo ^ (lo >> 14)) & 0x0000CCCCu; lo ^= t ^ (t << 14);
-  t = (hi ^ (hi >> 14)) & 0x0000CCCCu; hi ^= t ^ (t << 14);
-  t = ((lo >> 4) ^ hi) & 0x0F0F0F0Fu;  hi ^= t; lo ^= t << 4;
+// One step of an 8x8 bit transpose done in every byte lane of two words at
+// once: the bits of ``a`` under ``m << d`` trade places with those of ``b``
+// under ``m``.
+XS_FN void swap_bits(uint32_t& a, uint32_t& b, int d, uint32_t m) {
+  const uint32_t t = ((a >> d) ^ b) & m;
+  b ^= t;
+  a ^= t << d;
+}
+
+// In each byte lane g, the 8x8 bit matrix whose row i is byte g of q[i] is
+// transposed: bit b of byte g of q[s] becomes bit s of byte g of q[b].  Three
+// rounds of block swaps (4x4, 2x2, 1x1 blocks), 12 swaps in all.
+XS_FN void transpose_bits8(uint32_t* q) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) swap_bits(q[i], q[i + 4], 4, 0x0F0F0F0Fu);
+#pragma unroll
+  for (int i = 0; i < 8; i += 4) {
+    swap_bits(q[i], q[i + 2], 2, 0x33333333u);
+    swap_bits(q[i + 1], q[i + 3], 2, 0x33333333u);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) swap_bits(q[i], q[i + 1], 1, 0x55555555u);
 }
 
 // 32 bytes as 8 little-endian words (byte c = column c) -> 8 plane words
-// (bit c of p[s] = bit s of byte c).
+// (bit c of p[s] = bit s of byte c): gather bytes b, 8+b, 16+b, 24+b into
+// word b (two 4x4 byte transposes), then transpose the bits of each byte
+// lane.  Both steps are their own inverse.
 XS_FN void bytes_to_planes(const uint32_t* w, uint32_t* p) {
-  uint32_t lo[4], hi[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    lo[g] = w[2 * g];
-    hi[g] = w[2 * g + 1];
-    transpose8x8(lo[g], hi[g]);   // byte s of group g = bits s of its 8 bytes
-  }
-  transpose4(lo, p);              // planes 0-3: byte g of p[s] from group g
-  transpose4(hi, p + 4);          // planes 4-7
+  const uint32_t even[4] = {w[0], w[2], w[4], w[6]};
+  const uint32_t odd[4] = {w[1], w[3], w[5], w[7]};
+  transpose4(even, p);
+  transpose4(odd, p + 4);
+  transpose_bits8(p);
 }
 
 // The inverse of bytes_to_planes.
 XS_FN void planes_to_bytes(const uint32_t* p, uint32_t* w) {
-  uint32_t lo[4], hi[4];
-  transpose4(p, lo);
-  transpose4(p + 4, hi);
+  uint32_t q[8], even[4], odd[4];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) q[s] = p[s];
+  transpose_bits8(q);
+  transpose4(q, even);
+  transpose4(q + 4, odd);
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    transpose8x8(lo[g], hi[g]);
-    w[2 * g] = lo[g];
-    w[2 * g + 1] = hi[g];
+    w[2 * g] = even[g];
+    w[2 * g + 1] = odd[g];
   }
 }
 
@@ -136,9 +171,9 @@ struct Io {
   int n;          // kCols, or fewer at the ragged edge
   bool vec;       // full and 16-byte aligned: vector loads and stores
 
-  XS_FN void load(int j, uint32_t* p) const {
+  // the 32 bytes of input row j as 8 little-endian words (zeros past n)
+  XS_FN void fetch(int j, uint32_t* w) const {
     const uint8_t* row = in + j * L;
-    uint32_t w[8];
     if (vec) {
       load16(row, w);
       load16(row + 16, w + 4);
@@ -150,6 +185,12 @@ struct Io {
         if (c < n) w[c / 4] |= static_cast<uint32_t>(row[c]) << (8 * (c % 4));
       }
     }
+  }
+
+  // input row j as 8 plane words
+  XS_FN void load(int j, uint32_t* p) const {
+    uint32_t w[8];
+    fetch(j, w);
     bytes_to_planes(w, p);
   }
 
@@ -165,6 +206,26 @@ struct Io {
       for (int c = 0; c < kCols; ++c)
         if (c < n) row[c] = static_cast<uint8_t>(w[c / 4] >> (8 * (c % 4)));
     }
+  }
+};
+
+// One thread's 16-byte slots of shared memory, slot q at base[q * stride]
+// (stride = threads a block): plane-major, so the lanes of a warp touch
+// neighbouring 16-byte words and each quarter-warp phase hits all 32 banks
+// once.  A thread reads only the slots it wrote, so no barrier is needed.
+struct Slots {
+  Quad* base;
+  int stride;
+
+  XS_FN void put(int q, const uint32_t* p) const {
+    Quad v;
+    v.x = p[0]; v.y = p[1]; v.z = p[2]; v.w = p[3];
+    base[q * stride] = v;
+  }
+
+  XS_FN void get(int q, uint32_t* p) const {
+    const Quad v = base[q * stride];
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
   }
 };
 
@@ -184,15 +245,25 @@ inline bool aligned16(const void* data, const void* out, long long L) {
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
+template <class Body>
+constexpr long long smem_bytes() {
+  return static_cast<long long>(Body::kSlots) * sizeof(Quad) * Body::kThreads;
+}
+
 #ifdef __CUDACC__
 
 template <class Body>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Body::kThreads, Body::kMinBlocks)
 xor_sched_kernel(const uint8_t* __restrict__ data, uint8_t* __restrict__ out, long long L,
                  long long groups, long long total, bool aligned) {
-  const long long gid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (gid >= total) return;
-  Body()(thread_io<Body>(data, out, L, groups, gid, aligned));
+  extern __shared__ __align__(16) unsigned char xs_smem[];
+  const long long gid = static_cast<long long>(blockIdx.x) * Body::kThreads + threadIdx.x;
+  if (gid >= total) return;   // no barrier follows: each thread has its own slots
+  const Io io = thread_io<Body>(data, out, L, groups, gid, aligned);
+  const Slots slots{reinterpret_cast<Quad*>(xs_smem) + threadIdx.x, Body::kThreads};
+  const Body body{};
+  body.stage(io, slots);
+  body(io, slots);
 }
 
 template <class Body>
@@ -204,10 +275,17 @@ int launch(const void* data, void* out, int B, int k, int r, long long L, int de
     return static_cast<int>(cudaErrorInvalidValue);
   const long long groups = (L + kCols - 1) / kCols;
   const long long total = groups * B;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long blocks = (total + Body::kThreads - 1) / Body::kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  xor_sched_kernel<Body><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  constexpr long long smem = smem_bytes<Body>();
+  if (smem > 48 * 1024) {   // past the default: opt in, on this device
+    const cudaError_t attr = cudaFuncSetAttribute(
+        xor_sched_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  xor_sched_kernel<Body><<<static_cast<unsigned>(blocks), Body::kThreads,
+                           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out), L, groups, total,
       aligned16(data, out, L));
   return static_cast<int>(cudaGetLastError());
@@ -221,14 +299,31 @@ int launch(const void* data, void* out, int B, int k, int r, long long L, int de
 
 #else
 
+// Block by block, and inside a block phase by phase: every thread stages its
+// rows before any thread of the block runs the body, in one shared buffer
+// refilled with a pattern for each block, so a slot that is read before it is
+// written, or that two threads share, changes the output.
 template <class Body>
 int run_host(const void* data, void* out, int B, int k, int r, long long L) {
   if (B < 1 || k != Body::K || r != Body::R || L < 1) return 1;
   const long long groups = (L + kCols - 1) / kCols;
+  const long long total = groups * B;
   const bool aligned = aligned16(data, out, L);
-  for (long long gid = 0; gid < groups * B; ++gid)
-    Body()(thread_io<Body>(static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out),
-                           L, groups, gid, aligned));
+  std::vector<Quad> smem(static_cast<size_t>(Body::kSlots) * Body::kThreads + 1);
+  const Body body{};
+  const auto io = [&](long long gid) {
+    return thread_io<Body>(static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out),
+                           L, groups, gid, aligned);
+  };
+  for (long long first = 0; first < total; first += Body::kThreads) {
+    std::memset(smem.data(), 0xA5, smem.size() * sizeof(Quad));
+    const int n = total - first < Body::kThreads ? static_cast<int>(total - first)
+                                                 : Body::kThreads;
+    for (int t = 0; t < n; ++t)
+      body.stage(io(first + t), Slots{smem.data() + t, Body::kThreads});
+    for (int t = 0; t < n; ++t)
+      body(io(first + t), Slots{smem.data() + t, Body::kThreads});
+  }
   return 0;
 }
 

@@ -7,9 +7,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
 
  1. the card's name and power limit; compile the XOR schedules of every
     matrix the run uses, then build every kernel with nvcc, one process per
-    source, all at once: ``ceph_tpu_torch/csrc/*.cu`` and one generated K3
-    source per schedule digest (ptxas registers, spills and nvcc seconds
-    per digest);
+    source, all at once: ``ceph_tpu_torch/csrc/*.cu``, one generated K3
+    source per schedule digest and, for the tiled digests, two other K3
+    designs (K3's design, shared memory, ptxas registers, spills and nvcc
+    seconds per digest);
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
     on seeded inputs at small shapes, byte-exact (for K2: one step, a whole
     block plus a ragged tail at g=2 and g=1, RS decode, Cauchy at k=10, the
@@ -20,12 +21,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
     the b1 rate, so K1's bounds take the measured one as its peak;
  3. K3 likewise, on the schedules of RS, LRC and PMSR matrices and of
     matrices with a unit, a zero and a repeated row, with ragged L, odd B
-    and a misaligned base; K4 (CRC32C) against its plain version and the
-    host numpy engine at l in {0, 1, 7, 8, 9, 127, 4096, 4099, 131072}, one
-    row and many, and a misaligned base, and at the edges of its braid: rows
-    shorter than 512 bytes, l = 16 mod 512, a ragged head on a misaligned
-    base, spans of 8 rounds with masked ends, and the one-launch entry for
-    two sets of rows;
+    and a misaligned base; the large-k digests (RS k=20,m=4 and k=32,m=4
+    parity, PMSR k=5 parity and decode: 160 and 256 input planes, the tiled
+    design) also at a partial last block and in two other designs (one tile
+    staged in shared memory, tiles of two rows); K4 (CRC32C) against its
+    plain version and the host numpy engine at l in {0, 1, 7, 8, 9, 127,
+    4096, 4099, 131072}, one row and many, and a misaligned base, and at the
+    edges of its braid: rows shorter than 512 bytes, l = 16 mod 512, a
+    ragged head on a misaligned base, spans of 8 rounds with masked ends,
+    and the one-launch entry for two sets of rows;
  3b. the dense kernels past their old limits: PMSR k=7,m=6 at (1024, 7,
     131136) through the dense route (K1 at k=42: two k-steps in one launch),
     encode and a 2-erasure decode; K1 at B=70000 (two launches: the wrapper
@@ -66,8 +70,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
     other paths they serve (``ms_by_path`` / ``bound_by_path``: each bound
     the larger of the bytes and the fewest operations known, of K3's XOR
     terms where the schedule is compiled, b1 MMAs at the measured rate and
-    int8 products), and K1/K2 their registers, shared memory, blocks per
-    SM and spill bytes as the CUDA runtime reports them;
+    int8 products; K3 also at the RS k=8,m=3 parity of phase 4's input),
+    K1/K2 their registers, shared memory, blocks per SM and spill bytes as
+    the CUDA runtime reports them, and K3 per digest its design, shared
+    memory, and ptxas's registers and spill bytes;
 10. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
@@ -195,6 +201,8 @@ def path_matrices() -> dict:
     plan = pmsr5.decode_plan(set(PMSR_LOST), set(range(n5)) - set(PMSR_LOST))
     return {
         "rs8/3 parity": rs[8:],
+        "rs20/4 parity": gen_rs_matrix(24, 20)[20:],
+        "rs32/4 parity": gen_rs_matrix(36, 32)[32:],
         "rs8/3 decode[1,9]": build_decode_matrix(rs, 8, [1, 9])[0],
         "lrc8/4/3 parity": lrc.parity_matrix,
         "lrc8/4/3 local repair": lrc.repair_matrix((1, 2, 3), (0,)),
@@ -210,12 +218,26 @@ def path_matrices() -> dict:
     }
 
 
+def k3_variants(sched) -> list:
+    """Designs other than its own that phase 3 holds a large-k digest's K3
+    to (8k > 64 input planes): its one tile staged in shared memory, and
+    tiles of two rows (staged, the design of digests with more than 128
+    output planes)."""
+    from ceph_tpu_torch.ops import xor_sched_codegen as cg
+    if sched.n_in <= 64:
+        return []
+    return [cg.design_for(sched, kind="tiled", staged=True),
+            cg.design_for(sched, kind="tiled", tile_planes=16)]
+
+
 def phase_build() -> dict:
     """Compile the schedules, build every kernel; returns label -> (matrix,
-    schedule, nvcc seconds)."""
+    schedule, nvcc seconds, K3's design and ptxas counts)."""
     from ceph_tpu_torch.ops import _build
     from ceph_tpu_torch.ops import gf2kernels as gk
+    from ceph_tpu_torch.ops import xor_sched_codegen as cg
     from ceph_tpu_torch.ops import xor_schedule as xs
+    from ceph_tpu_torch.tools.k3_time import ptxas_counts
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -229,8 +251,10 @@ def phase_build() -> dict:
         f"{time.perf_counter() - t0:.2f} s (host CSE)")
     sources = _build.all_sources()
     k3 = {label: xs.k3_source(sched) for label, sched in scheds.items()}
+    variants = [xs.k3_source(sched, d) for sched in scheds.values()
+                for d in k3_variants(sched)]
     t0 = time.perf_counter()
-    reports = _build.build(sources + sorted(set(k3.values())))
+    reports = _build.build(sources + sorted(set(k3.values()) | set(variants)))
     dt = time.perf_counter() - t0
     for name in sources:
         if name in reports:
@@ -239,14 +263,24 @@ def phase_build() -> dict:
     for label, name in k3.items():
         sched, built = scheds[label], reports.get(name)
         secs = built.seconds if built else None
-        out[label] = (mats[label], sched, secs)
+        design = cg.design_for(sched)
+        info = {"design": design.tag,
+                "smem_bytes": design.slots(sched.n_in) * 16 * design.threads,
+                **(ptxas_counts(built.log) if built else {})}
+        out[label] = (mats[label], sched, secs, info)
         log(f"K3 {label}: {sched.n_out}x{sched.n_in}, {sched.n_terms} XORs "
             f"(naive {sched.naive_terms}), peak {sched.peak_registers} "
-            f"temporaries; "
+            f"temporaries; design {design.tag}, {info['smem_bytes']} B shared "
+            f"memory a block; "
             + (f"ptxas {ptxas_summary(built.log)}, nvcc {secs:.2f} s"
                if built else "already built"))
+    for name in variants:
+        if name in reports:
+            log(f"K3 variant {name}: ptxas {ptxas_summary(reports[name].log)}, "
+                f"nvcc {reports[name].seconds:.2f} s")
     log(f"build: {len(sources)} sources + {len(set(k3.values()))} K3 digests "
-        f"in {dt:.2f} s ({len(reports)} compiled, sm_90a, all at once)")
+        f"+ {len(set(variants))} K3 variants in {dt:.2f} s ({len(reports)} "
+        f"compiled, sm_90a, all at once)")
     return out
 
 
@@ -332,7 +366,9 @@ def phase_kernels(dev: torch.device) -> dict:
 
 
 def phase_k3_small(dev: torch.device, built: dict) -> int:
-    """K3 == plain == host oracle, byte for byte, on small seeded shapes."""
+    """K3 == plain == host oracle, byte for byte, on small seeded shapes: every
+    digest in its own design, and the tiled digests (RS k=20,m=4, PMSR k=5)
+    also in ``k3_variants``' designs."""
     from ceph_tpu_torch.gf import gf_matmul
     from ceph_tpu_torch.ops import xor_schedule as xs
 
@@ -348,10 +384,17 @@ def phase_k3_small(dev: torch.device, built: dict) -> int:
         ("pmsr5/4 parity", 2, 2048, False), (pmsr_dec, 2, 1024, False),
         ("pmsr5/4 aggregate", 3, 96, False),
     ]
+    # large k (160 and 256 input planes; staged, the RS k=32 planes take 64
+    # KB of shared memory a block): ragged L, odd B, a misaligned base, and
+    # a last block of 64 threads that is partly past the batch
+    for label in ("rs20/4 parity", "rs32/4 parity", "pmsr5/4 parity",
+                  pmsr_dec):
+        cases += [(label, 3, 1001, False), (label, 5, 4096, True),
+                  (label, 1, 7, False), (label, 3, 32 * 45, False)]
     rng = np.random.default_rng(SEED + 4)
-    err = 0
+    err, runs = 0, 0
     for label, b, l, misaligned in cases:
-        mat, sched, _ = built[label]
+        mat, sched, _, _ = built[label]
         k = mat.shape[1]
         host = rng.integers(0, 256, (b, k, l), dtype=np.uint8)
         if misaligned:
@@ -360,18 +403,23 @@ def phase_k3_small(dev: torch.device, built: dict) -> int:
             x.copy_(torch.from_numpy(host))
         else:
             x = torch.from_numpy(host).to(dev)
-        got = xs.xor_sched(sched, x)
         ref = xs.apply_bits_plain(sched, x)
-        torch.cuda.synchronize()
-        diff = int((got.int() - ref.int()).abs().max())
-        err = max(err, diff)
         want = np.stack([gf_matmul(mat, host[i]) for i in range(b)])
-        if diff or not np.array_equal(got.cpu().numpy(), want):
-            raise RuntimeError(f"xor_sched differs on {label} B={b} L={l}: "
-                               f"max |kernel - plain| = {diff}")
-    log(f"K3 xor_sched vs plain and host oracle: {len(cases)} shapes over "
-        f"{len({c[0] for c in cases})} digests byte-exact (ragged L, odd B, "
-        f"misaligned base included)")
+        for design in [None, *k3_variants(sched)]:
+            got = xs.xor_sched(sched, x, design)
+            torch.cuda.synchronize()
+            diff = int((got.int() - ref.int()).abs().max())
+            err = max(err, diff)
+            runs += 1
+            if diff or not np.array_equal(got.cpu().numpy(), want):
+                raise RuntimeError(
+                    f"xor_sched differs on {label} B={b} L={l} in design "
+                    f"{design.tag if design else 'its own'}: max |kernel - "
+                    f"plain| = {diff}")
+    log(f"K3 xor_sched vs plain and host oracle: {runs} runs of "
+        f"{len(cases)} shapes over {len({c[0] for c in cases})} digests "
+        f"byte-exact (ragged L, odd B, misaligned base, tiled digests in "
+        f"their own, staged one-tile and two-row-tile designs)")
     return err
 
 
@@ -1084,10 +1132,11 @@ def path_label(name: str, shape: tuple) -> str:
 def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
-                      osd: dict, repair: dict, rates: dict) -> dict:
+                      osd: dict, repair: dict, rates: dict,
+                      built: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2 and K3 also with their other paths' times and bounds, K1, K2 and
-    K4 with their launch configuration."""
+    K4 with their launch configuration, K3 its design per digest."""
     from ceph_tpu_torch.ops import crc32c_batch as crc
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_schedule as xs
@@ -1096,6 +1145,15 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     b, k, l = data.shape
     r = mat.shape[0]
     g = gk.pick_group(k, b)
+    # K3 at the RS parity the main path computes, beside K1 and K2
+    rs_sched = built["rs8/3 parity"][1]
+    rs_out = xs.xor_sched(rs_sched, data)
+    if not torch.equal(rs_out[:4], xs.apply_bits_plain(rs_sched, data[:4])):
+        raise RuntimeError("xor_sched differs from its plain version at RS "
+                           "parity")
+    del rs_out
+    rs_k3_ms = time_ms(lambda: xs.xor_sched(rs_sched, data))
+    rs_shape = (b, k, l, r)
     dev = data.device
     w_flat = torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev)
     w_group = torch.from_numpy(gk.w_gN_planemajor(mat, g)).to(dev)
@@ -1192,6 +1250,8 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     lrc_rep = lrc["shapes"][1]
     k1_ms = pmsr["dense_ms"] if pmsr["dense_name"] == "K1" else (None, None)
     paths = {   # label: (shape, schedule or None, K3 ms, K1 ms)
+        path_label("rs8/3 parity", rs_shape): (
+            rs_shape, rs_sched, rs_k3_ms, None),
         path_label("pmsr5/4 parity", enc5): (
             enc5, pmsr["sched"], pmsr["sched_ms"][0], k1_ms[0]),
         path_label(f"pmsr5/4 decode{list(PMSR_LOST)}", dec5): (
@@ -1205,6 +1265,10 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     }
     k3 = rows[-1]
     k3["ms_by_path"], k3["bound_by_path"] = {}, {}
+    k3["design_by_digest"] = {label: built[label][3] for label in (
+        "rs8/3 parity", "lrc8/4/3 parity", "lrc8/4/3 local repair",
+        "pmsr5/4 parity", f"pmsr5/4 decode{list(PMSR_LOST)}",
+        "rs20/4 parity")}
     k1["ms_by_path"], k1["bound_by_path"] = {}, {}
     for label, (shape, sch, k3_ms, k1_ms) in paths.items():
         bound = path_bound(shape, mhz, b1_rate, sch)
@@ -1277,7 +1341,7 @@ def main() -> int:
         osd = phase_osd(dev)
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
-                             repair, rates)
+                             repair, rates, built)
     log(json.dumps(line))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")

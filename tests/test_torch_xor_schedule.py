@@ -162,19 +162,19 @@ def test_apply_bits_plain_matches_reference_xla_ragged(label, mat):
 
 # -- K3's generated source ----------------------------------------------------
 
-def _host_k3(sched, tmp_path):
+def _host_k3(sched, tmp_path, design=None):
     """K3's generated source built with the host C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build K3's source for the CPU")
-    name = xor_sched_codegen.entry_name(sched)
+    name = xor_sched_codegen.source_name(sched, design)
     src = tmp_path / f"{name}.cpp"
-    src.write_text(xor_sched_codegen.generate(sched))
+    src.write_text(xor_sched_codegen.generate(sched, design))
     lib = tmp_path / f"lib{name}.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
                     str(_build.CSRC), "-o", str(lib), str(src)], check=True,
                    capture_output=True, timeout=120)
-    fn = getattr(ctypes.CDLL(str(lib)), name)
+    fn = getattr(ctypes.CDLL(str(lib)), xor_sched_codegen.entry_name(sched))
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
         [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     return fn
@@ -182,40 +182,102 @@ def _host_k3(sched, tmp_path):
 
 @pytest.mark.parametrize("label,mat", GF_MATRICES, ids=GF_IDS)
 def test_k3_source_on_the_host_matches_plain_and_oracle(tmp_path, label, mat):
+    """Each matrix in its own design and in the other one."""
     sched = xs.schedule_for(gk.bitmatrix_i8(mat))
-    fn = _host_k3(sched, tmp_path)
+    own = xor_sched_codegen.design_for(sched)
+    other = xor_sched_codegen.design_for(
+        sched, kind="tiled" if own.kind == "register" else "register")
     r, k = mat.shape
-    # 16-byte rows take the vector path, the others the byte path; 48 and
-    # 1001 leave a ragged last column group
-    for b, l in [(2, 512), (3, 48), (5, 1001), (1, 7)]:
-        x = torch.from_numpy(_data(7, b, k, l))
-        out = torch.full((b, r, l), 0xAB, dtype=torch.uint8)
-        assert fn(x.data_ptr(), out.data_ptr(), b, k, r, l, 0, None) == 0
-        want = _oracle(mat, x.numpy())
-        assert np.array_equal(out.numpy(), want), (b, l)
-        assert np.array_equal(xs.apply_bits_plain(sched, x).numpy(), want)
-    bad = torch.empty((1, r, 64), dtype=torch.uint8)
-    assert fn(x.data_ptr(), bad.data_ptr(), 1, k + 1, r, 64, 0, None) != 0
+    for design in (None, other):
+        fn = _host_k3(sched, tmp_path, design)
+        # 16-byte rows take the vector path, the others the byte path; 48
+        # and 1001 leave a ragged last column group
+        for b, l in [(2, 512), (3, 48), (5, 1001), (1, 7)]:
+            x = torch.from_numpy(_data(7, b, k, l))
+            out = torch.full((b, r, l), 0xAB, dtype=torch.uint8)
+            assert fn(x.data_ptr(), out.data_ptr(), b, k, r, l, 0, None) == 0
+            want = _oracle(mat, x.numpy())
+            assert np.array_equal(out.numpy(), want), (design, b, l)
+            assert np.array_equal(xs.apply_bits_plain(sched, x).numpy(),
+                                  want)
+        bad = torch.empty((1, r, 64), dtype=torch.uint8)
+        assert fn(x.data_ptr(), bad.data_ptr(), 1, k + 1, r, 64, 0,
+                  None) != 0
+
+
+def _tiled_stores(lines):
+    """The tiled design's stores: {row: line} from each tile's store loop,
+    checking that every accumulator a row packs was declared in its tile and
+    is packed after the tile's last XOR into it."""
+    stores, tile = {}, None
+    for n, line in enumerate(lines):
+        head = re.search(r"// output rows (\d+)-(\d+)", line)
+        if head:
+            tile = {"first": int(head.group(1)), "last": int(head.group(2)),
+                    "declared": set(), "touched": {}, "cases": {}}
+            continue
+        if tile is None:
+            continue
+        tile["declared"] |= set(re.findall(r"\b(a\d+) = 0u", line))
+        for v in re.findall(r"\b(a\d+) \^= ", line):
+            tile["touched"][v] = n
+        case = re.match(r"\s*case (\d+): (o\[0\] = .*) break;", line)
+        if case:
+            names = re.findall(r"o\[\d\] = (a\d+);", case.group(2))
+            assert len(names) == 8
+            for v in names:
+                assert v in tile["declared"]
+                assert tile["touched"].get(v, -1) < n
+            tile["cases"][int(case.group(1))] = n
+        loop = re.search(r"for \(int i = 0; i < (\d+); \+\+i\)", line)
+        if loop:
+            tile["rows"] = int(loop.group(1))
+        hit = re.search(r"io\.store\((\d+) \+ i, o\)", line)
+        if hit:
+            first = int(hit.group(1))
+            assert first == tile["first"]
+            assert tile["rows"] == tile["last"] - first + 1
+            assert sorted(tile["cases"]) == list(range(tile["rows"]))
+            for i in range(tile["rows"]):
+                assert first + i not in stores
+                stores[first + i] = n
+    return stores
 
 
 def test_k3_source_stores_each_row_once_after_its_planes():
-    sched = xs.schedule_for(gk.bitmatrix_i8(GF_MATRICES[3][1]))
-    lines = xor_sched_codegen.generate(sched).splitlines()
-    defined = {}
-    for n, line in enumerate(lines):
-        for v in re.findall(r"\b(v\d+) = ", line):
-            defined[v] = n
-    stores = {}
-    for n, line in enumerate(lines):
-        hit = re.search(r"io\.store\((\d+), o\)", line)
-        if hit:
-            assert hit.group(1) not in stores
-            stores[hit.group(1)] = n
-            for v in re.findall(r"\bv\d+\b", line):
-                assert defined[v] < n
-    assert sorted(map(int, stores)) == list(range(sched.n_out // 8))
-    assert len(defined) == sched.n_terms
-    assert f"XOR_SCHED_ENTRY(xor_sched_{sched.digest}, Body)" in lines
+    """Both designs: each output row is stored once, after every value it
+    packs is final.  The register design defines one value per schedule op
+    (``len(defined) == n_terms``) and stores a row after the op that
+    completes it; the tiled design packs a tile's accumulators in a loop
+    after the tile's last XOR into them."""
+    lrc = xs.schedule_for(gk.bitmatrix_i8(GF_MATRICES[3][1]))
+    repair = xs.schedule_for(gk.bitmatrix_i8(GF_MATRICES[4][1]))
+    rs20 = xs.schedule_for(gk.bitmatrix_i8(gen_rs_matrix(24, 20)[20:]))
+    cases = [(lrc, xor_sched_codegen.design_for(lrc, kind="register")),
+             (lrc, xor_sched_codegen.design_for(lrc, tile_planes=24)),
+             (lrc, None), (repair, None), (rs20, None)]
+    assert xor_sched_codegen.design_for(repair).kind == "register"
+    assert xor_sched_codegen.design_for(lrc).kind == "tiled"
+    assert xor_sched_codegen.design_for(rs20).kind == "tiled"
+    for sched, design in cases:
+        lines = xor_sched_codegen.generate(sched, design).splitlines()
+        if (design or xor_sched_codegen.design_for(sched)).kind == "tiled":
+            stores = _tiled_stores(lines)
+        else:
+            defined, stores = {}, {}
+            for n, line in enumerate(lines):
+                for v in re.findall(r"\b(v\d+) = ", line):
+                    defined[v] = n
+            for n, line in enumerate(lines):
+                hit = re.search(r"io\.store\((\d+), o\)", line)
+                if hit:
+                    assert int(hit.group(1)) not in stores
+                    stores[int(hit.group(1))] = n
+                    for v in re.findall(r"\bv\d+\b", line):
+                        assert defined[v] < n
+            assert len(defined) == sched.n_terms
+        assert sorted(stores) == list(range(sched.n_out // 8))
+        assert f"XOR_SCHED_ENTRY(xor_sched_{sched.digest}, Body)" in lines
 
 
 # -- the cost model and the routing hook ---------------------------------------
