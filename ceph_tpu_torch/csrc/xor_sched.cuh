@@ -12,11 +12,10 @@
 //
 // This header holds everything but the schedule.  ops/xor_sched_codegen.py
 // emits one source per schedule digest that includes it, defines a Body
-// (K, R, block size, launch bounds, shared-memory slots a thread, and the
-// stage() and operator() with the schedule's XORs written out) and
-// instantiates the entry with XOR_SCHED_ENTRY.  A loop over a runtime op
-// list would not keep its values in registers; XORs written out do, as the
-// TPU kernel bakes the schedule into its trace.
+// (K, R, block size, launch bounds, and an operator() with the schedule's
+// XORs written out) and instantiates the entry with XOR_SCHED_ENTRY.  A loop
+// over a runtime op list would not keep its values in registers; XORs
+// written out do, as the TPU kernel bakes the schedule into its trace.
 //
 // Layout (bit-sliced): each thread owns 32 adjacent byte columns of one
 // stripe.  It loads 32 bytes of an input row (two 16-byte loads), transposes
@@ -24,7 +23,7 @@
 // 32-bit words -- 32 columns per XOR -- and, once the 8 plane values of an
 // output row are final, transposes them back to 32 bytes and stores them.
 // Two designs, chosen per digest by the generator's design_for:
-//  * register (8k <= 24 input planes): the schedule's CSE'd XORs with all 8k
+//  * register (8k <= 48 input planes): the schedule's CSE'd XORs with all 8k
 //    input planes live for the whole schedule; the fewest XORs.
 //  * tiled (larger k): the bit-matrix rows in tiles of output rows.  A tile's
 //    output planes are accumulators in registers; a runtime loop streams
@@ -36,26 +35,20 @@
 //    sub-rows: 160 planes and 40 temporaries in 255 registers, chains 85
 //    XORs deep, 6.6x its HBM bound).  Written out as straight-line code
 //    instead, the tiles spilled: ptxas hoisted every row's loads ahead of
-//    the XORs.  With several tiles, each input row is transposed once into
-//    shared memory (Slots, [slot][thread], each thread its own) by a
-//    runtime loop, and every tile reads its planes from there.
+//    the XORs.  With several tiles, each tile fetches the input rows again.
 // Bound on the H100: HBM bytes, or the integer issue of the transposes
 // (~68 instructions per 32-byte row) plus the XORs (64 INT32 lanes a clock
 // a SM).  Any B and L: the ragged edge falls back to byte loads and stores,
 // as do rows that are not 16-byte aligned.
 //
 // The same arithmetic also compiles as host C++ (no __CUDACC__), where the
-// entry runs each block's threads phase by phase over one shared buffer
-// (run_host): the CPU tests build it with the host compiler and hold it
-// against the plain PyTorch version.
+// entry runs every thread in a loop (run_host): the CPU tests build it with
+// the host compiler and hold it against the plain PyTorch version.
 
 #pragma once
 
 #include <cstdint>
 #include <cstring>
-#ifndef __CUDACC__
-#include <vector>
-#endif
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -75,12 +68,6 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 namespace xor_sched {
 
 constexpr int kCols = 32;       // byte columns per thread = bits of a plane word
-
-#ifdef __CUDACC__
-using Quad = uint4;
-#else
-struct Quad { uint32_t x, y, z, w; };
-#endif
 
 // 4x4 byte transpose: out[c] byte j = in[j] byte c.
 XS_FN void transpose4(const uint32_t* in, uint32_t* out) {
@@ -209,26 +196,6 @@ struct Io {
   }
 };
 
-// One thread's 16-byte slots of shared memory, slot q at base[q * stride]
-// (stride = threads a block): plane-major, so the lanes of a warp touch
-// neighbouring 16-byte words and each quarter-warp phase hits all 32 banks
-// once.  A thread reads only the slots it wrote, so no barrier is needed.
-struct Slots {
-  Quad* base;
-  int stride;
-
-  XS_FN void put(int q, const uint32_t* p) const {
-    Quad v;
-    v.x = p[0]; v.y = p[1]; v.z = p[2]; v.w = p[3];
-    base[q * stride] = v;
-  }
-
-  XS_FN void get(int q, uint32_t* p) const {
-    const Quad v = base[q * stride];
-    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
-  }
-};
-
 // Thread gid of the flat (stripe, column group) index space.
 template <class Body>
 XS_FN Io thread_io(const uint8_t* data, uint8_t* out, long long L, long long groups,
@@ -245,25 +212,15 @@ inline bool aligned16(const void* data, const void* out, long long L) {
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
-template <class Body>
-constexpr long long smem_bytes() {
-  return static_cast<long long>(Body::kSlots) * sizeof(Quad) * Body::kThreads;
-}
-
 #ifdef __CUDACC__
 
 template <class Body>
 __global__ void __launch_bounds__(Body::kThreads, Body::kMinBlocks)
 xor_sched_kernel(const uint8_t* __restrict__ data, uint8_t* __restrict__ out, long long L,
                  long long groups, long long total, bool aligned) {
-  extern __shared__ __align__(16) unsigned char xs_smem[];
   const long long gid = static_cast<long long>(blockIdx.x) * Body::kThreads + threadIdx.x;
-  if (gid >= total) return;   // no barrier follows: each thread has its own slots
-  const Io io = thread_io<Body>(data, out, L, groups, gid, aligned);
-  const Slots slots{reinterpret_cast<Quad*>(xs_smem) + threadIdx.x, Body::kThreads};
-  const Body body{};
-  body.stage(io, slots);
-  body(io, slots);
+  if (gid >= total) return;
+  Body()(thread_io<Body>(data, out, L, groups, gid, aligned));
 }
 
 template <class Body>
@@ -277,15 +234,8 @@ int launch(const void* data, void* out, int B, int k, int r, long long L, int de
   const long long total = groups * B;
   const long long blocks = (total + Body::kThreads - 1) / Body::kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr long long smem = smem_bytes<Body>();
-  if (smem > 48 * 1024) {   // past the default: opt in, on this device
-    const cudaError_t attr = cudaFuncSetAttribute(
-        xor_sched_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-  }
-  xor_sched_kernel<Body><<<static_cast<unsigned>(blocks), Body::kThreads,
-                           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  xor_sched_kernel<Body><<<static_cast<unsigned>(blocks), Body::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out), L, groups, total,
       aligned16(data, out, L));
   return static_cast<int>(cudaGetLastError());
@@ -299,31 +249,14 @@ int launch(const void* data, void* out, int B, int k, int r, long long L, int de
 
 #else
 
-// Block by block, and inside a block phase by phase: every thread stages its
-// rows before any thread of the block runs the body, in one shared buffer
-// refilled with a pattern for each block, so a slot that is read before it is
-// written, or that two threads share, changes the output.
 template <class Body>
 int run_host(const void* data, void* out, int B, int k, int r, long long L) {
   if (B < 1 || k != Body::K || r != Body::R || L < 1) return 1;
   const long long groups = (L + kCols - 1) / kCols;
-  const long long total = groups * B;
   const bool aligned = aligned16(data, out, L);
-  std::vector<Quad> smem(static_cast<size_t>(Body::kSlots) * Body::kThreads + 1);
-  const Body body{};
-  const auto io = [&](long long gid) {
-    return thread_io<Body>(static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out),
-                           L, groups, gid, aligned);
-  };
-  for (long long first = 0; first < total; first += Body::kThreads) {
-    std::memset(smem.data(), 0xA5, smem.size() * sizeof(Quad));
-    const int n = total - first < Body::kThreads ? static_cast<int>(total - first)
-                                                 : Body::kThreads;
-    for (int t = 0; t < n; ++t)
-      body.stage(io(first + t), Slots{smem.data() + t, Body::kThreads});
-    for (int t = 0; t < n; ++t)
-      body(io(first + t), Slots{smem.data() + t, Body::kThreads});
-  }
+  for (long long gid = 0; gid < groups * B; ++gid)
+    Body()(thread_io<Body>(static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out),
+                           L, groups, gid, aligned));
   return 0;
 }
 

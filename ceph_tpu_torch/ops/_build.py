@@ -5,7 +5,8 @@ A source is either ``csrc/<name>.cu`` or a generated text registered with
 at first use, into a shared library with a plain C interface under
 ``ceph_tpu_torch/build/`` (git-ignored), named by a hash of the source text,
 the headers in ``csrc/`` and ``ARCH_FLAGS``, so an edited source never loads a
-stale library.  Nothing is built when a module is imported.
+stale library; nvcc's output (ptxas's per-kernel report) is kept beside it.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -91,6 +93,7 @@ def _compile(name: str) -> tuple[str, Built | str]:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         return name, f"nvcc {src.name} failed ({proc.returncode}):\n{proc.stdout}"
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return name, Built(proc.stdout, seconds)
 
@@ -112,6 +115,27 @@ def build(names: list[str]) -> dict[str, Built]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
+
+
+def report(name: str) -> str:
+    """nvcc's output for the built source ``name`` (empty if not built)."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def ptxas_counts(log: str) -> dict:
+    """ptxas's report in an nvcc ``-Xptxas -v`` log: the kernels, the fewest
+    and most registers a thread of one uses, and the bytes of static shared
+    memory, stack frame and spill stores and loads, summed over them."""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+
+    def total(what: str) -> int:
+        return sum(int(n) for n in re.findall(rf"(\d+) bytes {what}", log))
+    return {"kernels": len(regs), "registers": max(regs, default=0),
+            "min_registers": min(regs, default=0), "smem": total("smem"),
+            "stack": total("stack frame"),
+            "spill_stores": total("spill stores"),
+            "spill_loads": total("spill loads")}
 
 
 def library(name: str) -> ctypes.CDLL:

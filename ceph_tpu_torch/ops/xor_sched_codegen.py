@@ -25,10 +25,8 @@ K1/K2 (data, out, B, k, r, L, device, stream) and returns
     (load and transpose the row, then a switch on the row to its XORs) and
     one over its output rows: the compiler can then neither hoist every
     row's loads ahead of the XORs nor grow the code past the instruction
-    cache.  With ``staged`` (the default past one tile, where a block's
-    planes fit in shared memory), each input row is transposed once into
-    shared memory and every tile reads its planes from there; else each
-    tile loads the rows again.
+    cache.  Past one tile (more than ``TILE_MAX_PLANES`` output planes),
+    each tile loads the input rows again.
 """
 
 from __future__ import annotations
@@ -40,15 +38,14 @@ from .xor_schedule import XorSchedule
 HEADER = "xor_sched.cuh"
 
 # the register design while 8k input planes are at most this many (on the
-# H100 it won at LRC local repair, 24 planes, and lost at 64: PERF.md)
-REGISTER_MAX_IN_PLANES = 24
+# H100 it won at 24 and 32 planes, was 1-2% ahead at 48, level at 40 and 56
+# and lost at 64: PERF.md)
+REGISTER_MAX_IN_PLANES = 48
 # output planes a tile of the tiled design holds at most (whole rows)
 TILE_MAX_PLANES = 128
 # live 32-bit values a thread may hold; the live estimate of every design
 # design_for picks stays within it
 REGISTER_BUDGET = 200
-# shared memory a block may use on the H100 (227 KB)
-SMEM_MAX_BYTES = 232448
 # the tiled design's live values beside its accumulators: one input row's 8
 # planes, the next row's 8 loaded words, up to 22 nibble XORs, addresses
 _TILED_OVERHEAD = 8 + 8 + 22 + 12
@@ -69,13 +66,12 @@ class Design:
     """How K3's source evaluates one schedule.
 
     ``tiles`` holds the output rows of each tile (tiled design; every output
-    row in exactly one tile, in order), ``staged`` whether the input planes
-    go through shared memory, ``threads`` the block size and ``min_blocks``
-    the blocks a SM that ``__launch_bounds__`` asks registers for."""
+    row in exactly one tile, in order), ``threads`` the block size and
+    ``min_blocks`` the blocks a SM that ``__launch_bounds__`` asks registers
+    for."""
 
     kind: str                                  # "register" or "tiled"
     tiles: tuple[tuple[int, ...], ...] = ()
-    staged: bool = False
     threads: int = 128
     min_blocks: int = 1
 
@@ -84,12 +80,8 @@ class Design:
         if self.kind == "register":
             return f"reg_t{self.threads}b{self.min_blocks}"
         width = max(len(t) for t in self.tiles)
-        return (f"tile{width}x{len(self.tiles)}{'s' if self.staged else ''}"
+        return (f"tile{width}x{len(self.tiles)}"
                 f"_t{self.threads}b{self.min_blocks}")
-
-    def slots(self, n_in: int) -> int:
-        """16-byte shared-memory slots a thread (4 input planes each)."""
-        return n_in // 4 if self.staged else 0
 
     def live_estimate(self, sched: XorSchedule) -> int:
         """32-bit values live at once in a thread, by the design's count."""
@@ -112,29 +104,29 @@ def tile_plan(n_rows: int, max_rows: int) -> tuple[tuple[int, ...], ...]:
 
 
 def design_for(sched: XorSchedule, *, kind: str | None = None,
-               tile_planes: int = TILE_MAX_PLANES, staged: bool | None = None,
-               threads: int | None = None) -> Design:
+               tile_planes: int = TILE_MAX_PLANES) -> Design:
     """The design K3 builds for ``sched``: a pure function of its shape.
 
-    Keyword arguments override the choice (timing tools build variants):
-    ``kind``, the planes a tile holds at most, ``staged`` and the block
-    size."""
-    n_in, n_out = sched.n_in, sched.n_out
+    The register design while its input planes are few enough and its live
+    estimate fits ``REGISTER_BUDGET``, else the tiled one.  ``kind`` and the
+    planes a tile holds at most override the choice, for the tools and
+    tests that build another design with ``generate``."""
+    register = Design("register")
     if kind is None:
-        kind = "register" if n_in <= REGISTER_MAX_IN_PLANES else "tiled"
+        small = sched.n_in <= REGISTER_MAX_IN_PLANES and \
+            register.live_estimate(sched) <= REGISTER_BUDGET
+        kind = "register" if small else "tiled"
     if kind == "register":
-        return Design("register", threads=threads or 128, min_blocks=1)
+        return register
     if kind != "tiled":
         raise ValueError(f"unknown K3 design {kind!r}")
-    tiles = tile_plan(n_out // 8, max(1, tile_planes // 8))
-    threads = threads or 64
-    if staged is None:     # staged won past one tile, where its planes fit
-        staged = len(tiles) > 1 and n_in * 4 * threads <= SMEM_MAX_BYTES
+    tiles = tile_plan(sched.n_out // 8, max(1, tile_planes // 8))
+    threads = 64
     # the most blocks a SM whose launch bounds leave each thread the budget
     min_blocks = 1
     while register_cap(threads, min_blocks + 1) >= REGISTER_BUDGET:
         min_blocks += 1
-    return Design("tiled", tiles, staged, threads, min_blocks)
+    return Design("tiled", tiles, threads, min_blocks)
 
 
 def entry_name(sched: XorSchedule) -> str:
@@ -225,8 +217,7 @@ def _row_case(j: int, masks: dict[int, int], acc: dict[int, str]) -> list[str]:
     return out
 
 
-def _tile_body(sched: XorSchedule, rows: tuple[int, ...],
-               staged: bool) -> list[str]:
+def _tile_body(sched: XorSchedule, rows: tuple[int, ...]) -> list[str]:
     """One tile as two runtime loops: over the input rows (fetch, transpose,
     and a switch on the row to its XORs) and over the tile's output rows (a
     switch on the row to its accumulators, transpose, store).  Loops keep
@@ -238,22 +229,15 @@ def _tile_body(sched: XorSchedule, rows: tuple[int, ...],
     acc = {o: f"a{n}" for n, o in enumerate(planes)}
     body = [f"    {{  // output rows {rows[0]}-{rows[-1]}",
             "      uint32_t " + ", ".join(f"{acc[o]} = 0u" for o in planes)
-            + ";"]
-    if staged:
-        body += ["#pragma unroll 1",
-                 "      for (int j = 0; j < K; ++j) {",
-                 "        uint32_t x[8];",
-                 "        s.get(2 * j, x);",
-                 "        s.get(2 * j + 1, x + 4);"]
-    else:
-        body += ["      uint32_t w[8];",
-                 "      io.fetch(0, w);",
-                 "#pragma unroll 1",
-                 "      for (int j = 0; j < K; ++j) {",
-                 "        uint32_t x[8];",
-                 "        xor_sched::bytes_to_planes(w, x);",
-                 "        if (j + 1 < K) io.fetch(j + 1, w);  // in flight"]
-    body.append("        switch (j) {")
+            + ";",
+            "      uint32_t w[8];",
+            "      io.fetch(0, w);",
+            "#pragma unroll 1",
+            "      for (int j = 0; j < K; ++j) {",
+            "        uint32_t x[8];",
+            "        xor_sched::bytes_to_planes(w, x);",
+            "        if (j + 1 < K) io.fetch(j + 1, w);  // in flight",
+            "        switch (j) {"]
     for j in range(k):
         masks = {o: want[o] >> (8 * j) & 0xff for o in planes}
         if any(masks.values()):
@@ -286,28 +270,17 @@ def generate(sched: XorSchedule, design: Design | None = None) -> str:
                          f"needs whole bytes (multiples of 8) on both sides")
     design = design or design_for(sched)
     k, r = n_in // 8, n_out // 8
-    stage = []
     if design.kind == "register":
         body = _register_body(sched)
         what = (f"register design: {sched.n_terms} XORs (naive "
                 f"{sched.naive_terms}), peak {sched.peak_registers} live "
                 f"temporaries")
     else:
-        body = []
-        for rows in design.tiles:
-            body += _tile_body(sched, rows, design.staged)
-        if design.staged:
-            stage = ["#pragma unroll 1",
-                     "    for (int j = 0; j < K; ++j) {",
-                     "      uint32_t p[8];",
-                     "      io.load(j, p);",
-                     "      s.put(2 * j, p);",
-                     "      s.put(2 * j + 1, p + 4);",
-                     "    }"]
+        body = [line for rows in design.tiles
+                for line in _tile_body(sched, rows)]
         what = (f"tiled design: {len(design.tiles)} tile(s) of at most "
-                f"{max(len(t) for t in design.tiles)} rows, input planes "
-                + ("staged in shared memory" if design.staged
-                   else "fetched per tile"))
+                f"{max(len(t) for t in design.tiles)} rows, input rows "
+                f"fetched per tile")
     return "\n".join([
         "// Generated by ceph_tpu_torch/ops/xor_sched_codegen.py; do not edit.",
         f"// Schedule {sched.digest}: {n_out}x{n_in} GF(2) matrix; {what}; "
@@ -321,15 +294,8 @@ def generate(sched: XorSchedule, design: Design | None = None) -> str:
         f"  static constexpr int R = {r};",
         f"  static constexpr int kThreads = {design.threads};",
         f"  static constexpr int kMinBlocks = {design.min_blocks};",
-        f"  static constexpr int kSlots = {design.slots(n_in)};",
-        "  XS_FN void stage(const xor_sched::Io& io, "
-        "const xor_sched::Slots& s) const {",
-        *(stage or ["    (void)io; (void)s;"]),
-        "  }",
-        "  XS_FN void operator()(const xor_sched::Io& io, "
-        "const xor_sched::Slots& s) const {",
-        *(body if design.kind == "tiled" and design.staged
-          else ["    (void)s;", *body]),
+        "  XS_FN void operator()(const xor_sched::Io& io) const {",
+        *body,
         "  }",
         "};",
         "",

@@ -452,33 +452,28 @@ def apply_bits_plain(sched: XorSchedule, data: torch.Tensor) -> torch.Tensor:
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def k3_source(sched: XorSchedule, design=None) -> str:
-    """Register K3's generated source for ``sched`` (in ``design``, default
-    ``xor_sched_codegen.design_for(sched)``) with the builder and return its
-    name, for ``_build.build`` (one nvcc per digest and design)."""
+def k3_source(sched: XorSchedule) -> str:
+    """Register K3's generated source for ``sched`` with the builder and
+    return its name, for ``_build.build`` (one nvcc per digest)."""
     from . import _build
-    from .xor_sched_codegen import generate, source_name
-    name = source_name(sched, design)
-    _build.add_generated(name, generate(sched, design))
+    from .xor_sched_codegen import entry_name, generate
+    name = entry_name(sched)
+    _build.add_generated(name, generate(sched))
     return name
 
 
 @functools.lru_cache(maxsize=256)
-def _k3_entry(digest: str, design=None):
+def _k3_entry(digest: str):
     from . import _build
-    from .xor_sched_codegen import entry_name
-    sched = registered(digest)
-    fn = getattr(_build.library(k3_source(sched, design)), entry_name(sched))
+    name = k3_source(registered(digest))
+    fn = getattr(_build.library(name), name)
     fn.argtypes = [_VP, _VP, _I, _I, _I, _LL, _I, _VP]
     fn.restype = _I
     return fn
 
 
-def xor_sched(sched: XorSchedule, data: torch.Tensor,
-              design=None) -> torch.Tensor:
-    """K3: launch the schedule's kernel on a (B, k, L) uint8 CUDA tensor;
-    ``design`` (an ``xor_sched_codegen.Design``) replaces the default one,
-    for tools that time or check another."""
+def xor_sched(sched: XorSchedule, data: torch.Tensor) -> torch.Tensor:
+    """K3: launch the schedule's kernel on a (B, k, L) uint8 CUDA tensor."""
     from .gf2kernels import LAUNCHES, _stream
     b, k, l = data.shape
     if data.device.type != "cuda" or data.dtype != torch.uint8 \
@@ -488,7 +483,7 @@ def xor_sched(sched: XorSchedule, data: torch.Tensor,
                          f"{data.dtype} on {data.device}")
     with _LOCK:
         _SCHEDULES.setdefault(sched.digest, sched)
-    fn = _k3_entry(sched.digest, design)
+    fn = _k3_entry(sched.digest)
     out = torch.empty((b, sched.n_out // 8, l), dtype=torch.uint8,
                       device=data.device)
     err = fn(data.data_ptr(), out.data_ptr(), b, k, sched.n_out // 8, l,

@@ -1,7 +1,7 @@
 """Time kernel K3 (``xor_sched``) through its wrapper on the card.
 
     python ceph_tpu_torch/tools/k3_time.py [--root TREE] [--cache FILE] \
-        [--design kind=tiled,tile=64,staged=1,threads=128,only=pmsr ...]
+        [--design kind=register,tile=64,only=rs4|rs6 ...]
 
 Imports ``ceph_tpu_torch`` from the repository checkout ``--root`` (default:
 the checkout this file is in), builds that tree's K3 for each schedule digest
@@ -9,29 +9,34 @@ and times ``xor_schedule.xor_sched`` at the shapes the recovery codes launch
 at full width: RS k=8,m=3 parity on (1024, 8, 131072) -> 3, LRC k=8,m=4,l=3
 encode (1024, 8, 131072) -> 8 and local repair (1024, 3, 131072) -> 1, PMSR
 k=5,m=4 parity (1024, 20, 32768) -> 16 and decode [1,6] (1024, 20, 32768) ->
-8; and an RS k=20,m=4 parity product on (128, 20, 131072) -> 4, a large k off
-the routes.  K1 (``gf2kernels.gf2_matmul_popc``) is timed beside K3 at the
+8; an RS k=20,m=4 parity product on (128, 20, 131072) -> 4, a large k off
+the routes; and RS k=4,m=2, k=5,m=3, k=6,m=3 and k=7,m=3 parity on (1024,
+k, 131072), 32 to 56 input planes, around the register design's threshold.  K1 (``gf2kernels.gf2_matmul_popc``) is timed beside K3 at the
 two PMSR shapes, the engine K3 has to beat there.
 
-Each ``--design`` adds a variant of K3 built by ``xor_sched_codegen.
-design_for`` with those overrides (``kind``, ``tile`` planes, ``staged``,
-``threads``) at every path, or at the paths whose label holds one of the
-``|``-separated words of ``only``; it needs a tree that has
-``design_for``.  Every output must equal ``apply_bits_plain`` on 4
-stripes.  Each of ``REPEATS`` readings is a CUDA-event mean over ``ITERS``
-calls after one warm call; the median is reported beside them all.  The schedules' host compile takes ~40 s;
+Each ``--design`` adds a variant of K3, ``xor_sched_codegen.design_for``
+with those overrides (``kind``, ``tile`` planes), at every path or at the
+paths whose label holds one of the ``|``-separated words of ``only``.  It
+is generated by the tree's ``xor_sched_codegen.generate``, built by its
+``_build`` and called through its C entry as the wrapper calls the
+default; it needs a tree that has ``design_for``.  Every output must equal
+``apply_bits_plain`` on 4 stripes.  Each of ``REPEATS`` readings is a
+CUDA-event mean over ``ITERS`` calls after one warm call; the median is
+reported beside them all.  The schedules' host compile takes ~40 s;
 ``--cache FILE`` keeps them (JSON) for the next tree's run, so a run in turns
 (parent, change, change, parent) pays it once.  Prints one JSON object with
 the root, the card's name and power limit and, per path and design, the
-design's tag and ptxas's registers, spill bytes and shared memory.
+design's tag and ptxas's registers, spill bytes and shared memory (from
+the log the tree's ``_build`` keeps, for a library built earlier too).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import importlib.util
 import json
 import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,19 +47,55 @@ REPEATS = 5
 
 def _spec(text: str) -> dict:
     out = dict(kv.split("=", 1) for kv in text.split(","))
-    conv = {"tile": int, "threads": int, "staged": lambda v: v == "1"}
-    return {k: conv.get(k, str)(v) for k, v in out.items()}
+    return {k: int(v) if k == "tile" else v for k, v in out.items()}
 
 
-def ptxas_counts(log: str) -> dict:
-    """Registers, spill bytes and shared memory of the one kernel in a log."""
-    def first(pattern: str) -> int:
-        hit = re.search(pattern, log)
-        return int(hit.group(1)) if hit else 0
-    return {"registers": first(r"Used (\d+) registers"),
-            "spill_stores": first(r"(\d+) bytes spill stores"),
-            "spill_loads": first(r"(\d+) bytes spill loads"),
-            "stack": first(r"(\d+) bytes stack frame")}
+def _variant(build, cg, sched, design) -> str:
+    """Register K3 of ``sched`` in ``design`` with the tree's builder; its
+    source name."""
+    name = cg.source_name(sched, design)
+    build.add_generated(name, cg.generate(sched, design))
+    return name
+
+
+def _launcher(build, cg, sched, name: str):
+    """x -> K3's output through the C entry of built source ``name``, as
+    ``xor_schedule.xor_sched`` calls it (the default stream, no count)."""
+    import torch
+    fn = getattr(build.library(name), cg.entry_name(sched))
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x):
+        b, k, l = x.shape
+        out = torch.empty((b, sched.n_out // 8, l), dtype=torch.uint8,
+                          device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), b, k, sched.n_out // 8, l,
+                 x.device.index, stream)
+        if err:
+            raise RuntimeError(f"K3 {name}: launch failed, CUDA error {err}")
+        return out
+    return run
+
+
+def _ptxas(build, name: str, built: dict) -> dict:
+    """ptxas's registers, shared memory and spill bytes of source ``name``,
+    from this run's build or the log a tree's ``_build`` keeps; parsed by
+    the ``_build`` beside this file, whatever tree ``--root`` names."""
+    log = built[name].log if name in built else (
+        build.report(name) if hasattr(build, "report") else "")
+    if not log:
+        return {}
+    spec = importlib.util.spec_from_file_location(
+        "_k3_time_build", Path(__file__).resolve().parents[1] / "ops" /
+        "_build.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    c = own.ptxas_counts(log)
+    return {key: c[key] for key in ("registers", "smem", "spill_stores",
+                                    "spill_loads", "stack")}
 
 
 def _time(fn) -> list[float]:
@@ -94,6 +135,10 @@ def _paths(dev):
         ("pmsr5/4 parity", pmsr.parity_matrix, (1024, 5 * a, sub)),
         ("pmsr5/4 decode[1,6]", pmsr.repair_matrix(*plan), (1024, 5 * a, sub)),
         ("rs20/4 parity", gen_rs_matrix(24, 20)[20:], (128, 20, 131072)),
+        ("rs4/2 parity", gen_rs_matrix(6, 4)[4:], (1024, 4, 131072)),
+        ("rs5/3 parity", gen_rs_matrix(8, 5)[5:], (1024, 5, 131072)),
+        ("rs6/3 parity", gen_rs_matrix(9, 6)[6:], (1024, 6, 131072)),
+        ("rs7/3 parity", gen_rs_matrix(10, 7)[7:], (1024, 7, 131072)),
     ]
 
 
@@ -131,7 +176,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--cache", type=Path, default=None,
                     help="JSON file of compiled schedules, read and written")
     ap.add_argument("--design", action="append", default=[],
-                    help="kind=...,tile=N,staged=0|1,threads=N[,only=TEXT]")
+                    help="kind=register|tiled[,tile=N][,only=TEXT]")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -167,7 +212,7 @@ def main(argv: list[str] | None = None) -> int:
     for label, designs in runs.items():
         for d in designs:
             names[(label, d)] = (xs.k3_source(scheds[label]) if d is None
-                                 else xs.k3_source(scheds[label], d))
+                                 else _variant(_build, cg, scheds[label], d))
     built = _build.build(sorted(set(names.values())))
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -181,22 +226,23 @@ def main(argv: list[str] | None = None) -> int:
                  "n_terms": sched.n_terms, "naive_terms": sched.naive_terms,
                  "designs": []}
         for d in runs[label]:
-            fn = ((lambda: xs.xor_sched(sched, x)) if d is None
-                  else (lambda d=d: xs.xor_sched(sched, x, d)))
+            name = names[(label, d)]
+            if d is None:
+                fn = lambda: xs.xor_sched(sched, x)  # noqa: E731
+            else:
+                run = _launcher(_build, cg, sched, name)
+                fn = lambda run=run: run(x)  # noqa: E731
             if not torch.equal(fn()[:4], plain):
                 raise RuntimeError(f"{label}: K3 {d} differs from the plain "
                                    f"version")
             ms = _time(fn)
             own = d or (cg.design_for(sched) if hasattr(cg, "design_for")
                         else None)
-            name = names[(label, d)]
             entry["designs"].append({
                 "design": own.tag if own else "register (tree before "
                                               "design_for)",
                 "default": d is None, "ms": float(np.median(ms)), "ms_runs": ms,
-                **(ptxas_counts(built[name].log) if name in built else {}),
-                "smem_bytes": (own.slots(sched.n_in) * 16 * own.threads
-                               if own else 0)})
+                **_ptxas(_build, name, built)})
         if label.startswith("pmsr"):
             fn = lambda: gk.gf2_matmul_popc(mat, x)  # noqa: E731
             want = gk.gf2_matmul_plain(

@@ -7,10 +7,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
 
  1. the card's name and power limit; compile the XOR schedules of every
     matrix the run uses, then build every kernel with nvcc, one process per
-    source, all at once: ``ceph_tpu_torch/csrc/*.cu``, one generated K3
-    source per schedule digest and, for the tiled digests, two other K3
-    designs (K3's design, shared memory, ptxas registers, spills and nvcc
-    seconds per digest);
+    source, all at once: ``ceph_tpu_torch/csrc/*.cu`` and one generated K3
+    source per schedule digest (K3's design, and ptxas's registers, shared
+    memory and spills per digest, from the kept log of a cached build too;
+    nvcc seconds);
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
     on seeded inputs at small shapes, byte-exact (for K2: one step, a whole
     block plus a ragged tail at g=2 and g=1, RS decode, Cauchy at k=10, the
@@ -23,13 +23,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
     matrices with a unit, a zero and a repeated row, with ragged L, odd B
     and a misaligned base; the large-k digests (RS k=20,m=4 and k=32,m=4
     parity, PMSR k=5 parity and decode: 160 and 256 input planes, the tiled
-    design) also at a partial last block and in two other designs (one tile
-    staged in shared memory, tiles of two rows); K4 (CRC32C) against its
-    plain version and the host numpy engine at l in {0, 1, 7, 8, 9, 127,
-    4096, 4099, 131072}, one row and many, and a misaligned base, and at the
-    edges of its braid: rows shorter than 512 bytes, l = 16 mod 512, a
-    ragged head on a misaligned base, spans of 8 rounds with masked ends,
-    and the one-launch entry for two sets of rows;
+    design) also at a partial last block, as is a tall 20x8 matrix (160
+    output planes: two tiles, each fetching the input rows); K4 (CRC32C)
+    against its plain version and the host numpy engine at l in {0, 1, 7,
+    8, 9, 127, 4096, 4099, 131072}, one row and many, and a misaligned base,
+    and at the edges of its braid: rows shorter than 512 bytes, l = 16 mod
+    512, a ragged head on a misaligned base, spans of 8 rounds with masked
+    ends, and the one-launch entry for two sets of rows;
  3b. the dense kernels past their old limits: PMSR k=7,m=6 at (1024, 7,
     131136) through the dense route (K1 at k=42: two k-steps in one launch),
     encode and a 2-erasure decode; K1 at B=70000 (two launches: the wrapper
@@ -88,7 +88,6 @@ import contextlib
 import io
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -159,14 +158,16 @@ def host_stripes(matrix, x: torch.Tensor, idx) -> list[np.ndarray]:
 
 
 def ptxas_summary(report: str) -> str:
-    """Registers, stack frame and spill bytes from an nvcc -Xptxas -v log."""
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
-
-    def total(what: str) -> int:
-        return sum(int(n) for n in re.findall(rf"(\d+) bytes {what}", report))
-    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-            f"{total('stack frame')} bytes stack, {total('spill stores')}/"
-            f"{total('spill loads')} bytes spill stores/loads")
+    """Registers, shared memory, stack frame and spill bytes from an nvcc
+    -Xptxas -v log."""
+    from ceph_tpu_torch.ops._build import ptxas_counts
+    c = ptxas_counts(report)
+    if not c["kernels"]:
+        return "no report"
+    return (f"{c['kernels']} kernels, {c['min_registers']}-{c['registers']} "
+            f"registers, {c['smem']} bytes smem, {c['stack']} bytes stack, "
+            f"{c['spill_stores']}/{c['spill_loads']} bytes spill "
+            f"stores/loads")
 
 
 @contextlib.contextmanager
@@ -203,6 +204,7 @@ def path_matrices() -> dict:
         "rs8/3 parity": rs[8:],
         "rs20/4 parity": gen_rs_matrix(24, 20)[20:],
         "rs32/4 parity": gen_rs_matrix(36, 32)[32:],
+        "tall 20x8": gen_rs_matrix(28, 8)[8:],
         "rs8/3 decode[1,9]": build_decode_matrix(rs, 8, [1, 9])[0],
         "lrc8/4/3 parity": lrc.parity_matrix,
         "lrc8/4/3 local repair": lrc.repair_matrix((1, 2, 3), (0,)),
@@ -218,18 +220,6 @@ def path_matrices() -> dict:
     }
 
 
-def k3_variants(sched) -> list:
-    """Designs other than its own that phase 3 holds a large-k digest's K3
-    to (8k > 64 input planes): its one tile staged in shared memory, and
-    tiles of two rows (staged, the design of digests with more than 128
-    output planes)."""
-    from ceph_tpu_torch.ops import xor_sched_codegen as cg
-    if sched.n_in <= 64:
-        return []
-    return [cg.design_for(sched, kind="tiled", staged=True),
-            cg.design_for(sched, kind="tiled", tile_planes=16)]
-
-
 def phase_build() -> dict:
     """Compile the schedules, build every kernel; returns label -> (matrix,
     schedule, nvcc seconds, K3's design and ptxas counts)."""
@@ -237,7 +227,6 @@ def phase_build() -> dict:
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_sched_codegen as cg
     from ceph_tpu_torch.ops import xor_schedule as xs
-    from ceph_tpu_torch.tools.k3_time import ptxas_counts
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -251,10 +240,8 @@ def phase_build() -> dict:
         f"{time.perf_counter() - t0:.2f} s (host CSE)")
     sources = _build.all_sources()
     k3 = {label: xs.k3_source(sched) for label, sched in scheds.items()}
-    variants = [xs.k3_source(sched, d) for sched in scheds.values()
-                for d in k3_variants(sched)]
     t0 = time.perf_counter()
-    reports = _build.build(sources + sorted(set(k3.values()) | set(variants)))
+    reports = _build.build(sources + sorted(set(k3.values())))
     dt = time.perf_counter() - t0
     for name in sources:
         if name in reports:
@@ -263,24 +250,20 @@ def phase_build() -> dict:
     for label, name in k3.items():
         sched, built = scheds[label], reports.get(name)
         secs = built.seconds if built else None
-        design = cg.design_for(sched)
-        info = {"design": design.tag,
-                "smem_bytes": design.slots(sched.n_in) * 16 * design.threads,
-                **(ptxas_counts(built.log) if built else {})}
+        report = _build.report(name)
+        counts = _build.ptxas_counts(report)
+        info = {"design": cg.design_for(sched).tag,
+                **{key: counts[key] if counts["kernels"] else None
+                   for key in ("registers", "smem", "spill_stores",
+                               "spill_loads")}}
         out[label] = (mats[label], sched, secs, info)
         log(f"K3 {label}: {sched.n_out}x{sched.n_in}, {sched.n_terms} XORs "
             f"(naive {sched.naive_terms}), peak {sched.peak_registers} "
-            f"temporaries; design {design.tag}, {info['smem_bytes']} B shared "
-            f"memory a block; "
-            + (f"ptxas {ptxas_summary(built.log)}, nvcc {secs:.2f} s"
-               if built else "already built"))
-    for name in variants:
-        if name in reports:
-            log(f"K3 variant {name}: ptxas {ptxas_summary(reports[name].log)}, "
-                f"nvcc {reports[name].seconds:.2f} s")
+            f"temporaries; design {info['design']}; ptxas "
+            f"{ptxas_summary(report)}, "
+            + (f"nvcc {secs:.2f} s" if built else "already built"))
     log(f"build: {len(sources)} sources + {len(set(k3.values()))} K3 digests "
-        f"+ {len(set(variants))} K3 variants in {dt:.2f} s ({len(reports)} "
-        f"compiled, sm_90a, all at once)")
+        f"in {dt:.2f} s ({len(reports)} compiled, sm_90a, all at once)")
     return out
 
 
@@ -366,9 +349,7 @@ def phase_kernels(dev: torch.device) -> dict:
 
 
 def phase_k3_small(dev: torch.device, built: dict) -> int:
-    """K3 == plain == host oracle, byte for byte, on small seeded shapes: every
-    digest in its own design, and the tiled digests (RS k=20,m=4, PMSR k=5)
-    also in ``k3_variants``' designs."""
+    """K3 == plain == host oracle, byte for byte, on small seeded shapes."""
     from ceph_tpu_torch.gf import gf_matmul
     from ceph_tpu_torch.ops import xor_schedule as xs
 
@@ -384,15 +365,15 @@ def phase_k3_small(dev: torch.device, built: dict) -> int:
         ("pmsr5/4 parity", 2, 2048, False), (pmsr_dec, 2, 1024, False),
         ("pmsr5/4 aggregate", 3, 96, False),
     ]
-    # large k (160 and 256 input planes; staged, the RS k=32 planes take 64
-    # KB of shared memory a block): ragged L, odd B, a misaligned base, and
-    # a last block of 64 threads that is partly past the batch
+    # the tiled design at large k (160 and 256 input planes) and past one
+    # tile: ragged L, odd B, a misaligned base, and a last block of 64
+    # threads that is partly past the batch
     for label in ("rs20/4 parity", "rs32/4 parity", "pmsr5/4 parity",
-                  pmsr_dec):
+                  pmsr_dec, "tall 20x8"):
         cases += [(label, 3, 1001, False), (label, 5, 4096, True),
                   (label, 1, 7, False), (label, 3, 32 * 45, False)]
     rng = np.random.default_rng(SEED + 4)
-    err, runs = 0, 0
+    err = 0
     for label, b, l, misaligned in cases:
         mat, sched, _, _ = built[label]
         k = mat.shape[1]
@@ -403,23 +384,18 @@ def phase_k3_small(dev: torch.device, built: dict) -> int:
             x.copy_(torch.from_numpy(host))
         else:
             x = torch.from_numpy(host).to(dev)
+        got = xs.xor_sched(sched, x)
         ref = xs.apply_bits_plain(sched, x)
+        torch.cuda.synchronize()
+        diff = int((got.int() - ref.int()).abs().max())
+        err = max(err, diff)
         want = np.stack([gf_matmul(mat, host[i]) for i in range(b)])
-        for design in [None, *k3_variants(sched)]:
-            got = xs.xor_sched(sched, x, design)
-            torch.cuda.synchronize()
-            diff = int((got.int() - ref.int()).abs().max())
-            err = max(err, diff)
-            runs += 1
-            if diff or not np.array_equal(got.cpu().numpy(), want):
-                raise RuntimeError(
-                    f"xor_sched differs on {label} B={b} L={l} in design "
-                    f"{design.tag if design else 'its own'}: max |kernel - "
-                    f"plain| = {diff}")
-    log(f"K3 xor_sched vs plain and host oracle: {runs} runs of "
-        f"{len(cases)} shapes over {len({c[0] for c in cases})} digests "
-        f"byte-exact (ragged L, odd B, misaligned base, tiled digests in "
-        f"their own, staged one-tile and two-row-tile designs)")
+        if diff or not np.array_equal(got.cpu().numpy(), want):
+            raise RuntimeError(f"xor_sched differs on {label} B={b} L={l}: "
+                               f"max |kernel - plain| = {diff}")
+    log(f"K3 xor_sched vs plain and host oracle: {len(cases)} shapes over "
+        f"{len({c[0] for c in cases})} digests byte-exact (ragged L, odd B, "
+        f"misaligned base, a partial last block, two tiles included)")
     return err
 
 

@@ -1,13 +1,12 @@
 """K3's tiled design, built with the host C++ compiler and held against ceph_tpu.
 
 ``csrc/xor_sched.cuh`` compiles as host C++ (no ``__CUDACC__``), where the
-entry runs a block's threads phase by phase: every thread stages its input
-planes in one shared buffer before any thread of the block evaluates its
-tiles, so a staging-layout fault shows here without a card.  The generated
-sources of large-k schedules (8k = 160 input planes: RS k=20,m=4 parity and
-a PMSR k=5,m=4 decode) are held byte for byte against ``apply_bits_plain``,
-the host oracle ``gf_matmul`` and the reference's ``apply_host``; the design
-choice ``design_for`` and its tile plan are pure functions, checked here.
+entry runs every thread in a loop.  The generated sources of large-k
+schedules (8k = 160 input planes: RS k=20,m=4 parity and a PMSR k=5,m=4
+decode) and of a tall matrix (160 output planes: two tiles) are held byte
+for byte against ``apply_bits_plain``, the host oracle ``gf_matmul`` and the
+reference's ``apply_host``; the design choice ``design_for`` and its tile
+plan are pure functions, checked here.
 """
 
 import ctypes
@@ -40,7 +39,8 @@ def _pmsr54_decode():
 
 
 LARGE = {"rs20/4 parity": lambda: gen_rs_matrix(24, 20)[20:],
-         "pmsr5/4 decode[1,6]": _pmsr54_decode}
+         "pmsr5/4 decode[1,6]": _pmsr54_decode,
+         "tall 20x8": lambda: gen_rs_matrix(28, 8)[8:]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,16 +50,13 @@ def _large(label):
 
 
 def _designs(sched):
-    """The default design and three variants: one tile staged in shared
-    memory, and tiles of two rows at 32 threads a block (several tiles,
-    several blocks), staged or fetched again for each tile."""
+    """The default design and two variants with more tiles, each tile
+    fetching the input rows again: tiles of two rows, and of one."""
     return {"default": cg.design_for(sched),
-            "staged": cg.design_for(sched, kind="tiled", staged=True),
             "tiles of 2 rows": cg.design_for(sched, kind="tiled",
-                                             tile_planes=16, threads=32),
-            "tiles of 2 rows, fetched": cg.design_for(
-                sched, kind="tiled", tile_planes=16, threads=32,
-                staged=False)}
+                                             tile_planes=16),
+            "tiles of 1 row": cg.design_for(sched, kind="tiled",
+                                            tile_planes=8)}
 
 
 def _host_k3(sched, design, tmp_path):
@@ -81,13 +78,13 @@ def _host_k3(sched, design, tmp_path):
 
 # (B, L, misaligned base): 16-byte rows take the vector path; 48 and 1001
 # leave a ragged last column group; 7 and a misaligned base take the byte
-# path; 5 x 45 groups leave a partial last block at 32 and 64 threads
+# path; 5 x 45 groups leave a partial last block of 64 threads
 CASES = [(2, 512, False), (3, 48, False), (5, 1001, False), (1, 7, False),
          (5, 32 * 45, False), (2, 256, True)]
 
 
-@pytest.mark.parametrize("which", ["default", "staged", "tiles of 2 rows",
-                                   "tiles of 2 rows, fetched"])
+@pytest.mark.parametrize("which", ["default", "tiles of 2 rows",
+                                   "tiles of 1 row"])
 @pytest.mark.parametrize("label", sorted(LARGE))
 def test_tiled_source_on_the_host_matches_plain_and_oracle(tmp_path, label,
                                                            which):
@@ -137,7 +134,8 @@ def _fake(n_in, n_out, peak=40):
                           peak_registers=peak, max_registers=64)
 
 
-@pytest.mark.parametrize("n_in,n_out", [(8, 8), (24, 8), (64, 24), (64, 64),
+@pytest.mark.parametrize("n_in,n_out", [(8, 8), (24, 8), (32, 16), (48, 24),
+                                        (56, 24), (64, 24), (64, 64),
                                         (72, 8), (160, 32), (160, 64),
                                         (160, 128), (168, 136), (336, 288),
                                         (512, 512), (1024, 256)])
@@ -158,11 +156,7 @@ def test_design_for_keeps_every_design_within_the_register_budget(n_in,
         rows = [i for tile in design.tiles for i in tile]
         assert rows == list(range(n_out // 8))   # each row once, in order
         assert max(len(t) for t in design.tiles) * 8 <= cg.TILE_MAX_PLANES
-        # staged past one tile while a block's planes fit in 227 KB
-        fits = n_in * 4 * design.threads <= cg.SMEM_MAX_BYTES == 232448
-        assert design.staged == (len(design.tiles) > 1 and fits)
-        assert design.slots(n_in) == (n_in // 4 if design.staged else 0)
-        assert design.slots(n_in) * 16 * design.threads <= 232448
+        assert len(design.tiles) == -(-n_out // cg.TILE_MAX_PLANES)
     assert cg.design_for(sched) == design           # pure: same shape, same
 
 
@@ -174,6 +168,15 @@ def test_tile_plan_covers_every_row_once_in_even_tiles(n_rows, max_rows):
     sizes = [len(t) for t in tiles]
     assert max(sizes) <= max_rows and max(sizes) - min(sizes) <= 1
     assert len(tiles) == -(-n_rows // max_rows)
+
+
+def test_design_for_leaves_the_register_design_past_the_budget():
+    """Few input planes but many live temporaries: the tiled design."""
+    few = _fake(48, 64, peak=40)
+    crowded = _fake(48, 64, peak=cg.REGISTER_BUDGET)
+    assert cg.design_for(few).kind == "register"
+    assert cg.design_for(crowded).kind == "tiled"
+    assert cg.design_for(crowded).live_estimate(crowded) <= cg.REGISTER_BUDGET
 
 
 def test_design_for_refuses_an_unknown_kind():
