@@ -1,0 +1,136 @@
+"""CRUSH map construction helpers (CrushWrapper-builder analog).
+
+Covers what pool creation needs: flat and two-level straw2 hierarchies and
+the standard replicated / erasure rules (the same step sequences
+CrushWrapper::add_simple_rule emits, including the erasure rules'
+set_chooseleaf_tries 5 / set_choose_tries 100 preamble).
+"""
+
+from __future__ import annotations
+
+from .types import (
+    Bucket,
+    CrushMap,
+    Rule,
+    RuleStep,
+    CRUSH_BUCKET_STRAW2,
+    CRUSH_RULE_TAKE,
+    CRUSH_RULE_EMIT,
+    CRUSH_RULE_CHOOSE_FIRSTN,
+    CRUSH_RULE_CHOOSE_INDEP,
+    CRUSH_RULE_CHOOSELEAF_FIRSTN,
+    CRUSH_RULE_CHOOSELEAF_INDEP,
+    CRUSH_RULE_SET_CHOOSELEAF_TRIES,
+    CRUSH_RULE_SET_CHOOSE_TRIES,
+    CRUSH_RULE_TYPE_REPLICATED,
+    CRUSH_RULE_TYPE_ERASURE,
+)
+
+ROOT_ID = -1
+
+
+def build_flat_map(n_osds: int, weights=None,
+                   alg: int = CRUSH_BUCKET_STRAW2) -> CrushMap:
+    """One root bucket holding all OSDs directly."""
+    m = CrushMap()
+    weights = weights or [0x10000] * n_osds
+    root = Bucket(id=ROOT_ID, type=10, alg=alg,
+                  items=list(range(n_osds)), item_weights=list(weights))
+    m.add_bucket(root, "default")
+    m.add_rule(replicated_rule(0, ROOT_ID, choose_type=0, leaf=False))
+    return m
+
+
+def build_two_level_map(n_hosts: int, osds_per_host: int,
+                        host_weights=None,
+                        alg: int = CRUSH_BUCKET_STRAW2) -> CrushMap:
+    """root -> hosts -> osds; osd ids are dense [0, n_hosts*osds_per_host)."""
+    m = CrushMap()
+    host_ids = []
+    for h in range(n_hosts):
+        hid = -(2 + h)
+        osds = [h * osds_per_host + i for i in range(osds_per_host)]
+        host = Bucket(id=hid, type=1, alg=alg, items=osds,
+                      item_weights=[0x10000] * osds_per_host)
+        m.add_bucket(host, f"host{h}")
+        host_ids.append(hid)
+    hw = host_weights or [0x10000 * osds_per_host] * n_hosts
+    root = Bucket(id=ROOT_ID, type=10, alg=alg, items=host_ids,
+                  item_weights=list(hw))
+    m.add_bucket(root, "default")
+    m.add_rule(replicated_rule(0, ROOT_ID, choose_type=1, leaf=True))
+    m.add_rule(erasure_rule(1, ROOT_ID, choose_type=1, leaf=True))
+    return m
+
+
+def build_hierarchy(fanouts: list[int], type_ids: list[int] | None = None,
+                    weights=None,
+                    alg: int = CRUSH_BUCKET_STRAW2) -> CrushMap:
+    """Uniform tree of arbitrary depth: ``fanouts[l]`` children per
+    bucket at level l; the last fanout counts OSDs per leaf bucket.
+    E.g. [4, 5, 10] = root -> 4 racks -> 5 hosts each -> 10 osds each
+    (1000-OSD depth-4 node path root/rack/host/osd).
+
+    ``weights`` optionally gives per-osd 16.16 weights; bucket weights
+    sum their children (as CrushWrapper keeps them)."""
+    m = CrushMap()
+    depth = len(fanouts)
+    type_ids = type_ids or list(range(depth, 0, -1))
+    n_osds = 1
+    for f in fanouts:
+        n_osds *= f
+    weights = weights or [0x10000] * n_osds
+    next_id = [ROOT_ID]
+
+    def build(level: int, osd_base: int) -> tuple[int, int]:
+        """Returns (bucket_id_or_osd, weight)."""
+        span = 1
+        for f in fanouts[level:]:
+            span *= f
+        bid = next_id[0]
+        next_id[0] -= 1
+        items, iw = [], []
+        for c in range(fanouts[level]):
+            if level == depth - 1:
+                osd = osd_base + c
+                items.append(osd)
+                iw.append(weights[osd])
+            else:
+                sub, subw = build(level + 1,
+                                  osd_base + c * (span // fanouts[level]))
+                items.append(sub)
+                iw.append(subw)
+        b = Bucket(id=bid, type=type_ids[level], alg=alg,
+                   items=items, item_weights=iw)
+        m.add_bucket(b, f"b{level}.{bid}")
+        return bid, sum(iw)
+
+    build(0, 0)
+    leaf_type = type_ids[-1]
+    m.add_rule(replicated_rule(0, ROOT_ID, choose_type=leaf_type,
+                               leaf=True))
+    m.add_rule(erasure_rule(1, ROOT_ID, choose_type=leaf_type,
+                            leaf=True))
+    return m
+
+
+def replicated_rule(rule_id: int, root: int, choose_type: int,
+                    leaf: bool) -> Rule:
+    op = CRUSH_RULE_CHOOSELEAF_FIRSTN if leaf else CRUSH_RULE_CHOOSE_FIRSTN
+    return Rule(rule_id=rule_id, type=CRUSH_RULE_TYPE_REPLICATED, steps=[
+        RuleStep(CRUSH_RULE_TAKE, root),
+        RuleStep(op, 0, choose_type),
+        RuleStep(CRUSH_RULE_EMIT),
+    ])
+
+
+def erasure_rule(rule_id: int, root: int, choose_type: int,
+                 leaf: bool) -> Rule:
+    op = CRUSH_RULE_CHOOSELEAF_INDEP if leaf else CRUSH_RULE_CHOOSE_INDEP
+    return Rule(rule_id=rule_id, type=CRUSH_RULE_TYPE_ERASURE, steps=[
+        RuleStep(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 5),
+        RuleStep(CRUSH_RULE_SET_CHOOSE_TRIES, 100),
+        RuleStep(CRUSH_RULE_TAKE, root),
+        RuleStep(op, 0, choose_type),
+        RuleStep(CRUSH_RULE_EMIT),
+    ])

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's erasure-code main path on one CUDA card and check it.
+"""Drive the port's main paths on one CUDA card and check them: the
+erasure-code stripe codec and bulk CRUSH placement.
 
     python3 chip_smoke.py
 
@@ -63,17 +64,33 @@ Phases, one line each; any failure exits non-zero and prints no result:
     (host clock: marshal, PCIe and launch) and ``MeshCodec.encode
     (with_crc=True)`` on a device-resident batch (CUDA events), split into
     the GF(2^8) launch and K4;
+ 8d. bulk placement (``BASELINE.md`` config 5, the 1000-OSD depth-4 map of
+    ``tools/crush_bench.py``): K5 against its plain version on the card,
+    exactly, on 262,144 seeds (values >= 2^31 included) and against the
+    scalar ``crush_do_rule`` on 512, for rule 0 (chooseleaf firstn, 3
+    replicas) and rule 1 (chooseleaf indep, 11 slots) on the config-5 map,
+    the same map degraded (2% of the OSDs at weight 0, 5% at 0x8000, one
+    host out), a small map with a choose_args weight-set and hash-id
+    overrides, and a 16,000-OSD map too large for K5 to stage in shared
+    memory; then the path: 10M seeds resident, 5 launches of 2M lanes a
+    rule (CUDA events: mappings/s and ms a launch), the first launch's rows
+    held against the plain version, and ``bulk_crush`` over all 10M from
+    numpy to numpy (host clock: marshal, PCIe, launch, back), whose rows
+    must equal the launches' and, on 256 of them, the scalar engine's (no
+    hole, one replica a host);
  9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
-    for K1/K2, phases 6-7 for K3, phase 8c for K4), its time at its headline
-    shape, its bound, its plain version's time and its largest difference
-    from the plain version; K1, K2 and K3 also their times and bounds on the
-    other paths they serve (``ms_by_path`` / ``bound_by_path``: each bound
-    the larger of the bytes and the fewest operations known, of K3's XOR
-    terms where the schedule is compiled, b1 MMAs at the measured rate and
-    int8 products; K3 also at the RS k=8,m=3 parity of phase 4's input),
-    K1/K2 their registers, shared memory, blocks per SM and spill bytes as
-    the CUDA runtime reports them, and K3 per digest its design, shared
-    memory, and ptxas's registers and spill bytes;
+    for K1/K2, phases 6-7 for K3, phase 8c for K4, phase 8d for K5), its
+    time at its headline shape, its bound, its plain version's time and its
+    largest difference from the plain version; K1, K2, K3 and K5 also their
+    times and bounds on the other paths they serve (``ms_by_path`` /
+    ``bound_by_path``: each bound the larger of the bytes and the fewest
+    operations known, of K3's XOR terms where the schedule is compiled, b1
+    MMAs at the measured rate, int8 products and K5's straw2 draws without
+    retries at 140 integer operations a draw; K3 also at the RS k=8,m=3
+    parity of phase 4's input), K1/K2/K4/K5 their registers, shared memory,
+    blocks per SM and spill or local bytes as the CUDA runtime reports
+    them, and K3 per digest its design, shared memory, and ptxas's
+    registers and spill bytes;
 10. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
@@ -123,6 +140,19 @@ K2_WIDE = (140000, 8, 128, 2)
 OSD = (64, 16, 131072)
 # K4's ragged resident buffer: 64 MiB and a ragged tail
 RESIDENT_BYTES = (64 << 20) + 12345
+# BASELINE.md config 5: 10M pps seeds (default_rng(0)) over the 1000-OSD
+# depth-4 map of ceph_tpu_torch/tools/crush_bench.py, launches of 2M lanes;
+# rule 0 (replicated chooseleaf firstn) at 3 replicas, rule 1 (erasure
+# chooseleaf indep) at 11, an RS k=8,m=3 PG
+PLACEMENT = (10_000_000, 2_000_000, (5, 5, 4, 10))
+PLACEMENT_RULES = ((0, 3), (1, 11))
+PLACEMENT_SAMPLE = 262144        # lanes K5 is held against its plain version
+PLACEMENT_SCALAR = 512           # lanes held against the scalar engine
+PLACEMENT_BULK_SCALAR = 256      # bulk_crush rows held against it
+# a 16,000-OSD map: its tables (53,158 words) pass the 40,960 K5 stages in
+# shared memory, so its launches read them from global memory
+PLACEMENT_GLOBAL = (10, 10, 16, 10)
+INT_OPS_PER_DRAW = 140           # one hash32_3: 5 rjenkins mixes
 
 
 def log(msg: str) -> None:
@@ -411,16 +441,20 @@ def phase_mma_rate(dev: torch.device) -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (K1-K3 and K4)."""
+    """Set every kernel's launch count to 0 (K1-K3, K4 and K5)."""
+    from ceph_tpu_torch.crush import vectorized
     from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
-    for counts in (gf2kernels.LAUNCHES, crc32c_batch.LAUNCHES):
+    for counts in (gf2kernels.LAUNCHES, crc32c_batch.LAUNCHES,
+                   vectorized.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def launch_counts() -> dict:
+    from ceph_tpu_torch.crush import vectorized
     from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
-    return {**gf2kernels.LAUNCHES, **crc32c_batch.LAUNCHES}
+    return {**gf2kernels.LAUNCHES, **crc32c_batch.LAUNCHES,
+            **vectorized.LAUNCHES}
 
 
 def phase_k4_small(dev: torch.device) -> int:
@@ -1044,6 +1078,247 @@ def phase_osd(dev: torch.device) -> dict:
                 "crc32c_chunks"]}
 
 
+def placement_maps() -> dict:
+    """name -> (CrushMap, osd weights): the config-5 map; the same map
+    degraded (2% of the OSDs at weight 0, 5% at 0x8000, one whole host
+    out); a small map with a choose_args weight-set of 3 positions and
+    hash-id overrides; the ``PLACEMENT_GLOBAL`` map, read from global
+    memory."""
+    from ceph_tpu_torch.crush.builder import build_hierarchy
+    fanouts = list(PLACEMENT[2])
+    n = int(np.prod(fanouts))
+    cm = build_hierarchy(fanouts)
+    rng = np.random.default_rng(SEED + 20)
+    degraded = np.full(n, 0x10000, np.int64)
+    pick = rng.permutation(n)
+    degraded[pick[:n * 2 // 100]] = 0
+    degraded[pick[n * 2 // 100:n * 7 // 100]] = 0x8000
+    host = int(rng.integers(0, n // fanouts[-1]))
+    degraded[host * fanouts[-1]:(host + 1) * fanouts[-1]] = 0
+    ca = build_hierarchy([3, 4, 5])
+    ca.create_choose_args(3)
+    for arg in ca.choose_args.values():
+        arg["weight_set"] = [[int(w * rng.uniform(0.3, 1.7)) for w in row]
+                             for row in arg["weight_set"]]
+    for bid in sorted(ca.choose_args)[:2]:
+        ca.choose_args[bid]["ids"] = [i - 7919 if i < 0 else i + 5000
+                                      for i in ca.buckets[bid].items]
+    big = list(PLACEMENT_GLOBAL)
+    return {"config5": (cm, [0x10000] * n),
+            "config5 degraded": (cm, degraded.tolist()),
+            "choose_args": (ca, [0x10000] * 60),
+            "global": (build_hierarchy(big), [0x10000] * int(np.prod(big)))}
+
+
+def scalar_mismatch(cm, rule: int, xs, rows: np.ndarray, numrep: int,
+                    weights) -> str | None:
+    """The first of ``rows`` (one a seed of ``xs``) that differs from the
+    scalar ``crush_do_rule``, or None."""
+    from ceph_tpu_torch.crush import CRUSH_ITEM_NONE, crush_do_rule
+    for x, row in zip(xs, rows):
+        want = crush_do_rule(cm, rule, int(x), numrep, weights)
+        want += [CRUSH_ITEM_NONE] * (numrep - len(want))
+        if list(row) != want:
+            return f"x={int(x)}: {list(row)} vs {want}"
+    return None
+
+
+def phase_placement(dev: torch.device) -> dict:
+    """Bulk placement (BASELINE.md config 5): K5 against its plain version
+    on the card, exactly, on 262,144 seeds (values >= 2^31 included) and
+    against the scalar engine on 512 of them, for both rules on the
+    config-5, degraded, choose_args and global-memory maps; then the path
+    at full width, its counts set to 0 just before: 10M seeds resident on
+    the card, 5 launches of 2M lanes a rule (CUDA events), the first
+    launch's rows held against the plain version (whose time at 2M lanes
+    this is), and ``bulk_crush`` over all 10M from numpy to numpy (host
+    clock), whose rows must equal the launches' and, on a sample, the
+    scalar engine's."""
+    from ceph_tpu_torch.crush import vectorized as vec
+    from ceph_tpu_torch.mon.pg_mapping import bulk_crush
+
+    lanes, batch, fanouts = PLACEMENT
+    maps = placement_maps()
+    rng = np.random.default_rng(SEED + 21)
+    sample = rng.integers(0, 2**32, PLACEMENT_SAMPLE, dtype=np.int64)
+    sample_d = torch.from_numpy(sample.astype(np.uint32).view(np.int32)).to(dev)
+    mappers, err, plain_ms, sample_ms = {}, 0, {}, {}
+    for name, (cm, weights) in maps.items():
+        for rule, numrep in PLACEMENT_RULES:
+            key = (id(cm), rule)
+            if key not in mappers:
+                mappers[key] = vec.VectorCrush(cm, rule, device=dev)
+            vc = mappers[key]
+            w = vc.device_weights(weights)
+            got = vc.map_device(sample_d, numrep, w)
+            plain = vc.map_firstn if vc.firstn else vc.map_indep
+            ref = plain(sample_d, numrep, w)
+            diff = int((got.long() - ref.long()).abs().max())
+            err = max(err, diff)
+            if diff:
+                raise RuntimeError(f"crush_map_rule differs from its plain "
+                                   f"version on {name} rule {rule}: max {diff}")
+            bad = scalar_mismatch(cm, rule, sample[:PLACEMENT_SCALAR],
+                                  got[:PLACEMENT_SCALAR].cpu().numpy(),
+                                  numrep, weights)
+            if bad:
+                raise RuntimeError(f"crush_map_rule differs from the scalar "
+                                   f"engine on {name} rule {rule} at {bad}")
+            if name in ("config5", "global"):
+                sample_ms[name, rule] = time_ms(
+                    lambda: vc.map_device(sample_d, numrep, w), iters=5)
+    big = mappers[(id(maps["global"][0]), 0)]
+    global_config = vec.kernel_config(big.map_words.shape[0], dev)
+    log(f"K5 crush_map_rule == plain on {PLACEMENT_SAMPLE} seeds (>= 2^31 "
+        f"included) and == the scalar engine on {PLACEMENT_SCALAR}: "
+        f"{', '.join(maps)} x rules {PLACEMENT_RULES} (rule, numrep); K5 on "
+        f"the sample " + ", ".join(f"{n} rule {r} {v:.3f} ms"
+                                   for (n, r), v in sample_ms.items())
+        + f"; the global map "
+        f"({int(np.prod(PLACEMENT_GLOBAL))} OSDs, {big.map_words.shape[0]} "
+        f"words unstaged): {global_config}")
+
+    cm, weights = maps["config5"]
+    n_osds = len(weights)
+    xs = np.random.default_rng(0).integers(0, 2**31 - 1, size=lanes,
+                                           dtype=np.int64)
+    seeds = torch.from_numpy(xs.astype(np.int32)).to(dev).view(-1, batch)
+    pick = np.sort(rng.choice(lanes, PLACEMENT_BULK_SCALAR, replace=False))
+    torch.cuda.synchronize()
+    reset_launches()
+    runs = {}
+    for rule, numrep in PLACEMENT_RULES:
+        vc = mappers[(id(cm), rule)]
+        w = vc.device_weights(weights)
+        plain = vc.map_firstn if vc.firstn else vc.map_indep
+        held = {}
+
+        def k5_batches():
+            held["k5"] = [vc.map_device(b, numrep, w) for b in seeds]
+
+        def plain_batch():
+            held["plain"] = plain(seeds[0], numrep, w)
+
+        ms = time_ms(k5_batches, iters=1)            # after a warm pass
+        plain_ms[rule] = time_ms(plain_batch, iters=1)
+        diff = int((held["k5"][0].long() - held["plain"].long()).abs().max())
+        err = max(err, diff)
+        if diff:
+            raise RuntimeError(f"crush_map_rule differs from its plain version "
+                               f"at config 5 rule {rule}, {batch} lanes: max "
+                               f"{diff}")
+        t0 = time.perf_counter()
+        rows, used = bulk_crush(cm, rule, xs, numrep, weights)
+        host_s = time.perf_counter() - t0
+        if not used:
+            raise RuntimeError(f"bulk_crush took the scalar sweep at config 5 "
+                               f"rule {rule}")
+        if rows.shape != (lanes, numrep) or not np.array_equal(
+                rows, torch.cat(held["k5"]).cpu().numpy()):
+            raise RuntimeError(f"bulk_crush rows differ from K5's launches at "
+                               f"config 5 rule {rule}")
+        bad = scalar_mismatch(cm, rule, xs[pick], rows[pick], numrep, weights)
+        if bad:
+            raise RuntimeError(f"bulk_crush differs from the scalar engine at "
+                               f"config 5 rule {rule} at {bad}")
+        # every slot placed, on OSDs of the map, one per host
+        head = rows[:200000]
+        hosts = np.sort(head // fanouts[-1], axis=1)
+        if not ((head >= 0) & (head < n_osds)).all() or \
+                (np.diff(hosts, axis=1) == 0).any():
+            raise RuntimeError(f"config 5 rule {rule}: a hole, an OSD off the "
+                               f"map or two replicas on one host")
+        runs[rule] = {"numrep": numrep, "ms": ms / seeds.shape[0],
+                      "mappings_per_s": lanes / (ms / 1e3),
+                      "bulk_host_s": host_s}
+        del held, rows, head, hosts
+    launches = launch_counts()["crush_map_rule"]
+    if not launches:
+        raise RuntimeError("crush_map_rule was not launched on the placement "
+                           "path")
+    config = vec.kernel_config(mappers[(id(cm), 0)].map_words.shape[0], dev)
+    log(f"placement config 5 ({n_osds} OSDs, fanouts {list(fanouts)}): "
+        + "; ".join(f"rule {r} x{v['numrep']}: {lanes} mappings in "
+                    f"{v['ms'] * seeds.shape[0]:.3f} ms ({seeds.shape[0]} "
+                    f"launches of {batch}, {v['ms']:.3f} ms each, "
+                    f"{v['mappings_per_s'] / 1e9:.4f}e9 mappings/s); first "
+                    f"launch == plain ({plain_ms[r]:.1f} ms); bulk_crush "
+                    f"numpy -> numpy {v['bulk_host_s']:.3f} s host clock, "
+                    f"used_fused True, {PLACEMENT_BULK_SCALAR} rows == "
+                    f"scalar engine"
+                    for r, v in runs.items())
+        + f"; K5 launches {launches}; {config}")
+    return {"err": err, "plain_ms": plain_ms, "sample_ms": sample_ms,
+            "runs": runs, "launches": launches, "config": config,
+            "global_config": global_config}
+
+
+def placement_bound(lanes: int, numrep: int, mhz: float,
+                    fanouts: tuple = PLACEMENT[2]) -> dict:
+    """The least time for one rule over ``lanes`` seeds on a map of
+    ``fanouts``: the larger of its bytes (4 in and 4 * numrep out a lane)
+    and its integer operations, ``INT_OPS_PER_DRAW`` a straw2 draw on the
+    INT32 lanes, for the draws of a descent with no retry (a straw2 draw
+    over every child at each level, the leaf's included): a floor, retries
+    add draws."""
+    draws = lanes * numrep * sum(fanouts)
+    t_bytes = lanes * 4 * (1 + numrep) / HBM_BYTES_PER_S * 1e3
+    t_ops = draws * INT_OPS_PER_DRAW / (INT32_OPS_PER_CLOCK * mhz * 1e6) * 1e3
+    return {"bound_ms": round(max(t_bytes, t_ops), 4),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": round(t_bytes, 4), "ops_ms": round(t_ops, 4)}
+
+
+def placement_row(placement: dict, mhz: float) -> dict:
+    """K5's row of the kernels line: its time a 2M-lane launch at rule 0,
+    its bound, its plain version's time on the same launch's seeds, and its
+    other paths."""
+    batch = PLACEMENT[1]
+    runs = placement["runs"]
+    bounds = {r: placement_bound(batch, v["numrep"], mhz)
+              for r, v in runs.items()}
+    numreps = dict(PLACEMENT_RULES)
+    sample_paths = {}           # path -> (K5's ms, bound) on the sample
+    for (name, rule), ms in placement["sample_ms"].items():
+        on, fan = "", PLACEMENT[2]
+        if name == "global":
+            fan = PLACEMENT_GLOBAL
+            on = f", {int(np.prod(fan))}-OSD map in global memory"
+        path = (f"rule {rule} {'firstn' if rule == 0 else 'indep'} "
+                f"x{numreps[rule]}, {PLACEMENT_SAMPLE} lanes{on}")
+        sample_paths[path] = (ms, placement_bound(PLACEMENT_SAMPLE,
+                                                  numreps[rule], mhz, fan))
+    rule1 = f"rule 1 indep x11, {batch} lanes"
+    return {
+        "name": "crush_map_rule", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush.cu",
+        "replaces": "ceph_tpu/crush/vectorized.py:384, "
+                    "ceph_tpu/crush/vectorized.py:449 (XLA programs, not "
+                    "Pallas)",
+        "launches": placement["launches"],
+        "max_abs_err": placement["err"],
+        "ms": round(runs[0]["ms"], 4),
+        "plain_ms": round(placement["plain_ms"][0], 4),
+        "bound_ms": bounds[0]["bound_ms"], "bound_by": bounds[0]["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes CRUSH",
+        "shape": [batch, runs[0]["numrep"]], "sm_clock_mhz": mhz,
+        "ms_by_path": {rule1: round(runs[1]["ms"], 4),
+                       **{path: round(ms, 4)
+                          for path, (ms, _) in sample_paths.items()}},
+        "plain_ms_by_path": {rule1: round(placement["plain_ms"][1], 4)},
+        "bound_by_path": {rule1: bounds[1],
+                          **{path: bound
+                             for path, (_, bound) in sample_paths.items()}},
+        "mappings_per_s": {f"rule {r}": round(v["mappings_per_s"], 1)
+                           for r, v in runs.items()},
+        "bulk_crush_host_s": {f"rule {r}": round(v["bulk_host_s"], 4)
+                              for r, v in runs.items()},
+        **placement["config"],
+        "global_map_config": placement["global_config"],
+    }
+
+
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
     """The SM clock nvidia-smi reads while ``fn``'s launches run."""
     for _ in range(launches):
@@ -1109,10 +1384,10 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
                       osd: dict, repair: dict, rates: dict,
-                      built: dict) -> dict:
+                      built: dict, placement: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
-    K1, K2 and K3 also with their other paths' times and bounds, K1, K2 and
-    K4 with their launch configuration, K3 its design per digest."""
+    K1, K2, K3 and K5 also with their other paths' times and bounds, K1, K2,
+    K4 and K5 with their launch configuration, K3 its design per digest."""
     from ceph_tpu_torch.ops import crc32c_batch as crc
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_schedule as xs
@@ -1288,6 +1563,15 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                 k4["resident_ms"], 4)},
         **crc.kernel_config(dev),
     })
+    k5 = placement_row(placement, mhz)
+    rows.append(k5)
+    r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
+    log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
+        f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
+        f"{k5['ms_by_path'][r1]:.4f} ms vs bound "
+        f"{k5['bound_by_path'][r1]['bound_ms']:.4f} ms (operations: straw2 "
+        f"draws without retries, {INT_OPS_PER_DRAW} integer operations each, "
+        f"at {mhz:.0f} MHz); mappings/s {k5['mappings_per_s']}")
     return {"kernels": rows}
 
 
@@ -1315,9 +1599,10 @@ def main() -> int:
     with xor_sched_env(None):          # the OSD path keeps its routing
         k4 = phase_k4_full(dev, main_inputs)
         osd = phase_osd(dev)
+    placement = phase_placement(dev)
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
-                             repair, rates, built)
+                             repair, rates, built, placement)
     log(json.dumps(line))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")
