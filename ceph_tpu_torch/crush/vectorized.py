@@ -4,7 +4,9 @@ Port of ``ceph_tpu/crush/vectorized.py``.  The reference recomputes the
 whole PG->OSD table as one XLA program per map epoch (two jitted
 ``lax.while_loop`` programs, ``VectorCrush.map_firstn`` / ``map_indep``);
 here the same job is kernel K5 (``csrc/crush.cu``), one thread per lane,
-each running its own retry loops.
+one descent of its retry loops a pass.  ``kernel_map_words`` lays out the
+map as K5 reads it, each straw2 weight as the multiplier ``straw2_magic``
+that replaces the draw's division.
 
 * Host half, copied: ``CompiledMap.from_map`` flattens a uniform-depth
   straw2 hierarchy into padded per-level tables (child ids to hash, child
@@ -281,9 +283,26 @@ def _rule_shape(crush_map: CrushMap, ruleno: int):
 # -- kernel K5 --------------------------------------------------------------
 
 # K5's map words (csrc/crush.cu): a header, then per level (N, ids offset,
-# idx offset, weights offset, B), then the tables, all int32
+# idx offset, multipliers offset, B), then the tables, all int32
 _HEADER_WORDS = 8
 _LEVEL_WORDS = 5
+# n // w == (n * m) >> (49 + b) for every n below 2^_MAGIC_BITS
+_MAGIC_BITS = 49
+
+
+def straw2_magic(weights) -> np.ndarray:
+    """K5's multiplier for each straw2 weight, uint64 of the weights' shape:
+    ``m | b << 56`` with ``2^b >= w`` and ``m = ceil(2^(49+b) / w)``, so that
+    ``n // w == (n * m) >> (49 + b)`` for every ``0 <= n < 2^49``
+    (Granlund-Montgomery; ``m < 2^51``); 0 for a weight <= 0, whose draw is
+    S64_MIN.  A draw divides ``2^48 - crush_ln(u) <= 2^48``."""
+    w = np.asarray(weights, np.int64)
+    flat = np.zeros(w.size, np.uint64)
+    for i, wi in enumerate(w.ravel().tolist()):
+        if wi > 0:
+            b = (wi - 1).bit_length()
+            flat[i] = -(-(1 << (_MAGIC_BITS + b)) // wi) | (b << 56)
+    return flat.reshape(w.shape)
 
 
 def kernel_map_words(cm: CompiledMap, firstn: bool, leaf: bool,
@@ -291,7 +310,8 @@ def kernel_map_words(cm: CompiledMap, firstn: bool, leaf: bool,
     """One rule over one compiled map as K5 reads it: header {levels, levels
     the choose phase descends, weight-set positions P, firstn, leaf,
     choose_tries, recurse_tries, total words}, then per level {N, offsets of
-    child_ids (B, N), child_idx (B, N) and weights (P, B, N), B}, then the
+    child_ids (B, N), child_idx (B, N) and the weights' ``straw2_magic``
+    multipliers (P, B, N) as int64 at an even offset, B}, then the
     tables."""
     w = cm.cw if cm.cw is not None else [t[None] for t in cm.weights]
     p = w[0].shape[0]
@@ -299,9 +319,12 @@ def kernel_map_words(cm: CompiledMap, firstn: bool, leaf: bool,
     levels, tables = [], []
     for ids, idx, wl in zip(cm.child_ids, cm.child_idx, w):
         b, n = ids.shape
-        levels += [n, off, off + b * n, off + 2 * b * n, b]
-        tables += [ids.ravel(), idx.ravel(), wl.ravel()]
-        off += (2 + p) * b * n
+        pad = (off + 2 * b * n) % 2
+        magic = off + 2 * b * n + pad
+        levels += [n, off, off + b * n, magic, b]
+        tables += [ids.ravel(), idx.ravel(), np.zeros(pad, np.int32),
+                   straw2_magic(wl).ravel().astype("<u8").view("<i4")]
+        off = magic + 2 * p * b * n
     bucket_levels = cm.n_levels - 1 if leaf else cm.n_levels
     header = [cm.n_levels, bucket_levels, p, int(firstn), int(leaf),
               choose_tries, recurse_tries, off]
@@ -309,15 +332,21 @@ def kernel_map_words(cm: CompiledMap, firstn: bool, leaf: bool,
                            *[t.astype(np.int32) for t in tables]])
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("crush")
+def _load(name: str) -> ctypes.CDLL:
+    """The built library of K5's source ``name`` (``crush``, or a variant
+    registered with ``_build.add_generated``), its entries typed."""
+    lib = _build.library(name)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.crush_map_rule.argtypes = [vp, ll, i, vp, vp, i, vp, vp, vp, i, i, vp]
     lib.crush_map_rule.restype = i
     lib.crush_config.argtypes = [i, i, vp]
     lib.crush_config.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    return _load("crush")
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,20 +32,18 @@ shared memory and spills at each shape.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
+if __package__:
+    from . import kernel_timer as kt
+else:                       # run as a script: the module beside this file
+    import kernel_timer as kt
+
 ITERS = 20
 REPEATS = 5
-
-
-def _knobs(specs: list[str]) -> dict[str, int]:
-    return {k: int(v) for spec in specs for k, v in
-            (kv.split("=", 1) for kv in spec.split(","))}
 
 
 def _ptxas_k1(log: str) -> list[str]:
@@ -58,23 +56,6 @@ def _ptxas_k1(log: str) -> list[str]:
                      if "registers" in ln or "spill" in ln]
             out.append(f"{name}: {'; '.join(lines)}")
     return out
-
-
-def _time(fn) -> list[float]:
-    import torch
-    fn()
-    runs = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / ITERS)
-    return runs
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -96,14 +77,11 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("k1_time: no CUDA device", file=sys.stderr)
         return 2
-    knobs = _knobs(args.set)
+    knobs = kt.knobs(args.set)
     name = "gf2_matmul"
     if knobs:
-        from ceph_tpu_torch.tools.k2_sweep import variant_text
         name = "gf2_matmul_k1v"
-        _build.add_generated(name, variant_text(
-            (_build.CSRC / "gf2_matmul.cu").read_text(), knobs))
-        gk._lib = functools.lru_cache(maxsize=1)(lambda: gk._load(name))
+        kt.use_variant(_build, gk, "gf2_matmul.cu", name, knobs)
     built = _build.build([name])
     ptxas = _ptxas_k1(built[name].log) if name in built else []
 
@@ -136,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
             if not torch.equal(fn()[:8], plain):
                 raise RuntimeError(f"{label}: {kernel} differs from the plain "
                                    f"version")
-            ms = _time(fn)
+            ms = kt.readings(fn, ITERS, REPEATS)
             tag = "" if kernel == "gf2_matmul_popc" else "k2_"
             entry[f"{tag}ms"] = float(np.median(ms))
             entry[f"{tag}ms_runs"] = ms
@@ -144,11 +122,7 @@ def main(argv: list[str] | None = None) -> int:
             entry["config"] = gk.popc_config(shape[1], mat.shape[0], dev)
         report[label] = entry
         del x
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(json.dumps({"root": str(root), "set": knobs,
-                      "card": smi.stdout.strip().splitlines()[0],
+    print(json.dumps({"root": str(root), "set": knobs, "card": kt.card(),
                       "ptxas": ptxas, "paths": report}))
     return 0
 

@@ -34,12 +34,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
+
+if __package__:
+    from . import kernel_timer as kt
+else:                       # run as a script: the module beside this file
+    import kernel_timer as kt
 
 ITERS = 20
 REPEATS = 5
@@ -82,37 +85,9 @@ def _launcher(build, cg, sched, name: str):
 
 def _ptxas(build, name: str, built: dict) -> dict:
     """ptxas's registers, shared memory and spill bytes of source ``name``,
-    from this run's build or the log a tree's ``_build`` keeps; parsed by
-    the ``_build`` beside this file, whatever tree ``--root`` names."""
-    log = built[name].log if name in built else (
-        build.report(name) if hasattr(build, "report") else "")
-    if not log:
-        return {}
-    spec = importlib.util.spec_from_file_location(
-        "_k3_time_build", Path(__file__).resolve().parents[1] / "ops" /
-        "_build.py")
-    own = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(own)
-    c = own.ptxas_counts(log)
-    return {key: c[key] for key in ("registers", "smem", "spill_stores",
-                                    "spill_loads", "stack")}
-
-
-def _time(fn) -> list[float]:
-    import torch
-    fn()
-    runs = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / ITERS)
-    return runs
+    from this run's build or the log a tree's ``_build`` keeps."""
+    return kt.ptxas(built[name].log if name in built else (
+        build.report(name) if hasattr(build, "report") else ""))
 
 
 def _paths(dev):
@@ -235,7 +210,7 @@ def main(argv: list[str] | None = None) -> int:
             if not torch.equal(fn()[:4], plain):
                 raise RuntimeError(f"{label}: K3 {d} differs from the plain "
                                    f"version")
-            ms = _time(fn)
+            ms = kt.readings(fn, ITERS, REPEATS)
             own = d or (cg.design_for(sched) if hasattr(cg, "design_for")
                         else None)
             entry["designs"].append({
@@ -249,15 +224,11 @@ def main(argv: list[str] | None = None) -> int:
                 torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev), x[:4])
             if not torch.equal(fn()[:4], want):
                 raise RuntimeError(f"{label}: K1 differs from the plain version")
-            ms = _time(fn)
+            ms = kt.readings(fn, ITERS, REPEATS)
             entry["k1_ms"], entry["k1_ms_runs"] = float(np.median(ms)), ms
         report[label] = entry
         del x
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(json.dumps({"root": str(root),
-                      "card": smi.stdout.strip().splitlines()[0],
+    print(json.dumps({"root": str(root), "card": kt.card(),
                       "paths": report}))
     return 0
 

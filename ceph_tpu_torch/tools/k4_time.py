@@ -25,19 +25,17 @@ K4's registers and shared memory.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
-import subprocess
 import sys
 from pathlib import Path
 
+if __package__:
+    from . import kernel_timer as kt
+else:                       # run as a script: the module beside this file
+    import kernel_timer as kt
+
 ITERS = 20
 REPEATS = 5
-
-
-def _knobs(specs: list[str]) -> dict[str, int]:
-    return {k: int(v) for spec in specs for k, v in
-            (kv.split("=", 1) for kv in spec.split(","))}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -58,13 +56,9 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("k4_time: no CUDA device", file=sys.stderr)
         return 2
-    knobs, plan = _knobs(args.set), _knobs(args.plan)
+    knobs, plan = kt.knobs(args.set), kt.knobs(args.plan)
     if knobs:
-        from ceph_tpu_torch.tools.k2_sweep import variant_text
-        name = "crc32c_k4v"
-        _build.add_generated(name, variant_text(
-            (_build.CSRC / "crc32c.cu").read_text(), knobs))
-        crc._lib = functools.lru_cache(maxsize=1)(lambda: crc._load(name))
+        kt.use_variant(_build, crc, "crc32c.cu", "crc32c_k4v", knobs)
     for key, value in plan.items():
         if not hasattr(crc, key):
             raise ValueError(f"the wrapper has no plan constant {key}")
@@ -98,27 +92,13 @@ def main(argv: list[str] | None = None) -> int:
             [out[:4], out[8192:8196]])
         if not torch.equal(got, want):
             raise RuntimeError(f"{label}: K4 differs from the plain version")
-        runs = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(ITERS):
-                fn()
-            end.record()
-            end.synchronize()
-            runs.append(start.elapsed_time(end) / ITERS)
+        runs = kt.readings(fn, ITERS, REPEATS)
         report[label] = {"ms": float(np.median(runs)), "ms_runs": runs}
     report["rs8/3 fused, two launches"] = {"ms": sum(
         report[k]["ms"] for k in list(report)[:2])}
     config = crc.kernel_config(dev) if hasattr(crc, "kernel_config") else None
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
     print(json.dumps({"root": str(root), "set": knobs, "plan": plan,
-                      "card": smi.stdout.strip().splitlines()[0],
-                      "config": config, "paths": report}))
+                      "card": kt.card(), "config": config, "paths": report}))
     return 0
 
 

@@ -72,12 +72,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
     the same map degraded (2% of the OSDs at weight 0, 5% at 0x8000, one
     host out), a small map with a choose_args weight-set and hash-id
     overrides, and a 16,000-OSD map too large for K5 to stage in shared
-    memory; then the path: 10M seeds resident, 5 launches of 2M lanes a
-    rule (CUDA events: mappings/s and ms a launch), the first launch's rows
-    held against the plain version, and ``bulk_crush`` over all 10M from
-    numpy to numpy (host clock: marshal, PCIe, launch, back), whose rows
-    must equal the launches' and, on 256 of them, the scalar engine's (no
-    hole, one replica a host);
+    memory; K5 at rule 1 with 10 slots over 12 hosts, where most lanes fill
+    their slots over several rounds, against the plain version on 65,536
+    seeds and the scalar engine on 64; then the path: 10M seeds resident,
+    5 launches of 2M lanes a rule (CUDA events: mappings/s and ms a
+    launch), the first launch's rows held against the plain version, and
+    ``bulk_crush`` over all 10M from numpy to numpy (host clock: marshal,
+    PCIe, launch, back), whose rows must equal the launches' and, on 256
+    of them, the scalar engine's (no hole, one replica a host);
  9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
     for K1/K2, phases 6-7 for K3, phase 8c for K4, phase 8d for K5), its
     time at its headline shape, its bound, its plain version's time and its
@@ -86,11 +88,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
     ``bound_by_path``: each bound the larger of the bytes and the fewest
     operations known, of K3's XOR terms where the schedule is compiled, b1
     MMAs at the measured rate, int8 products and K5's straw2 draws without
-    retries at 140 integer operations a draw; K3 also at the RS k=8,m=3
-    parity of phase 4's input), K1/K2/K4/K5 their registers, shared memory,
+    retries, 140 integer operations a draw of which 75 run only on the ALU
+    pipe, at whichever of the ALU pipe's and the issue slots' rates takes
+    longer; K3 also at the RS k=8,m=3 parity of phase 4's input), K1/K2/K4/K5 their registers, shared memory,
     blocks per SM and spill or local bytes as the CUDA runtime reports
-    them, and K3 per digest its design, shared memory, and ptxas's
-    registers and spill bytes;
+    them (K5 also ptxas's registers and spill bytes), and K3 per digest
+    its design, shared memory, and ptxas's registers and spill bytes;
 10. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
@@ -116,7 +119,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 SMS = 132                        # H100 SXM
-INT32_OPS_PER_CLOCK = 64 * SMS   # H100 SXM: 64 INT32 lanes per SM
+INT32_OPS_PER_CLOCK = 64 * SMS   # H100 SXM: 64 lanes of integer ALU per SM
+INT_ISSUE_PER_CLOCK = 128 * SMS  # 4 schedulers x 32 lanes: ALU and FMA pipes
 SMEM_LOOKUPS_PER_CLOCK = 32 * SMS  # H100: 32 shared-memory banks per SM
 GiB = float(1 << 30)
 # (stripes, k, m, chunk bytes): BASELINE.json configs 2 and 3, 1 MiB stripes
@@ -149,10 +153,19 @@ PLACEMENT_RULES = ((0, 3), (1, 11))
 PLACEMENT_SAMPLE = 262144        # lanes K5 is held against its plain version
 PLACEMENT_SCALAR = 512           # lanes held against the scalar engine
 PLACEMENT_BULK_SCALAR = 256      # bulk_crush rows held against it
-# a 16,000-OSD map: its tables (53,158 words) pass the 40,960 K5 stages in
+# a 16,000-OSD map: its tables (70,868 words) pass the 8,192 K5 stages in
 # shared memory, so its launches read them from global memory
 PLACEMENT_GLOBAL = (10, 10, 16, 10)
-INT_OPS_PER_DRAW = 140           # one hash32_3: 5 rjenkins mixes
+# few hosts under many slots (fanouts, numrep, lanes): rule 1 fills most
+# lanes' slots over several rounds, K5's per-lane order of (round, slot)
+PLACEMENT_ROUNDS = ((12, 4), 10, 65536)
+# a straw2 draw at its fewest integer operations: one hash32_3 (5 rjenkins
+# mixes of 9 lines: a three-input subtraction, a shift and an XOR each) and
+# crush_ln, the quotient and the compare; of them the mixes' 45 XORs and 30
+# right shifts run only on the ALU pipe (LOP3, SHF), the rest also on the
+# FMA pipe (IMAD)
+INT_OPS_PER_DRAW = 140
+ALU_OPS_PER_DRAW = 75
 
 
 def log(msg: str) -> None:
@@ -1136,6 +1149,7 @@ def phase_placement(dev: torch.device) -> dict:
     scalar engine's."""
     from ceph_tpu_torch.crush import vectorized as vec
     from ceph_tpu_torch.mon.pg_mapping import bulk_crush
+    from ceph_tpu_torch.ops import _build
 
     lanes, batch, fanouts = PLACEMENT
     maps = placement_maps()
@@ -1169,6 +1183,8 @@ def phase_placement(dev: torch.device) -> dict:
                     lambda: vc.map_device(sample_d, numrep, w), iters=5)
     big = mappers[(id(maps["global"][0]), 0)]
     global_config = vec.kernel_config(big.map_words.shape[0], dev)
+    rounds = placement_rounds(dev, sample, sample_d)
+    err = max(err, rounds["err"])
     log(f"K5 crush_map_rule == plain on {PLACEMENT_SAMPLE} seeds (>= 2^31 "
         f"included) and == the scalar engine on {PLACEMENT_SCALAR}: "
         f"{', '.join(maps)} x rules {PLACEMENT_RULES} (rule, numrep); K5 on "
@@ -1176,7 +1192,10 @@ def phase_placement(dev: torch.device) -> dict:
                                    for (n, r), v in sample_ms.items())
         + f"; the global map "
         f"({int(np.prod(PLACEMENT_GLOBAL))} OSDs, {big.map_words.shape[0]} "
-        f"words unstaged): {global_config}")
+        f"words unstaged): {global_config}; rule 1 x{PLACEMENT_ROUNDS[1]} over "
+        f"{PLACEMENT_ROUNDS[0][0]} hosts == plain on {PLACEMENT_ROUNDS[2]} "
+        f"seeds and == the scalar engine on 64, {rounds['full']:.4f} of the "
+        f"rows full (one round fills {rounds['one_round']:.4f})")
 
     cm, weights = maps["config5"]
     n_osds = len(weights)
@@ -1237,6 +1256,9 @@ def phase_placement(dev: torch.device) -> dict:
         raise RuntimeError("crush_map_rule was not launched on the placement "
                            "path")
     config = vec.kernel_config(mappers[(id(cm), 0)].map_words.shape[0], dev)
+    counts = _build.ptxas_counts(_build.report("crush"))
+    ptxas = {f"ptxas_{key}": counts[key] if counts["kernels"] else None
+             for key in ("registers", "spill_stores", "spill_loads")}
     log(f"placement config 5 ({n_osds} OSDs, fanouts {list(fanouts)}): "
         + "; ".join(f"rule {r} x{v['numrep']}: {lanes} mappings in "
                     f"{v['ms'] * seeds.shape[0]:.3f} ms ({seeds.shape[0]} "
@@ -1247,26 +1269,70 @@ def phase_placement(dev: torch.device) -> dict:
                     f"used_fused True, {PLACEMENT_BULK_SCALAR} rows == "
                     f"scalar engine"
                     for r, v in runs.items())
-        + f"; K5 launches {launches}; {config}")
+        + f"; K5 launches {launches}; {config}; {ptxas}")
     return {"err": err, "plain_ms": plain_ms, "sample_ms": sample_ms,
             "runs": runs, "launches": launches, "config": config,
-            "global_config": global_config}
+            "ptxas": ptxas, "global_config": global_config}
+
+
+def placement_rounds(dev: torch.device, sample: np.ndarray,
+                     sample_d: torch.Tensor) -> dict:
+    """K5 at rule 1 (chooseleaf indep) with more slots than a round fills:
+    ``PLACEMENT_ROUNDS``' map, held against the plain version and, on 64
+    seeds, the scalar engine.  Most lanes need several rounds, so the rows
+    hold K5's per-lane order of (round, slot) steps against the reference's
+    lockstep rounds."""
+    from ceph_tpu_torch.crush import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.crush import vectorized as vec
+    from ceph_tpu_torch.crush.builder import build_hierarchy
+    fanouts, numrep, lanes = PLACEMENT_ROUNDS
+    cm = build_hierarchy(list(fanouts))
+    weights = [0x10000] * cm.max_devices
+    vc = vec.VectorCrush(cm, 1, device=dev)
+    w = vc.device_weights(weights)
+    xs = sample_d[:lanes]
+    got = vc.map_device(xs, numrep, w)
+    diff = int((got.long() - vc.map_indep(xs, numrep, w).long()).abs().max())
+    if diff:
+        raise RuntimeError(f"crush_map_rule differs from its plain version at "
+                           f"rule 1 x{numrep} over {fanouts[0]} hosts: max "
+                           f"{diff}")
+    bad = scalar_mismatch(cm, 1, sample[:64], got[:64].cpu().numpy(), numrep,
+                          weights)
+    if bad:
+        raise RuntimeError(f"crush_map_rule differs from the scalar engine at "
+                           f"rule 1 x{numrep} over {fanouts[0]} hosts at {bad}")
+    full = float((got != CRUSH_ITEM_NONE).all(dim=1).float().mean())
+    hosts = fanouts[0]
+    one_round = float(np.prod([(hosts - k) / hosts for k in range(numrep)]))
+    if full < 0.5:
+        raise RuntimeError(f"rule 1 x{numrep} over {hosts} hosts: only "
+                           f"{full:.4f} of the rows full")
+    return {"err": diff, "full": full, "one_round": one_round}
 
 
 def placement_bound(lanes: int, numrep: int, mhz: float,
                     fanouts: tuple = PLACEMENT[2]) -> dict:
     """The least time for one rule over ``lanes`` seeds on a map of
     ``fanouts``: the larger of its bytes (4 in and 4 * numrep out a lane)
-    and its integer operations, ``INT_OPS_PER_DRAW`` a straw2 draw on the
-    INT32 lanes, for the draws of a descent with no retry (a straw2 draw
-    over every child at each level, the leaf's included): a floor, retries
-    add draws."""
+    and its integer operations for the draws of a descent with no retry (a
+    straw2 draw over every child at each level, the leaf's included; a
+    floor, retries add draws).  The operations take the longer of
+    ``ALU_OPS_PER_DRAW`` a draw on the ALU pipe and ``INT_OPS_PER_DRAW`` a
+    draw through the issue slots.  ``int32_lanes_ms`` puts all of them on
+    the ALU pipe, which is no floor: the FMA pipe runs IMADs beside it."""
     draws = lanes * numrep * sum(fanouts)
+    clock = mhz * 1e6 / 1e3
     t_bytes = lanes * 4 * (1 + numrep) / HBM_BYTES_PER_S * 1e3
-    t_ops = draws * INT_OPS_PER_DRAW / (INT32_OPS_PER_CLOCK * mhz * 1e6) * 1e3
+    t_alu = draws * ALU_OPS_PER_DRAW / (INT32_OPS_PER_CLOCK * clock)
+    t_issue = draws * INT_OPS_PER_DRAW / (INT_ISSUE_PER_CLOCK * clock)
+    t_ops = max(t_alu, t_issue)
     return {"bound_ms": round(max(t_bytes, t_ops), 4),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": round(t_bytes, 4), "ops_ms": round(t_ops, 4)}
+            "bytes_ms": round(t_bytes, 4), "ops_ms": round(t_ops, 4),
+            "ops_by": "ALU pipe" if t_alu >= t_issue else "issue",
+            "int32_lanes_ms": round(
+                draws * INT_OPS_PER_DRAW / (INT32_OPS_PER_CLOCK * clock), 4)}
 
 
 def placement_row(placement: dict, mhz: float) -> dict:
@@ -1300,6 +1366,7 @@ def placement_row(placement: dict, mhz: float) -> dict:
         "ms": round(runs[0]["ms"], 4),
         "plain_ms": round(placement["plain_ms"][0], 4),
         "bound_ms": bounds[0]["bound_ms"], "bound_by": bounds[0]["bound_by"],
+        "bound_int32_lanes_ms": bounds[0]["int32_lanes_ms"],
         "library_ms": None,
         "library_note": "no PyTorch call computes CRUSH",
         "shape": [batch, runs[0]["numrep"]], "sm_clock_mhz": mhz,
@@ -1315,6 +1382,7 @@ def placement_row(placement: dict, mhz: float) -> dict:
         "bulk_crush_host_s": {f"rule {r}": round(v["bulk_host_s"], 4)
                               for r, v in runs.items()},
         **placement["config"],
+        **placement["ptxas"],
         "global_map_config": placement["global_config"],
     }
 
@@ -1570,8 +1638,11 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
         f"{k5['ms_by_path'][r1]:.4f} ms vs bound "
         f"{k5['bound_by_path'][r1]['bound_ms']:.4f} ms (operations: straw2 "
-        f"draws without retries, {INT_OPS_PER_DRAW} integer operations each, "
-        f"at {mhz:.0f} MHz); mappings/s {k5['mappings_per_s']}")
+        f"draws without retries, {ALU_OPS_PER_DRAW} of {INT_OPS_PER_DRAW} "
+        f"integer operations each on the ALU pipe, at {mhz:.0f} MHz; all on "
+        f"it {k5['bound_int32_lanes_ms']:.4f} / "
+        f"{k5['bound_by_path'][r1]['int32_lanes_ms']:.4f} ms); mappings/s "
+        f"{k5['mappings_per_s']}")
     return {"kernels": rows}
 
 

@@ -248,14 +248,21 @@ def test_kernel_map_words_layout():
     assert list(words[:8]) == [c.n_levels, c.n_levels - 1, 3, 1, 1,
                                vc.choose_tries, vc.recurse_tries, len(words)]
     for l in range(c.n_levels):
-        n, o_ids, o_idx, o_w, b = words[8 + 5 * l: 13 + 5 * l]
+        n, o_ids, o_idx, o_m, b = words[8 + 5 * l: 13 + 5 * l]
         assert (b, n) == c.child_ids[l].shape
         np.testing.assert_array_equal(words[o_ids:o_ids + b * n],
                                       c.child_ids[l].ravel())
         np.testing.assert_array_equal(words[o_idx:o_idx + b * n],
                                       c.child_idx[l].ravel())
-        np.testing.assert_array_equal(words[o_w:o_w + 3 * b * n],
-                                      c.cw[l].ravel())
+        # the weight-set's multipliers, int64 at an even offset
+        assert o_m % 2 == 0 and o_m - (o_idx + b * n) in (0, 1)
+        magic = words[o_m:o_m + 2 * 3 * b * n].astype("<i4").view("<u8")
+        np.testing.assert_array_equal(magic, vec.straw2_magic(c.cw[l]).ravel())
+        for wi, mi in zip(c.cw[l].ravel().tolist(), magic.tolist()):
+            m, shift = mi & ((1 << 56) - 1), mi >> 56
+            for gap in (1, wi - 1, wi, 2**48 - 1, 2**48):   # n // w at the ends
+                assert (gap * m) >> (49 + shift) == gap // wi
+    assert len(words) == o_m + 2 * 3 * b * n
 
 
 def test_refused_shapes_raise_value_error_like_the_reference(ref_vec):
