@@ -13,7 +13,11 @@ that replaces the draw's division.
   rows in the next level, weights and the choose_args weight-sets per
   position), and ``_rule_shape`` parses a rule.  ``VectorCrush`` refuses
   the map shapes the reference refuses, with the same ``ValueError``s, so a
-  caller routes them to the scalar engine (``crush/mapper.py``).
+  caller routes them to the scalar engine (``crush/mapper.py``).  Two
+  shapes that map nothing at all -- a rule the map lacks, a chooseleaf
+  straight from the osds' own parent -- raise ``MapsNothing``, a
+  ``ValueError`` whose answer is rows of ``CRUSH_ITEM_NONE`` (the
+  reference's mapper accepts the second and maps a replica there).
 
 * The plain PyTorch version: ``hash32_2`` / ``hash32_3`` (rjenkins over the
   uint32 bit patterns, carried in int64 tensors and masked with
@@ -254,10 +258,17 @@ class CompiledMap:
                    frozenset(b.type for b in levels[-1]))
 
 
+class MapsNothing(ValueError):
+    """A (map, rule) under which ``crush_do_rule`` maps no seed to anything:
+    every row is CRUSH_ITEM_NONE, and no mapper is needed to say so."""
+
+
 def _rule_shape(crush_map: CrushMap, ruleno: int):
     """Parse a rule into (root_id, firstn, leaf, choose_tries, leaf_tries,
     choose_type)."""
-    rule = crush_map.rules[ruleno]
+    rule = crush_map.rules.get(ruleno)
+    if rule is None:
+        raise MapsNothing(f"no rule {ruleno} in the map")
     t = crush_map.tunables
     choose_tries = t.choose_total_tries + 1
     leaf_tries = 0
@@ -405,6 +416,12 @@ class VectorCrush:
         # to an osd; plain choose must name the device level
         self.leaf = leaf
         if leaf:
+            # the take root is never the chosen bucket (mapper.c skips a
+            # rep whose draw from it is an osd), so a chooseleaf of a bucket
+            # type straight from the osds' parent maps nothing
+            if self.cm.n_levels < 2 and choose_type != 0:
+                raise MapsNothing("chooseleaf from the osds' own parent "
+                                  "maps nothing")
             # only the tree under THIS rule's take root matters
             if self.cm.leaf_parent_types != {choose_type}:
                 raise ValueError(
@@ -589,9 +606,16 @@ class VectorCrush:
                               weights)
 
     def map_pgs(self, xs, numrep: int, osd_weights) -> np.ndarray:
-        """numpy seeds -> (L, numrep) int32 numpy rows.  Seeds are taken as
-        their low 32 bits (pps values >= 2^31 wrap to int32, as the
-        reference's ``jnp.asarray(xs, jnp.int32)`` does)."""
-        seeds = (np.asarray(xs, np.int64) & _M32).astype(np.uint32)
-        x = torch.from_numpy(seeds.view(np.int32)).to(self.device)
+        """numpy seeds -> (L, numrep) int32 numpy rows (``seed_tensor``'s
+        wrap)."""
+        x = seed_tensor(xs, self.device)
         return self.map_device(x, numrep, osd_weights).cpu().numpy()
+
+
+def seed_tensor(xs, device) -> torch.Tensor:
+    """numpy seeds -> the (L,) int32 tensor on ``device`` that
+    ``VectorCrush.map_device`` takes.  Seeds are taken as their low 32 bits
+    (pps values >= 2^31 wrap to int32, as the reference's
+    ``jnp.asarray(xs, jnp.int32)`` does)."""
+    seeds = (np.asarray(xs, np.int64) & _M32).astype(np.uint32)
+    return torch.from_numpy(seeds.view(np.int32)).to(device)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card and check them: the
-erasure-code stripe codec and bulk CRUSH placement.
+erasure-code stripe codec, bulk CRUSH placement and the epoch placement
+table.
 
     python3 chip_smoke.py
 
@@ -80,8 +81,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
     ``bulk_crush`` over all 10M from numpy to numpy (host clock: marshal,
     PCIe, launch, back), whose rows must equal the launches' and, on 256
     of them, the scalar engine's (no hole, one replica a host);
+ 8e. the epoch placement table, ``OSDMap`` -> ``PGMapping`` over K5, on
+    config 5's map at two sizes.  A realistic cluster: pools rbd (x3,
+    pg_num 16384, rule 0) and ec83 (x11, pg_num 4096, rule 1), 94 PG shards
+    an OSD; 2% of the OSDs down, a host out, 5% reweighted; the balancer's
+    ``compute_upmaps(max_moves=100)`` plans plus upmap items whose target is
+    missing or already present; pg_temp on 0.5% of the PGs (longer than the
+    size, with dead members, all dead).  It is built, then three
+    incrementals: a host down, a reweight of 20 OSDs, a placement-neutral
+    up_thru (no rebuild).  Then ``BASELINE.md`` config 5's 10,485,760 PGs:
+    one build and one host-down epoch.  Every build is held against the
+    scalar pipeline on its overridden PGs and 512 random raw ps a pool and
+    against the same table on the CPU (a CPU build from ``to_dict()``; at
+    10M, and for the epochs, a CPU ingest of K5's raw rows); every delta
+    against a brute-force diff.  The realistic cluster also holds Ceph's
+    one-PG ``.mgr`` pool, which the card maps with K5 too.  Printed: each
+    build's host clock through ``placement_cache``, and the same build
+    driven stage by stage (the card synchronized at each stage's ends):
+    the seeds (the hash on the card for a new pool spec, the cache after),
+    K5 (CUDA events), the filter on the card, the copy back and the Python
+    left over; the seeds by the numpy hash and copied up against the hash
+    on the card; recompute_pgs_per_s; each epoch's rebuild + delta and
+    delta_pgs; lookups a second;
  9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
-    for K1/K2, phases 6-7 for K3, phase 8c for K4, phase 8d for K5), its
+    for K1/K2, phases 6-7 for K3, phase 8c for K4, phases 8d-8e for K5), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -166,6 +189,22 @@ PLACEMENT_ROUNDS = ((12, 4), 10, 65536)
 # FMA pipe (IMAD)
 INT_OPS_PER_DRAW = 140
 ALU_OPS_PER_DRAW = 75
+# phase 8e, the epoch placement table on config 5's map: (pool id, name,
+# erasure, size, rule) and pg_num at two sizes.  A realistic cluster puts 94
+# PG shards on each of the 1000 OSDs, the PG autoscaler's target
+# (mon_target_pg_per_osd = 100, src/common/options/global.yaml.in);
+# beside them the mgr's own pool, .mgr, of one PG (Ceph creates it so), whose
+# one lane the card maps with K5 as it does the others.  BASELINE.md config
+# 5's scale is 10,485,760 PGs (rbd and ec83 only: zip stops at two).
+TABLE_POOLS = ((1, "rbd", False, 3, 0), (2, "ec83", True, 11, 1),
+               (3, ".mgr", False, 3, 0))
+TABLE_PG_NUMS = {"realistic": (16384, 4096, 1), "10M": (1 << 23, 1 << 21)}
+TABLE_DOWN, TABLE_REWEIGHTED = 0.02, 0.05   # shares of the OSDs
+TABLE_TEMP = 0.005               # share of the realistic cluster's PGs
+TABLE_TEMP_10M = 512             # pg_temps at 10M (each is held scalar)
+TABLE_UPMAP_MOVES = 100          # compute_upmaps(max_moves=...)
+TABLE_SAMPLE = 512               # random raw ps a pool held scalar
+TABLE_LOOKUPS = 100_000
 
 
 def log(msg: str) -> None:
@@ -1335,10 +1374,11 @@ def placement_bound(lanes: int, numrep: int, mhz: float,
                 draws * INT_OPS_PER_DRAW / (INT32_OPS_PER_CLOCK * clock), 4)}
 
 
-def placement_row(placement: dict, mhz: float) -> dict:
+def placement_row(placement: dict, mhz: float, table: dict) -> dict:
     """K5's row of the kernels line: its time a 2M-lane launch at rule 0,
     its bound, its plain version's time on the same launch's seeds, and its
-    other paths."""
+    other paths: the sample and global-memory launches of phase 8d, and the
+    epoch table's pools at the realistic cluster (phase 8e)."""
     batch = PLACEMENT[1]
     runs = placement["runs"]
     bounds = {r: placement_bound(batch, v["numrep"], mhz)
@@ -1354,6 +1394,12 @@ def placement_row(placement: dict, mhz: float) -> dict:
                 f"x{numreps[rule]}, {PLACEMENT_SAMPLE} lanes{on}")
         sample_paths[path] = (ms, placement_bound(PLACEMENT_SAMPLE,
                                                   numreps[rule], mhz, fan))
+    for pool, ms in table["realistic"]["k5_ms"].values():
+        path = (f"epoch table {pool.name}: rule {pool.crush_rule} "
+                f"x{pool.size}, {pool.pg_num} lanes")
+        sample_paths[path] = (ms, placement_bound(pool.pg_num, pool.size,
+                                                  mhz))
+    table_launches = sum(table["launches"].values())
     rule1 = f"rule 1 indep x11, {batch} lanes"
     return {
         "name": "crush_map_rule", "route": "cuda",
@@ -1361,7 +1407,11 @@ def placement_row(placement: dict, mhz: float) -> dict:
         "replaces": "ceph_tpu/crush/vectorized.py:384, "
                     "ceph_tpu/crush/vectorized.py:449 (XLA programs, not "
                     "Pallas)",
-        "launches": placement["launches"],
+        "launches": placement["launches"] + table_launches,
+        "launches_by_path": {
+            "bulk placement (phase 8d)": placement["launches"],
+            **{f"epoch table {k} (phase 8e)": v
+               for k, v in table["launches"].items()}},
         "max_abs_err": placement["err"],
         "ms": round(runs[0]["ms"], 4),
         "plain_ms": round(placement["plain_ms"][0], 4),
@@ -1385,6 +1435,414 @@ def placement_row(placement: dict, mhz: float) -> dict:
         **placement["ptxas"],
         "global_map_config": placement["global_config"],
     }
+
+
+def table_cluster(pg_nums: tuple, seed: int, temps: int | None = None,
+                  upmaps: dict | None = None):
+    """Config 5's 1000-OSD map as a cluster (``TABLE_POOLS`` at
+    ``pg_nums``): 2% of the OSDs down but in, one host out, 5% reweighted to
+    0x8000; pg_temp on ``temps`` PGs (0.5% if None), some longer than the
+    pool's size, some with dead members, some all dead; ``upmaps`` and a
+    few items whose target does not exist or is already in the row."""
+    from ceph_tpu_torch.crush import crush_do_rule
+    from ceph_tpu_torch.mon.osdmap import (
+        POOL_TYPE_ERASURE, OSDMap, OsdInfo, PoolSpec)
+    from ceph_tpu_torch.tools.crush_bench import config5_map
+    rng = np.random.default_rng(seed)
+    m = OSDMap()
+    m.epoch = 1
+    m.crush, n, fanouts = config5_map(1000)
+    m.max_osd = n
+    per_host = fanouts[-1]
+    for o in range(n):
+        m.osds[o] = OsdInfo(up=True, host=f"host{o // per_host}")
+    pick = rng.permutation(n)
+    down = pick[:int(n * TABLE_DOWN)]
+    for o in down:
+        m.osds[int(o)].up = False
+    for o in pick[int(n * TABLE_DOWN):int(n * (TABLE_DOWN + TABLE_REWEIGHTED))]:
+        m.osds[int(o)].weight = 0x8000
+    out_host = int(rng.integers(0, n // per_host))
+    for o in range(out_host * per_host, (out_host + 1) * per_host):
+        m.osds[o].in_cluster = False
+    for (pid, name, erasure, size, rule), pg_num in zip(TABLE_POOLS, pg_nums):
+        m.pools[pid] = PoolSpec(
+            pool_id=pid, name=name, size=size, min_size=size - 1,
+            pg_num=pg_num, pgp_num=pg_num, crush_rule=rule,
+            type=POOL_TYPE_ERASURE if erasure else 1)
+        m.pool_names[name] = pid
+    total = sum(pg_nums)
+    count = int(total * TABLE_TEMP) if temps is None else temps
+    dead = [int(o) for o in down] + [n + 7]
+    for i in range(count):
+        pid = int(rng.choice(list(m.pools), p=np.asarray(pg_nums) / total))
+        pool = m.pools[pid]
+        pg = int(rng.integers(0, pool.pg_num))
+        live = [int(o) for o in rng.choice(n, pool.size + 2, replace=False)]
+        m.pg_temp[f"{pid}.{pg:x}"] = [
+            live[:pool.size],                            # a backfill source
+            live,                                        # longer than size
+            live[:pool.size - 1] + dead[:2],             # dead members
+            dead[:pool.size]][i % 4]                     # all dead
+    m.pg_upmap_items = {k: v for k, v in (upmaps or {}).items()
+                        if int(k.split(".", 1)[0]) in m.pools}
+    weights = m.osd_weights()
+    for pid, pool in m.pools.items():
+        for i in range(4):
+            pg = int(rng.integers(0, pool.pg_num))
+            raw = crush_do_rule(m.crush, pool.crush_rule,
+                                pool.raw_pg_to_pps(pg), pool.size, weights)
+            m.pg_upmap_items[f"{pid}.{pg:x}"] = [
+                (raw[0], n + 3 + i),                     # no such OSD
+                (raw[0], raw[-1])]                       # already present
+    m.invalidate_placement_cache()
+    return m
+
+
+def table_arrays_equal(a, b) -> str | None:
+    """The first pool whose arrays differ between two tables, or None."""
+    ta, tb = a.tables(), b.tables()
+    if list(ta) != list(tb):
+        return f"pools {list(ta)} vs {list(tb)}"
+    for pid in ta:
+        if not all(np.array_equal(x, y) for x, y in zip(ta[pid], tb[pid])):
+            return f"pool {pid}"
+    return None
+
+
+def table_scalar_mismatch(m, pm, rng, sample: int) -> str | None:
+    """Every PG that carries an upmap or a pg_temp, plus ``sample`` random
+    raw ps a pool in [0, 2 pg_num): the table against the per-PG scalar
+    pipeline (``OSDMap._pg_to_up_acting_scalar``).  The first mismatch, or
+    None."""
+    pgs = []
+    for pgid in list(m.pg_upmap_items) + list(m.pg_temp):
+        pid, pg = pgid.split(".", 1)
+        pgs.append((int(pid), int(pg, 16)))
+    for pid, pool in m.pools.items():
+        pgs += [(pid, int(ps)) for ps in rng.integers(0, 2 * pool.pg_num,
+                                                      sample)]
+    for pid, ps in pgs:
+        want = m._pg_to_up_acting_scalar(pid, ps)
+        if pm.lookup(pid, ps) != want:
+            return f"pool {pid} ps {ps}: {pm.lookup(pid, ps)} vs {want}"
+    return None
+
+
+def table_delta_brute(prev, cur) -> list:
+    """A brute-force numpy diff of two tables of the same pools: every
+    (pool, pg) whose up or acting row or length differs."""
+    out = []
+    for pid in sorted(cur.tables()):
+        moved = None
+        for a, b in ((0, 1), (2, 3)):
+            x, y = prev.tables()[pid][a], cur.tables()[pid][a]
+            width = max(x.shape[1], y.shape[1])
+            x = np.pad(x, ((0, 0), (0, width - x.shape[1])), constant_values=-1)
+            y = np.pad(y, ((0, 0), (0, width - y.shape[1])), constant_values=-1)
+            diff = (x != y).any(axis=1) | (prev.tables()[pid][b]
+                                           != cur.tables()[pid][b])
+            moved = diff if moved is None else moved | diff
+        out += [(pid, int(pg)) for pg in np.nonzero(moved)[0]]
+    return out
+
+
+def table_on_cpu(m, pps: dict, dev: torch.device):
+    """The same table from the CUDA build's raw rows (K5 launched again on
+    the same seeds and weights), ingested on the CPU."""
+    from ceph_tpu_torch.crush.vectorized import seed_tensor
+    from ceph_tpu_torch.mon.pg_mapping import (
+        PGMapping, bulk_crush_rows, live_osds)
+    cpu = PGMapping(m.epoch, "cpu")
+    weights = m.osd_weights()
+    live = live_osds(m, len(weights) + 1)
+    for pid, pool in m.pools.items():
+        rows, used = bulk_crush_rows(m.crush, pool.crush_rule,
+                                     seed_tensor(pps[pid], dev), pool.size,
+                                     weights)
+        if not used:
+            raise RuntimeError(f"pool {pid} took the scalar sweep")
+        cpu._ingest_pool(m, pid, pool, rows.cpu(), live)
+    cpu._copy_back()
+    return cpu
+
+
+def table_seeds(m, dev: torch.device, reps: int) -> tuple[dict, float, float]:
+    """Each pool's seeds two ways, the fastest of ``reps`` each (host clock,
+    the card synchronized): the numpy hash (``pool_pps``) and its copy up,
+    and the hash as torch ops on the card (``pool_seeds``, what the build
+    runs), held equal.  The build's seed cache is emptied after, so the next
+    build makes its seeds anew."""
+    from ceph_tpu_torch.crush.vectorized import seed_tensor
+    from ceph_tpu_torch.mon import pg_mapping as pmod
+
+    def best(fn):
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, min(secs)
+    def by_numpy():
+        pps = {pid: pmod.pool_pps(pool) for pid, pool in m.pools.items()}
+        for x in pps.values():
+            seed_tensor(x, dev)
+        return pps
+    pps, numpy_s = best(by_numpy)
+    seeds, card_s = best(lambda: {pid: pmod.pool_seeds(pool, dev)
+                                  for pid, pool in m.pools.items()})
+    for pid in m.pools:
+        if not torch.equal(seeds[pid].cpu(), seed_tensor(pps[pid], "cpu")):
+            raise RuntimeError(f"pool_seeds differs from pool_pps on pool "
+                               f"{pid}")
+    pmod._SEEDS.clear()
+    return pps, numpy_s, card_s
+
+
+def timed(fn):
+    """(fn(), its host seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def staged_build(m, dev: torch.device) -> dict:
+    """``PGMapping.build``'s stages driven one by one, the card synchronized
+    at each stage's ends: each stage's host seconds (K5's device time by
+    CUDA events beside crush), and the total.  Seeds come from the build's
+    cache, so a rebuild of a known pool spec finds them there."""
+    from ceph_tpu_torch.mon import pg_mapping as pmod
+    split = {}
+
+    def stage(name, fn, kernel=False):
+        torch.cuda.synchronize()
+        if kernel:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = fn()
+        if kernel:
+            end.record()
+        torch.cuda.synchronize()
+        split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+        if kernel:
+            split["K5"] = split.get("K5", 0.0) + start.elapsed_time(end) / 1e3
+        return out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pm = pmod.PGMapping(m.epoch, dev)
+    weights = m.osd_weights()
+    live = pmod.live_osds(m, len(weights) + 1)
+    for pid, pool in m.pools.items():
+        seeds = stage("seeds", lambda: pmod.cached_pool_seeds(pool, dev))
+        rows, used = stage("crush", lambda: pmod.bulk_crush_rows(
+            m.crush, pool.crush_rule, seeds, pool.size, weights), kernel=True)
+        if not used:
+            raise RuntimeError(f"pool {pid} was not mapped by K5")
+        stage("filter", lambda: pm._ingest_pool(m, pid, pool, rows, live))
+    stage("copy back", pm._copy_back)
+    split["total"] = time.perf_counter() - t0
+    return split
+
+
+def split_line(split: dict) -> str:
+    """A staged build's host clock by stage, and the Python left over."""
+    stages = ("seeds", "crush", "filter", "copy back")
+    left = split["total"] - sum(split[k] for k in stages)
+    return (f"{split['total']:.4f} s = seeds (pool_seeds on the card, or "
+            f"the cache) {split['seeds']:.4f}, crush {split['crush']:.4f} "
+            f"(K5 {split['K5']:.4f} by CUDA events), filter "
+            f"{split['filter']:.4f}, copy back {split['copy back']:.4f}, "
+            f"Python left over {left:.4f}")
+
+
+def phase_table(dev: torch.device) -> dict:
+    """The epoch placement table on the card (``OSDMap`` -> ``PGMapping``
+    over K5) on config 5's map at two sizes.  The realistic cluster: the
+    balancer's ``compute_upmaps`` reads the table, its plans go into the
+    map, the table is built, then three incrementals (one host down, a
+    reweight of 20 OSDs, a placement-neutral up_thru) each rebuild it (the
+    last must not) and take its ``delta``.  Then 10,485,760 PGs: one build
+    and one host-down epoch.  Each build is held against the scalar
+    pipeline on its overridden PGs and a random sample, and against the same
+    table on the CPU (a full CPU build from ``to_dict()`` for the realistic
+    cluster's first; else an ingest of K5's raw rows on the CPU); each
+    delta against a brute-force diff.  The counts are set to 0 before each
+    driven step and read after it; checks launch outside them."""
+    from ceph_tpu_torch.crush.vectorized import seed_tensor
+    from ceph_tpu_torch.mgr.balancer import compute_upmaps
+    from ceph_tpu_torch.mon import pg_mapping as pmod
+    from ceph_tpu_torch.mon.osdmap import Incremental, OSDMap
+
+    rng = np.random.default_rng(SEED + 30)
+    launches = {}
+
+    def driven(label, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = launch_counts()["crush_map_rule"]
+        if not launches[label]:
+            raise RuntimeError(f"crush_map_rule was not launched on the "
+                               f"epoch table's {label}")
+        return out
+
+    def check(m, pm, label, full_cpu: bool, pps: dict):
+        if pm.fused_pools != len(m.pools):
+            raise RuntimeError(f"epoch table {label}: {pm.scalar_pools} "
+                               f"pools took the scalar sweep")
+        bad = table_scalar_mismatch(m, pm, rng, TABLE_SAMPLE)
+        if bad:
+            raise RuntimeError(f"epoch table {label} differs from the scalar "
+                               f"pipeline at {bad}")
+        if full_cpu:
+            cpu = pmod.PGMapping.build(OSDMap.from_dict(m.to_dict(),
+                                                        device="cpu"))
+        else:
+            cpu = table_on_cpu(m, pps, dev)
+        bad = table_arrays_equal(pm, cpu)
+        if bad:
+            raise RuntimeError(f"epoch table {label}: the card's table and "
+                               f"the CPU's differ at {bad}")
+
+    def epoch(m, label, inc, pps, full_cpu=False):
+        prev = m.peek_placement_cache()
+        recomputes = m.placement_perf.get("bulk_recomputes")
+        split = {}
+
+        def step():
+            t0 = time.perf_counter()
+            m.apply_incremental(inc)
+            cur = m.placement_cache()
+            d = cur.delta(prev, perf=m.placement_perf)
+            return cur, d, time.perf_counter() - t0
+        if inc.placement_neutral():
+            reset_launches()
+            cur, d, secs = step()
+            if launch_counts()["crush_map_rule"]:
+                raise RuntimeError(f"epoch table {label}: K5 launched on a "
+                                   f"placement-neutral epoch")
+            if cur is not prev or d or \
+                    m.placement_perf.get("bulk_recomputes") != recomputes:
+                raise RuntimeError(f"epoch table {label}: a placement-neutral "
+                                   f"incremental rebuilt or moved the table")
+        else:
+            cur, d, secs = driven(label, step)
+            if d != table_delta_brute(prev, cur):
+                raise RuntimeError(f"epoch table {label}: delta differs from "
+                                   f"the brute-force diff")
+            check(m, cur, label, full_cpu, pps)
+            split = staged_build(m, dev)
+        log(f"epoch table {label}: rebuild + delta {secs:.4f} s, delta_pgs "
+            f"{len(d)}" + (f"; the rebuild staged {split_line(split)}"
+                           if split else "; no rebuild"))
+        return {"s": secs, "delta_pgs": len(d), "split": split}
+
+    def host_down(m, skip: int):
+        per_host = 10
+        hosts = [h for h in range(len(m.osds) // per_host) if h != skip and
+                 all(m.osds[o].in_cluster for o in range(h * per_host,
+                                                         (h + 1) * per_host))]
+        h = int(rng.choice(hosts))
+        return Incremental(epoch=m.epoch + 1, new_down=list(range(
+            h * per_host, (h + 1) * per_host)))
+
+    out = {}
+    # the realistic cluster
+    m = table_cluster(TABLE_PG_NUMS["realistic"], SEED + 31)
+    m.device = dev
+    pps, pps_s, seeds_s = table_seeds(m, dev, reps=5)
+    t0 = time.perf_counter()
+    plans = driven("balancer", lambda: compute_upmaps(
+        m, max_moves=TABLE_UPMAP_MOVES))
+    balancer_s = time.perf_counter() - t0
+    m.pg_upmap_items.update({k: [tuple(i) for i in v]
+                             for k, v in plans.items()})
+    m.invalidate_placement_cache()
+    pm, build_s = driven("build", lambda: timed(m.placement_cache))
+    check(m, pm, "build", True, pps)
+    pmod._SEEDS.clear()
+    split = staged_build(m, dev)
+    log(f"epoch table, realistic cluster ({len(m.osds)} OSDs, pools "
+        + ", ".join(f"{p.name} x{p.size} pg_num {p.pg_num}"
+                    for p in m.pools.values())
+        + f"; {len(m.pg_upmap_items)} upmap items of which {len(plans)} from "
+        f"compute_upmaps(max_moves={TABLE_UPMAP_MOVES}) in {balancer_s:.3f} "
+        f"s, {len(m.pg_temp)} pg_temps): build {build_s:.4f} s, staged "
+        f"{split_line(split)}; recompute_pgs_per_s "
+        f"{m.placement_perf.dump()['recompute_pgs_per_s']}; == the scalar "
+        f"pipeline on the overridden PGs + {TABLE_SAMPLE} a pool, == the CPU "
+        f"build; the seeds by the numpy hash (pool_pps) and copied up "
+        f"{pps_s:.6f} s, on the card (pool_seeds) {seeds_s:.6f} s, equal "
+        f"(fastest of 5)")
+    epochs = {"build": {"s": build_s, "split": split, "delta_pgs": None,
+                        "seeds_numpy_s": pps_s, "seeds_card_s": seeds_s}}
+    down_host = [h for h in range(100)
+                 if not m.osds[h * 10].in_cluster][0]
+    epochs["host down"] = epoch(m, "host down", host_down(m, down_host), pps)
+    reweight = [int(o) for o in rng.choice(len(m.osds), 20, replace=False)]
+    epochs["reweight 20"] = epoch(m, "reweight 20", Incremental(
+        epoch=m.epoch + 1, new_weights={o: 0xC000 for o in reweight}), pps)
+    epochs["up_thru"] = epoch(m, "up_thru", Incremental(
+        epoch=m.epoch + 1, new_up_thru={o: m.epoch for o in range(50)}), pps)
+    pids = rng.choice(list(m.pools), TABLE_LOOKUPS)
+    span = np.array([2 * m.pools[int(p)].pg_num for p in pids])
+    keys = list(zip(pids.tolist(), (rng.random(TABLE_LOOKUPS) * span)
+                    .astype(np.int64).tolist()))
+    t0 = time.perf_counter()
+    for pid, ps in keys:
+        m.pg_to_up_acting(pid, ps)
+    lookups_per_s = TABLE_LOOKUPS / (time.perf_counter() - t0)
+    log(f"epoch table lookups: {lookups_per_s:.0f} a second over "
+        f"{TABLE_LOOKUPS} random (pool, ps) through OSDMap.pg_to_up_acting")
+    # K5 a launch at the realistic cluster's pools (outside the counts)
+    k5_ms = {}
+    weights = m.osd_weights()
+    for pid, pool in m.pools.items():
+        vc = pmod._vector_crush_for(m.crush, pool.crush_rule, dev)
+        seeds = seed_tensor(pps[pid], dev)
+        w = vc.device_weights(weights)
+        k5_ms[pid] = (pool, time_ms(lambda: vc.map_device(seeds, pool.size,
+                                                          w)))
+    out["realistic"] = {"epochs": epochs, "lookups_per_s": lookups_per_s,
+                        "recompute_pgs_per_s": m.placement_perf.dump()[
+                            "recompute_pgs_per_s"],
+                        "k5_ms": k5_ms}
+    del m, pm
+
+    # BASELINE.md config 5's scale, arrays only
+    m = table_cluster(TABLE_PG_NUMS["10M"], SEED + 32, temps=TABLE_TEMP_10M,
+                      upmaps=plans)
+    m.device = dev
+    pps, pps_s, seeds_s = table_seeds(m, dev, reps=1)
+    pm, build_s = driven("10M build", lambda: timed(m.placement_cache))
+    check(m, pm, "10M build", False, pps)
+    pmod._SEEDS.clear()
+    split = staged_build(m, dev)
+    log(f"epoch table at {pm.pg_count()} PGs ({len(m.pg_upmap_items)} upmap "
+        f"items, {len(m.pg_temp)} pg_temps): build {build_s:.4f} s, staged "
+        f"{split_line(split)}; "
+        f"recompute_pgs_per_s "
+        f"{m.placement_perf.dump()['recompute_pgs_per_s']}; == the scalar "
+        f"pipeline on the overridden PGs + {TABLE_SAMPLE} a pool, == the "
+        f"CPU ingest of K5's rows; the seeds by the numpy hash (pool_pps) "
+        f"and copied up {pps_s:.4f} s, on the card (pool_seeds) "
+        f"{seeds_s:.4f} s, equal")
+    epochs = {"build": {"s": build_s, "split": split, "delta_pgs": None,
+                        "seeds_numpy_s": pps_s, "seeds_card_s": seeds_s}}
+    down_host = [h for h in range(100)
+                 if not m.osds[h * 10].in_cluster][0]
+    epochs["host down"] = epoch(m, "10M host down", host_down(m, down_host),
+                                pps)
+    out["10M"] = {"epochs": epochs, "pgs": pm.pg_count(),
+                  "recompute_pgs_per_s": m.placement_perf.dump()[
+                      "recompute_pgs_per_s"]}
+    out["launches"] = launches
+    return out
 
 
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
@@ -1452,7 +1910,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
                       osd: dict, repair: dict, rates: dict,
-                      built: dict, placement: dict) -> dict:
+                      built: dict, placement: dict, table: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2, K3 and K5 also with their other paths' times and bounds, K1, K2,
     K4 and K5 with their launch configuration, K3 its design per digest."""
@@ -1631,7 +2089,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                 k4["resident_ms"], 4)},
         **crc.kernel_config(dev),
     })
-    k5 = placement_row(placement, mhz)
+    k5 = placement_row(placement, mhz, table)
     rows.append(k5)
     r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
     log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
@@ -1671,9 +2129,12 @@ def main() -> int:
         k4 = phase_k4_full(dev, main_inputs)
         osd = phase_osd(dev)
     placement = phase_placement(dev)
+    t8e = time.perf_counter()
+    table = phase_table(dev)
+    log(f"phase 8e, the epoch table: {time.perf_counter() - t8e:.1f} s")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
-                             repair, rates, built, placement)
+                             repair, rates, built, placement, table)
     log(json.dumps(line))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")
