@@ -9,15 +9,26 @@ map as K5 reads it, each straw2 weight as the multiplier ``straw2_magic``
 that replaces the draw's division.
 
 * Host half, copied: ``CompiledMap.from_map`` flattens a uniform-depth
-  straw2 hierarchy into padded per-level tables (child ids to hash, child
-  rows in the next level, weights and the choose_args weight-sets per
-  position), and ``_rule_shape`` parses a rule.  ``VectorCrush`` refuses
-  the map shapes the reference refuses, with the same ``ValueError``s, so a
-  caller routes them to the scalar engine (``crush/mapper.py``).  Two
-  shapes that map nothing at all -- a rule the map lacks, a chooseleaf
-  straight from the osds' own parent -- raise ``MapsNothing``, a
-  ``ValueError`` whose answer is rows of ``CRUSH_ITEM_NONE`` (the
-  reference's mapper accepts the second and maps a replica there).
+  hierarchy of buckets drawn as straw2 into padded per-level tables (child
+  ids to hash, child rows in the next level, weights and the choose_args
+  weight-sets per position), and ``_rule_shape`` parses a rule.  Beyond the
+  reference, the bulk mapper also takes straw buckets without legacy straw
+  values (the scalar engine draws them as straw2 on their own weights,
+  ignoring choose_args) and any ``chooseleaf_vary_r``, from the tunables
+  or a rule step.  A shape it does not express raises ``Unexpressed``, a
+  ``ValueError`` with the reference's message where the reference refuses
+  it too: other bucket kinds, buckets mixing osds and buckets, a chooseleaf
+  above the osds' parent, a plain choose of a bucket type,
+  ``chooseleaf_stable`` 0 or local retries, and rules of more than one take
+  or choose step or with an explicit replica count (which the reference's
+  mapper maps wrongly).  ``bulk_crush`` sends such a (map, rule) to the
+  scalar engine (``crush/mapper.py``) on the host; on the card it is an
+  error.  Two shapes that map nothing at all -- a rule the map lacks, a
+  chooseleaf straight from the osds' own parent -- raise ``MapsNothing``,
+  a ``ValueError`` whose answer is rows of ``CRUSH_ITEM_NONE`` (the
+  reference's mapper accepts the second and maps a replica there).  A
+  malformed map (a dangling bucket reference) raises a plain
+  ``ValueError``.
 
 * The plain PyTorch version: ``hash32_2`` / ``hash32_3`` (rjenkins over the
   uint32 bit patterns, carried in int64 tensors and masked with
@@ -48,6 +59,7 @@ from ..ops import _build
 from .hashes import CRUSH_HASH_SEED
 from .ln import LL_TBL, RH_LH_TBL, S64_MIN
 from .types import (
+    CRUSH_BUCKET_STRAW,
     CRUSH_BUCKET_STRAW2,
     CRUSH_ITEM_NONE,
     CRUSH_ITEM_UNDEF,
@@ -55,8 +67,12 @@ from .types import (
     CRUSH_RULE_CHOOSE_INDEP,
     CRUSH_RULE_CHOOSELEAF_FIRSTN,
     CRUSH_RULE_CHOOSELEAF_INDEP,
+    CRUSH_RULE_SET_CHOOSE_LOCAL_FALLBACK_TRIES,
+    CRUSH_RULE_SET_CHOOSE_LOCAL_TRIES,
     CRUSH_RULE_SET_CHOOSE_TRIES,
+    CRUSH_RULE_SET_CHOOSELEAF_STABLE,
     CRUSH_RULE_SET_CHOOSELEAF_TRIES,
+    CRUSH_RULE_SET_CHOOSELEAF_VARY_R,
     CRUSH_RULE_TAKE,
     CrushMap,
 )
@@ -165,6 +181,19 @@ def is_out(osd_weights: torch.Tensor, item: torch.Tensor,
 
 # -- host half, copied ------------------------------------------------------
 
+class Unexpressed(ValueError):
+    """A (map, rule) whose shape the bulk mapper does not express: the
+    scalar engine maps it on the host, and on the card it is an error."""
+
+
+def _drawn_as_straw2(b) -> bool:
+    """Whether the scalar engine draws bucket ``b`` as straw2: a straw2
+    bucket, or a straw bucket without legacy straw values
+    (``mapper._bucket_straw_choose``), which ignores choose_args."""
+    return b.alg == CRUSH_BUCKET_STRAW2 or (
+        b.alg == CRUSH_BUCKET_STRAW and getattr(b, "straws", None) is None)
+
+
 @dataclass
 class CompiledMap:
     """Flattened uniform-depth straw2 hierarchy for the bulk mapper.
@@ -172,8 +201,9 @@ class CompiledMap:
     Level l holds every bucket at distance l from the take root as padded
     tables; a lane descends them one straw2 draw + argmax per level, the
     recursive descent of mapper.c crush_choose_firstn/indep.  Non-uniform
-    leaf depth or non-straw2 buckets are refused (the scalar engine serves
-    them).
+    leaf depth or buckets not drawn as straw2 are refused (the scalar
+    engine serves them).  A straw bucket without straw values takes its
+    own weights at every position and its own ids.
 
     child_ids carry the CRUSH item ids (what straw2 hashes); child_idx the
     row index into the NEXT level's tables (or the osd id at the last
@@ -199,8 +229,8 @@ class CompiledMap:
             cur = levels[-1]
             kinds = set()
             for b in cur:
-                if b.alg != CRUSH_BUCKET_STRAW2:
-                    raise ValueError("fused path requires straw2")
+                if not _drawn_as_straw2(b):
+                    raise Unexpressed("fused path requires straw2")
                 for i in b.items:
                     kinds.add(i < 0)
             if kinds == {True}:
@@ -211,8 +241,8 @@ class CompiledMap:
             elif kinds == {False}:
                 break                   # this level's items are osds
             else:
-                raise ValueError("mixed osd/bucket children "
-                                 "unsupported by the fused path")
+                raise Unexpressed("mixed osd/bucket children "
+                                  "unsupported by the fused path")
         idx_of = [{b.id: j for j, b in enumerate(lv)} for lv in levels]
         child_ids, child_idx, weights, cw, bids = [], [], [], [], []
         ca = choose_args if choose_args is not None else \
@@ -229,7 +259,8 @@ class CompiledMap:
             w = np.zeros((len(lv), maxn), np.int32)
             cwl = np.zeros((positions, len(lv), maxn), np.int32)
             for j, b in enumerate(lv):
-                arg = (ca or {}).get(b.id) or {}
+                arg = ((ca or {}).get(b.id) or {}
+                       if b.alg == CRUSH_BUCKET_STRAW2 else {})
                 hash_ids = arg.get("ids") or b.items
                 ids[j, :b.size] = hash_ids
                 ids[j, b.size:] = hash_ids[0] if b.size else 0
@@ -263,32 +294,58 @@ class MapsNothing(ValueError):
     every row is CRUSH_ITEM_NONE, and no mapper is needed to say so."""
 
 
+_CHOOSE_OPS = (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN,
+               CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_INDEP)
+# the rule steps that set a tunable (crush_do_rule takes arg1 >= 0)
+_TUNABLE_STEPS = {
+    CRUSH_RULE_SET_CHOOSELEAF_VARY_R: "chooseleaf_vary_r",
+    CRUSH_RULE_SET_CHOOSELEAF_STABLE: "chooseleaf_stable",
+    CRUSH_RULE_SET_CHOOSE_LOCAL_TRIES: "choose_local_tries",
+    CRUSH_RULE_SET_CHOOSE_LOCAL_FALLBACK_TRIES: "choose_local_fallback_tries",
+}
+
+
 def _rule_shape(crush_map: CrushMap, ruleno: int):
     """Parse a rule into (root_id, firstn, leaf, choose_tries, leaf_tries,
-    choose_type)."""
+    choose_type, tunables), ``tunables`` the values of ``_TUNABLE_STEPS``'
+    names its choose step runs under.  A rule of more than one take or
+    choose step, or whose choose step names a replica count, is
+    ``Unexpressed``."""
     rule = crush_map.rules.get(ruleno)
     if rule is None:
         raise MapsNothing(f"no rule {ruleno} in the map")
     t = crush_map.tunables
+    tunables = {name: getattr(t, name) for name in _TUNABLE_STEPS.values()}
     choose_tries = t.choose_total_tries + 1
     leaf_tries = 0
     root_id = None
     mode = None
     choose_type = 0
+    takes = chooses = 0
     for step in rule.steps:
         if step.op == CRUSH_RULE_SET_CHOOSE_TRIES:
             choose_tries = step.arg1
         elif step.op == CRUSH_RULE_SET_CHOOSELEAF_TRIES:
             leaf_tries = step.arg1
+        elif step.op in _TUNABLE_STEPS and mode is None and step.arg1 >= 0:
+            tunables[_TUNABLE_STEPS[step.op]] = step.arg1
         elif step.op == CRUSH_RULE_TAKE:
             root_id = step.arg1
-        elif step.op in (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN,
-                         CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_INDEP):
+            takes += 1
+        elif step.op in _CHOOSE_OPS:
+            if step.arg1 != 0:
+                raise Unexpressed("a choose step with a replica count needs "
+                                  "the scalar engine")
             mode = step.op
             choose_type = step.arg2
+            chooses += 1
+    if takes > 1 or chooses > 1:
+        raise Unexpressed("a rule of more than one take or choose step "
+                          "needs the scalar engine")
     firstn = mode in (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN)
     leaf = mode in (CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP)
-    return root_id, firstn, leaf, choose_tries, leaf_tries, choose_type
+    return (root_id, firstn, leaf, choose_tries, leaf_tries, choose_type,
+            tunables)
 
 
 # -- kernel K5 --------------------------------------------------------------
@@ -316,14 +373,22 @@ def straw2_magic(weights) -> np.ndarray:
     return flat.reshape(w.shape)
 
 
+def leaf_shift(vary_r: int) -> int:
+    """The shift s of firstn's leaf recursion, sub_r = r >> s (mapper.c:
+    ``r >> (vary_r - 1)``, 0 for vary_r 0): vary_r - 1, and 32 (every r
+    below 2^32 shifts to 0) for vary_r 0 or above 32."""
+    return min(vary_r - 1, 32) if vary_r > 0 else 32
+
+
 def kernel_map_words(cm: CompiledMap, firstn: bool, leaf: bool,
-                     choose_tries: int, recurse_tries: int) -> np.ndarray:
+                     choose_tries: int, recurse_tries: int,
+                     vary_r: int = 1) -> np.ndarray:
     """One rule over one compiled map as K5 reads it: header {levels, levels
-    the choose phase descends, weight-set positions P, firstn, leaf,
-    choose_tries, recurse_tries, total words}, then per level {N, offsets of
-    child_ids (B, N), child_idx (B, N) and the weights' ``straw2_magic``
-    multipliers (P, B, N) as int64 at an even offset, B}, then the
-    tables."""
+    the choose phase descends, weight-set positions P, firstn, leaf (0 for
+    a plain choose, else 1 + ``leaf_shift(vary_r)``), choose_tries,
+    recurse_tries, total words}, then per level {N, offsets of child_ids
+    (B, N), child_idx (B, N) and the weights' ``straw2_magic`` multipliers
+    (P, B, N) as int64 at an even offset, B}, then the tables."""
     w = cm.cw if cm.cw is not None else [t[None] for t in cm.weights]
     p = w[0].shape[0]
     off = _HEADER_WORDS + _LEVEL_WORDS * cm.n_levels
@@ -337,8 +402,9 @@ def kernel_map_words(cm: CompiledMap, firstn: bool, leaf: bool,
                    straw2_magic(wl).ravel().astype("<u8").view("<i4")]
         off = magic + 2 * p * b * n
     bucket_levels = cm.n_levels - 1 if leaf else cm.n_levels
-    header = [cm.n_levels, bucket_levels, p, int(firstn), int(leaf),
-              choose_tries, recurse_tries, off]
+    header = [cm.n_levels, bucket_levels, p, int(firstn),
+              1 + leaf_shift(vary_r) if leaf else 0, choose_tries,
+              recurse_tries, off]
     return np.concatenate([np.asarray(header + levels, np.int32),
                            *[t.astype(np.int32) for t in tables]])
 
@@ -410,7 +476,7 @@ class VectorCrush:
     def __init__(self, crush_map: CrushMap, ruleno: int,
                  choose_args: dict | None = None, device=None) -> None:
         (root_id, firstn, leaf, choose_tries, leaf_tries,
-         choose_type) = _rule_shape(crush_map, ruleno)
+         choose_type, tunables) = _rule_shape(crush_map, ruleno)
         self.cm = CompiledMap.from_map(crush_map, root_id, choose_args)
         # chooseleaf picks buckets at the LAST bucket level then recurses
         # to an osd; plain choose must name the device level
@@ -424,27 +490,29 @@ class VectorCrush:
                                   "maps nothing")
             # only the tree under THIS rule's take root matters
             if self.cm.leaf_parent_types != {choose_type}:
-                raise ValueError(
+                raise Unexpressed(
                     "chooseleaf type must be the osd-parent level for "
                     "the fused path")
         elif choose_type != 0:
-            raise ValueError("plain choose of a bucket type needs the "
-                             "scalar engine")
-        t = crush_map.tunables
+            raise Unexpressed("plain choose of a bucket type needs the "
+                              "scalar engine")
         self.firstn = firstn
         self.choose_tries = choose_tries
         self.leaf_tries = leaf_tries
-        self.vary_r = t.chooseleaf_vary_r
-        self.stable = t.chooseleaf_stable
-        self.descend_once = t.chooseleaf_descend_once
+        self.vary_r = tunables["chooseleaf_vary_r"]
+        self.stable = tunables["chooseleaf_stable"]
+        self.descend_once = crush_map.tunables.chooseleaf_descend_once
         if firstn:
             self.recurse_tries = (leaf_tries if leaf_tries
                                   else (1 if self.descend_once
                                         else choose_tries))
         else:
             self.recurse_tries = leaf_tries if leaf_tries else 1
-        if not self.stable or self.vary_r != 1:
-            raise ValueError("fused path implements jewel tunables")
+        if not self.stable or tunables["choose_local_tries"] \
+                or tunables["choose_local_fallback_tries"]:
+            raise Unexpressed("fused path implements jewel tunables "
+                              "(chooseleaf_stable 1, no local retries; "
+                              "any chooseleaf_vary_r)")
         self.device = resolve_device(device)
         cm, dev = self.cm, self.device
         self._ids = [torch.from_numpy(t.astype(np.int64)).to(dev)
@@ -454,7 +522,8 @@ class VectorCrush:
         w = cm.cw if cm.cw is not None else [t[None] for t in cm.weights]
         self._w = [torch.from_numpy(t.astype(np.int64)).to(dev) for t in w]
         self.map_words = torch.from_numpy(kernel_map_words(
-            cm, firstn, leaf, choose_tries, self.recurse_tries)).to(dev)
+            cm, firstn, leaf, choose_tries, self.recurse_tries,
+            self.vary_r)).to(dev)
 
     # -- plain PyTorch version ----------------------------------------------
     def _descend(self, x, r, pos, upto: int):
@@ -520,9 +589,10 @@ class VectorCrush:
                 cand_sel = self._descend(x, r, placed, levels)
                 collide = (out_sel[:, :rep] == cand_sel[:, None]).any(dim=1)
                 if self.leaf:
-                    # vary_r=1: sub_r = r
+                    shift = leaf_shift(self.vary_r)
+                    sub_r = r >> shift if shift < 32 else torch.zeros_like(r)
                     cand_osd, found = self._leaf_descend(
-                        x, cand_sel, r, rep, numrep, weights,
+                        x, cand_sel, sub_r, rep, numrep, weights,
                         [out[:, j] for j in range(rep)], placed)
                     reject = ~found
                 else:

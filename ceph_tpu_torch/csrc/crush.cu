@@ -4,7 +4,9 @@
 // VectorCrush.map_firstn (:384) and VectorCrush.map_indep (:449), with their
 // helpers hash32_2_jnp / hash32_3_jnp / crush_ln_jnp / straw2_draws /
 // is_out_jnp (:60-160): one CRUSH rule (chooseleaf or choose, firstn or
-// indep, jewel tunables) over a uniform-depth straw2 hierarchy for L seeds
+// indep, jewel tunables with any chooseleaf_vary_r) over a uniform-depth
+// hierarchy drawn as straw2 (straw2 buckets, and straw buckets without
+// legacy straw values, which the scalar engine draws as straw2) for L seeds
 // -> (L, numrep) OSDs with CRUSH_ITEM_NONE holes, decision for decision with
 // mapper.c (ceph_tpu/crush/mapper.py).
 //
@@ -71,8 +73,10 @@
 //     the first largest draw wins (strict >, padded columns weigh 0);
 //     choose_args positions clipped to P - 1 (firstn: the placed count for
 //     descent and leaf; indep: 0 for descent, the slot for the leaf); firstn
-//     r = rep + ftotal and leaf r + ft, indep r = rep + numrep * ftotal and
-//     leaf rep + r + numrep * ft.
+//     r = rep + ftotal and leaf sub_r + ft with sub_r = r >> (vary_r - 1),
+//     0 for vary_r 0 (the header's leaf word is 1 + that shift, 32 for
+//     vary_r 0), indep r = rep + numrep * ftotal and leaf
+//     rep + r + numrep * ft.
 //
 // Plain C interface for ctypes: crush_config sizes the grid once per device
 // and map size; the entry launches on the given device and stream,
@@ -319,8 +323,13 @@ struct Firstn : Rule {
     int osd = kNone;
     if (!taken(s, numrep, cur)) {
       if (leaf) {
+        // the header's leaf word is 1 + the shift of sub_r (32: sub_r 0),
+        // read from `leaf` here: the shift as a member of its own costs the
+        // kernel 16 bytes of stack and 12 spill stores (ptxas, sm_90a)
+        const int shift = leaf - 1;
+        const uint32_t sub_r = shift < 32 ? r >> shift : 0u;
         for (int ft = 0; ft < leaf_tries; ++ft) {
-          const int cand = leaf_of(cur, p, r + ft);
+          const int cand = leaf_of(cur, p, sub_r + ft);
           if (!is_out(osd_w, cand, x) && !taken(o, numrep, cand)) {
             osd = cand;
             break;

@@ -10,7 +10,8 @@ lookup is an array read.
   ``FUSED_MIN_LANES`` or the mapper is warm and the map's shape is one K5
   takes, else the scalar sweep (``crush/mapper.py``) on the host.
   ``bulk_crush_rows`` leaves the raw rows on the seeds' device; on the card
-  it launches K5 for every pool, however small, and never sweeps.
+  it launches K5 for every pool, however small, and never sweeps: a map
+  shape K5 does not express raises ``Unexpressed`` there (``card_rows``).
 * ``PGMapping.build`` takes each pool's seeds (``pool_seeds``: ``pool_pps``'
   hash as torch ops on the device, kept per pool spec) and maps them, then
   applies the OSDMap's semantics to the rows where they lie, as torch ops:
@@ -37,7 +38,7 @@ from ..crush import crush_do_rule
 from ..crush.hashes import crush_hash32_2_np
 from ..crush.state import crush_to_dict
 from ..crush.types import CRUSH_ITEM_NONE
-from ..crush.vectorized import MapsNothing, VectorCrush, hash32_2
+from ..crush.vectorized import MapsNothing, Unexpressed, VectorCrush, hash32_2
 from ..device import resolve_device
 
 # below this many lanes a cold bulk mapper's set-up (tables, a kernel build
@@ -84,7 +85,8 @@ def _vector_crush_for(crush_map, ruleno: int, device=None) -> VectorCrush:
     """The VectorCrush of a (map, rule) on ``device``, shared two ways: per
     CrushMap object (its tables stay on the card across weight-only
     epochs), and across structurally-identical maps process-wide.  Raises
-    ValueError, before any launch, for a map shape K5 does not take."""
+    ``Unexpressed``, before any launch, for a map shape K5 does not take,
+    ``MapsNothing`` for a rule that maps nothing."""
     dev = resolve_device(device)
     cache = crush_map.__dict__.setdefault("_vc_cache", {})
     key = _cache_key(crush_map, ruleno, dev)
@@ -131,9 +133,10 @@ def bulk_crush(crush_map, ruleno: int, xs, numrep: int, weights,
     version with ``device="cpu"``) when the lane count clears ``min_lanes``
     or the (map, rule) already has a mapper, and the map's shape is one it
     takes, else the scalar sweep on the host; 'always' forces the mapper
-    (raising ValueError if the shape is refused); 'never' is the pure
+    (raising ``Unexpressed`` if the shape is refused); 'never' is the pure
     scalar sweep.  A rule that maps nothing gives NONE rows on any route.
-    A kernel build or launch failure is a RuntimeError and propagates.
+    A kernel build or launch failure is a RuntimeError and propagates, as
+    does the ValueError of a malformed map.
     """
     dev = resolve_device(device)
     lanes = len(xs)
@@ -144,7 +147,7 @@ def bulk_crush(crush_map, ruleno: int, xs, numrep: int, weights,
             vc = _vector_crush_for(crush_map, ruleno, dev)
         except MapsNothing:
             return np.full((lanes, numrep), CRUSH_ITEM_NONE, np.int64), False
-        except ValueError:
+        except Unexpressed:
             if fused == "always":
                 raise
         else:
@@ -160,11 +163,10 @@ def bulk_crush_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
     used_fused), rows an (L, numrep) int32 tensor.  ``seeds`` is
     ``seed_tensor``'s (L,) int32.
 
-    On the card nothing is mapped on the host: K5 launches for every shape
-    it takes, whatever the lane count (``fused`` and ``min_lanes`` do not
-    apply); a rule that maps nothing gives NONE rows made on the card; a
-    shape K5 does not take raises ValueError, as does ``fused="never"``.
-    CPU seeds take ``bulk_crush``'s routes.
+    On the card K5 launches for every shape it takes, whatever the lane
+    count (``fused`` and ``min_lanes`` do not apply), and ``fused="never"``
+    raises ValueError; ``card_rows`` is that route.  CPU seeds take
+    ``bulk_crush``'s routes.
     """
     dev = seeds.device
     if dev.type == "cpu":
@@ -174,11 +176,33 @@ def bulk_crush_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
         return torch.from_numpy(rows.astype(np.int32)), used
     if fused == "never":
         raise ValueError(f"the scalar sweep maps on the host, not {dev}")
+    return card_rows(crush_map, ruleno, seeds, numrep, weights)
+
+
+def card_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
+              weights, mapper=None) -> tuple[torch.Tensor, bool]:
+    """The card's route for one pool, chosen before any launch: (rows on
+    the seeds' device, used_fused).  ``mapper(crush_map, ruleno, device)``
+    builds the bulk mapper (``_vector_crush_for`` unless given).
+
+    * A shape K5 takes: one K5 launch.
+    * A rule that maps nothing: NONE rows made on the device, no launch.
+    * A shape K5 does not express (``vectorized.Unexpressed``): raised.
+      Nothing is mapped on the host; the scalar engine serves such a map
+      only in a CPU build (``device="cpu"``).
+
+    A K5 build or launch failure is a RuntimeError and propagates.
+    """
+    dev = seeds.device
     try:
-        vc = _vector_crush_for(crush_map, ruleno, dev)
+        vc = (mapper or _vector_crush_for)(crush_map, ruleno, dev)
     except MapsNothing:
         return torch.full((seeds.shape[0], numrep), CRUSH_ITEM_NONE,
                           dtype=torch.int32, device=dev), False
+    except Unexpressed as e:
+        raise Unexpressed(f"rule {ruleno}: K5 does not express this map's "
+                          f"shape ({e}); the scalar engine maps it only in "
+                          f"a CPU build") from e
     return vc.map_device(seeds, numrep, weights), True
 
 
@@ -288,8 +312,9 @@ class PGMapping:
         """The table of ``osdmap``'s epoch, built on ``osdmap.device`` (a
         RuntimeError when that is CUDA and there is no card).  ``fused`` and
         ``min_lanes`` pick a CPU build's route (``bulk_crush``); on the card
-        every pool takes K5.  ``scalar_pools`` counts the pools the bulk
-        mapper did not map: swept on the host, or a rule that maps
+        every pool takes K5, and a map shape K5 does not express raises
+        ``Unexpressed`` (``card_rows``).  ``scalar_pools`` counts the pools
+        the bulk mapper did not map: swept on the host, or a rule that maps
         nothing."""
         t0 = time.perf_counter()
         dev = resolve_device(osdmap.device)

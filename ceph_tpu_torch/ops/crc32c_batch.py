@@ -7,11 +7,12 @@ Port of ``ceph_tpu/ops/crc32c_batch.py``.
   ``fold_chunk_crcs``: advancing a CRC over n zero bytes is the 32x32
   bit-matrix M^n, so ragged buffers are zero-padded, checksummed in
   lockstep and un-padded by the inverse matrix, and chunk CRCs fold into
-  whole-shard CRCs without re-reading a byte), and the numpy lockstep
-  engine behind ``crc32c_rows`` / ``crc32c_batch``.  The reference's
-  first rung is a ctypes call into its own native library; the port does
-  not load that library, so its host entry points run the numpy engine,
-  which gives the same bytes.
+  whole-shard CRCs without re-reading a byte), and the reference's ladder
+  behind ``crc32c_rows`` / ``crc32c_batch``: one call into the host
+  engine (``native.py``, the port's copy of the reference's C source),
+  or with ``backend="numpy"`` the numpy lockstep engine, which gives the
+  same bytes.  The host engine is built at first use; a failed build
+  raises rather than falling back.
 
 * Device half: ``crc32c_chunks`` is kernel K4 (``csrc/crc32c.cu``) for a
   CUDA tensor and its plain PyTorch version ``crc32c_chunks_plain`` for a
@@ -37,6 +38,7 @@ import os
 import numpy as np
 import torch
 
+from .. import native
 from ..common.perf import PerfCounters
 from ..device import resolve_device
 from . import _build
@@ -294,21 +296,31 @@ def crc32c_numpy_one(data, crc: int = SEED) -> int:
 
 # -- batched entry points ---------------------------------------------------
 
-def crc32c_rows(arr, lengths=None, seed: int = SEED) -> np.ndarray:
-    """CRCs of the rows of a (N, L) uint8 array in one pass of the numpy
-    engine.
+def crc32c_rows(arr, lengths=None, seed: int = SEED,
+                backend: str | None = None) -> np.ndarray:
+    """CRCs of the rows of a (N, L) uint8 array in one pass.
 
     ``lengths`` (optional, per-row) truncates row i to its first
-    ``lengths[i]`` bytes; the bytes beyond may be anything.
+    ``lengths[i]`` bytes; the bytes beyond may be anything.  ``backend``
+    "native" (the default) is one call into the host engine
+    (``native.py``), "numpy" the numpy lockstep engine.
     """
     arr = np.ascontiguousarray(arr, np.uint8)
     assert arr.ndim == 2, arr.shape
     n, l = arr.shape
     lens = (np.full(n, l, np.int64) if lengths is None
             else np.asarray(lengths, np.int64))
+    _check_backend(backend)
     PERF.inc("batched_calls")
     PERF.inc("batched_bufs", n)
     PERF.inc("batched_bytes", int(lens.sum()))
+    if backend != "numpy" and n:
+        crcs = np.full(n, seed, np.uint32)
+        offs = np.arange(n, dtype=np.uint64) * np.uint64(l)
+        native.crc32c_batch_native(crcs, arr.reshape(-1), offs,
+                                   lens.astype(np.uint64))
+        PERF.inc("native_batches")
+        return crcs
     PERF.inc("numpy_batches")
     if lengths is not None and bool((lens < l).any()):
         arr = arr.copy()
@@ -316,22 +328,49 @@ def crc32c_rows(arr, lengths=None, seed: int = SEED) -> np.ndarray:
     return _crc_rows_numpy(arr, lens, seed)
 
 
-def crc32c_batch(bufs, seed: int = SEED) -> np.ndarray:
+def crc32c_batch(bufs, seed: int = SEED,
+                 backend: str | None = None) -> np.ndarray:
     """CRCs of a ragged sequence of buffers (bytes-like or uint8
-    arrays) in one pass of the numpy engine; empty buffers come back as
-    the seed, exactly like the scalar call."""
+    arrays) in one pass; empty buffers come back as the seed, exactly
+    like the scalar call.  ``backend`` as for ``crc32c_rows``."""
     bufs = bufs if isinstance(bufs, (list, tuple)) else list(bufs)
     n = len(bufs)
-    views = [np.ascontiguousarray(b, np.uint8).reshape(-1)
-             if isinstance(b, np.ndarray) else np.frombuffer(b, np.uint8)
-             for b in bufs]
-    lens = np.fromiter((v.size for v in views), np.int64, count=n)
+    _check_backend(backend)
+    # fast marshal: one C-level join (or a pointer table) instead of a
+    # numpy view per buffer
+    if all(type(b) is bytes for b in bufs):
+        lens = np.fromiter((len(b) for b in bufs), np.int64, count=n)
+        views = None
+    else:
+        views = [np.ascontiguousarray(b, np.uint8).reshape(-1)
+                 if isinstance(b, np.ndarray) else np.frombuffer(b, np.uint8)
+                 for b in bufs]
+        lens = np.fromiter((v.size for v in views), np.int64, count=n)
     PERF.inc("batched_calls")
     PERF.inc("batched_bufs", n)
     PERF.inc("batched_bytes", int(lens.sum()))
     if n == 0:
         return np.zeros(0, np.uint32)
+    if backend != "numpy":
+        crcs = np.full(n, seed, np.uint32)
+        PERF.inc("native_batches")
+        # big buffers go by pointer table (no copy), small ones by one
+        # C-level join (a memcpy beats many pointer-object conversions)
+        if views is None and int(lens.sum()) >= 768 * n:
+            native.crc32c_batch_native_ptrs(crcs, bufs, lens)
+            return crcs
+        if views is None:
+            flat = np.frombuffer(b"".join(bufs), np.uint8)
+        else:
+            flat = views[0] if n == 1 else np.concatenate(views)
+        offs = np.zeros(n + 1, np.uint64)
+        np.cumsum(lens, out=offs[1:])
+        native.crc32c_batch_native(crcs, flat, offs[:-1],
+                                   offs[1:] - offs[:-1])
+        return crcs
     PERF.inc("numpy_batches")
+    if views is None:
+        views = [np.frombuffer(b, np.uint8) for b in bufs]
     # bucket by power-of-two padded length so one huge buffer cannot
     # blow the padded matrix up to N x max(L)
     out = np.empty(n, np.uint32)
@@ -344,6 +383,11 @@ def crc32c_batch(bufs, seed: int = SEED) -> np.ndarray:
             rows[r, :lens[i]] = views[i]
         out[idx] = _crc_rows_numpy(rows, lens[idx], seed)
     return out
+
+
+def _check_backend(backend: str | None) -> None:
+    if backend not in (None, "native", "numpy"):
+        raise ValueError(f"unknown crc32c backend {backend!r}")
 
 
 # -- device kernel K4 -------------------------------------------------------
@@ -594,3 +638,24 @@ def crc32c_resident(buf, device=None) -> int:
         out = crc32c_strip_zeros(out, pad)
     PERF.inc("resident_crcs")
     return int(out[0])
+
+
+def crc32c_resident_batch(views) -> np.ndarray:
+    """Whole-buffer CRC32Cs of resident buffers, uint8 tensors on one
+    device, in ONE K4 launch: the views are stacked into rows zero-padded
+    to the longest, and the GF(2) inverse zero matrix strips each row's
+    padding on the host (``crc32c_strip_zeros``).  No host pass over the
+    payload bytes: what ``crc32c_resident`` does for one shard, for a
+    scrub's whole sweep.  Returns (N,) np.uint32."""
+    views = list(views)
+    if not views:
+        return np.zeros(0, np.uint32)
+    lens = np.fromiter((v.numel() for v in views), np.int64, count=len(views))
+    rows = torch.nn.utils.rnn.pad_sequence(
+        [v.reshape(-1) for v in views], batch_first=True)
+    crcs = to_uint32(crc32c_device_chunks(rows))
+    pad = rows.shape[1] - lens
+    if pad.any():
+        crcs = crc32c_strip_zeros(crcs, pad)
+    PERF.inc("resident_crcs", len(views))
+    return crcs

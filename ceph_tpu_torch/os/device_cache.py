@@ -1,0 +1,262 @@
+"""Device-resident shard-buffer cache: hot shard bytes stop
+round-tripping the host.
+
+Port of ``ceph_tpu/os/device_cache.py``: the LRU, the byte budget, the
+coherence rules and the ``datapath`` counters are copied; the device hop
+is a torch tensor on the card.
+
+Every hop of the OSD data path -- encode -> CRC -> blockstore ->
+read-verify -> scrub -> degraded-read decode -- used to marshal shard
+bytes through the store independently: the write path materialized the
+encode launch's output to commit it, and every subsequent consumer
+(scrub digest, CRC re-verify, ranged RMW read, decode gather) paid a
+fresh ``store.read`` (pread + per-block checksum verify + extent
+assembly) plus its own ``tobytes`` hops.  Fusing ONE hop (the CRC into
+the encode launch) removed a host re-scan; this cache generalizes the
+pattern to the whole spine: the bytes a write just encoded stay
+RESIDENT, and every later consumer reads the resident buffer instead
+of re-materializing it.
+
+Keying: ``(coll, oid)`` on this OSD's store.  Each OSD holds exactly
+one shard of an EC object (the write-time pin in ``SHARD_XATTR``), so
+per-store keys are cluster-wide ``(object, shard)`` keys -- the entry
+mirrors the shard label alongside the bytes.
+
+Coherence rules (the correctness boundary --
+tests/test_torch_datapath_cache.py):
+
+* **store-boundary invalidation**: every ``ObjectStore`` implementation
+  invalidates the key BEFORE applying any transaction op that can
+  change the object's content or identity xattrs (write/zero/truncate/
+  remove/clone-dst/setattr/rmattr; rmcoll drops the collection).  All
+  mutation paths -- client writes, recovery pushes, backfill, scrub
+  repair, test bit-rot injection -- go through ``queue_transaction``,
+  so nothing can mutate stored shard bytes without dropping the cached
+  copy.  Producers re-``put`` the fresh content AFTER their txn commits.
+* **entries are verified content**: a ``put`` happens only with bytes
+  that just committed (the write path) or that were read through the
+  store's checksum-on-read path (the read-through fill), with the
+  whole-shard CRC tag carried when known.
+* **daemon death is invalidation**: the cache is process memory
+  attached to a mounted store; an OSD kill drops it, a revive remounts
+  the store with a fresh (empty) cache -- stale bytes cannot survive a
+  kill/revive (``BlockStore._reset_state`` clears an attached cache
+  explicitly for in-process remounts).
+* **bounded**: LRU under ``max_bytes`` with per-entry ``entry_max``
+  (one huge cold object must not churn the whole working set).
+
+Device residency: entries hold the contiguous uint8 host buffer, and
+``device_view`` uploads it once per residency to the cache's device (CUDA
+unless ``device="cpu"``; resolved only at the first ``device_view``, so
+LRU, budget and coherence need no card) as a ``torch.uint8`` tensor,
+memoized in the entry and dropped with it on eviction, invalidation or
+``clear`` -- a consumer on the card (the scrub's CRC sweep, a decode
+launch over cached survivors) re-uses the upload instead of re-transferring
+per launch.  Where the reference hands back the host buffer when jax is
+absent, the port does not fall back: asking for CUDA without a card raises
+(``device.resolve_device``).
+
+Observability: the process-wide ``PERF`` ("datapath") set -- hits,
+misses, host bytes avoided vs read, evictions, resident bytes -- is
+adopted into OSD perf dumps next to "integrity" and "ec_batch", and
+``tools/datapath_bench.py`` uses it to PROVE cache-hit reads and scrub
+verifies move zero shard bytes across the host boundary.
+"""
+
+from __future__ import annotations
+
+import warnings
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..common.perf import PerfCounters
+from ..device import resolve_device
+
+# process-wide datapath counter set; OSDs adopt it into their perf
+# dumps (PerfCountersCollection.adopt), like "integrity"
+PERF = PerfCounters("datapath")
+
+
+class ShardEntry:
+    """One resident shard: the bytes plus the identity the read path
+    would otherwise fetch from xattrs (size / version / write-time
+    shard label / whole-shard CRC tag)."""
+
+    __slots__ = ("buf", "size", "ver", "shard", "crc", "_dev")
+
+    def __init__(self, buf: np.ndarray, size: int, ver: tuple,
+                 shard: int | None, crc: int | None) -> None:
+        self.buf = buf
+        self.size = int(size)
+        self.ver = (int(ver[0]), int(ver[1]))
+        self.shard = None if shard is None else int(shard)
+        self.crc = None if crc is None else int(crc)
+        self._dev = None                 # lazy upload, memoized
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.nbytes
+
+
+class DeviceShardCache:
+    """Bounded LRU of device-resident shard buffers keyed (coll, oid)."""
+
+    def __init__(self, max_bytes: int = 64 << 20,
+                 entry_max: int = 8 << 20, device=None) -> None:
+        self.max_bytes = int(max_bytes)
+        self.entry_max = int(entry_max)
+        # where device_view uploads to: CUDA unless the caller names the
+        # CPU, resolved at the first device_view
+        self.device = device
+        self._device: torch.device | None = None
+        self._lru: OrderedDict[tuple[str, str], ShardEntry] = \
+            OrderedDict()
+        self._by_coll: dict[str, set[str]] = {}
+        self._bytes = 0
+
+    @classmethod
+    def from_config(cls, conf, device=None) -> "DeviceShardCache | None":
+        """Construction-time snapshot of the cache knobs (nothing is
+        looked up per read).  Returns None when disabled."""
+        if not conf.get("osd_datapath_cache_enabled", True):
+            return None
+        return cls(
+            max_bytes=int(conf.get("osd_datapath_cache_bytes",
+                                   64 << 20)),
+            entry_max=int(conf.get("osd_datapath_cache_entry_max",
+                                   8 << 20)),
+            device=device)
+
+    # -- accounting helpers ---------------------------------------------------
+    def _gauges(self) -> None:
+        PERF.set_gauge("resident_bytes", self._bytes)
+        PERF.set_gauge("resident_entries", len(self._lru))
+
+    @staticmethod
+    def note_host_read(nbytes: int) -> None:
+        """A consumer materialized shard bytes through the store (the
+        host round trip the cache exists to avoid).  Called at every
+        miss-path fill so the bench can assert the steady-state delta
+        is ZERO on cache-hit reads and scrub verifies."""
+        PERF.inc("host_reads")
+        PERF.inc("host_bytes_read", int(nbytes))
+
+    # -- reads ----------------------------------------------------------------
+    def get(self, coll: str, oid: str) -> ShardEntry | None:
+        entry = self._lru.get((coll, oid))
+        if entry is None:
+            PERF.inc("misses")
+            return None
+        self._lru.move_to_end((coll, oid))
+        PERF.inc("hits")
+        PERF.inc("host_bytes_avoided", entry.nbytes)
+        return entry
+
+    def device_view(self, coll: str, oid: str) -> torch.Tensor | None:
+        """The entry's buffer as a ``torch.uint8`` tensor on the cache's
+        device, uploaded at most once per residency (consumers on the
+        device re-use it); None when the key is not resident.  Raises
+        without a card unless the cache runs on the CPU."""
+        entry = self._lru.get((coll, oid))
+        if entry is None:
+            return None
+        if entry._dev is None:
+            if self._device is None:
+                self._device = resolve_device(self.device)
+            with warnings.catch_warnings():
+                # a buffer made from bytes is read-only; the tensor over
+                # it is only read, to make the copy
+                warnings.simplefilter("ignore", UserWarning)
+                host = torch.from_numpy(entry.buf)
+            # a copy of its own on the CPU too: the view never aliases
+            # the host buffer
+            entry._dev = (host.clone() if self._device.type == "cpu"
+                          else host.to(self._device))
+            PERF.inc("device_uploads")
+            PERF.inc("device_upload_bytes", entry.nbytes)
+        return entry._dev
+
+    # -- writes ---------------------------------------------------------------
+    def put(self, coll: str, oid: str, buf, *, size: int, ver: tuple,
+            shard: int | None = None, crc: int | None = None) -> None:
+        """Insert freshly committed / store-verified shard content.
+        Oversize buffers are skipped (counted), never cached."""
+        arr = np.ascontiguousarray(
+            np.frombuffer(buf, np.uint8) if isinstance(
+                buf, (bytes, bytearray, memoryview))
+            else np.asarray(buf, np.uint8).reshape(-1))
+        if arr.nbytes > self.entry_max:
+            PERF.inc("put_oversize")
+            self.invalidate(coll, oid)
+            return
+        key = (coll, oid)
+        old = self._lru.pop(key, None)
+        if old is not None:
+            self._bytes -= old.nbytes
+        self._lru[key] = ShardEntry(arr, size, ver, shard, crc)
+        self._by_coll.setdefault(coll, set()).add(oid)
+        self._bytes += arr.nbytes
+        PERF.inc("puts")
+        PERF.inc("put_bytes", arr.nbytes)
+        while self._bytes > self.max_bytes and self._lru:
+            (c, o), ev = self._lru.popitem(last=False)
+            self._bytes -= ev.nbytes
+            self._by_coll.get(c, set()).discard(o)
+            PERF.inc("evictions")
+            PERF.inc("evicted_bytes", ev.nbytes)
+        self._gauges()
+
+    # -- coherence ------------------------------------------------------------
+    def invalidate(self, coll: str, oid: str | None = None) -> None:
+        """Drop one key (or a whole collection) -- the store calls this
+        BEFORE applying any mutating transaction op."""
+        if oid is None:
+            for o in list(self._by_coll.get(coll, ())):
+                self._drop(coll, o)
+            self._by_coll.pop(coll, None)
+        else:
+            self._drop(coll, oid)
+        self._gauges()
+
+    def _drop(self, coll: str, oid: str) -> None:
+        entry = self._lru.pop((coll, oid), None)
+        if entry is not None:
+            self._bytes -= entry.nbytes
+            self._by_coll.get(coll, set()).discard(oid)
+            PERF.inc("invalidations")
+
+    def note_txn(self, txn) -> None:
+        """Invalidate every key a transaction can mutate (content ops
+        AND identity-xattr ops -- entries mirror size/ver/crc, so a
+        bare setattr desyncs them too).  Conservative by design: a
+        producer that wants residency re-puts after its txn commits."""
+        for op in txn.ops:
+            if op.op in ("write", "zero", "truncate", "remove",
+                         "setattr", "rmattr"):
+                self.invalidate(op.coll, op.oid)
+            elif op.op == "clone":
+                self.invalidate(op.coll, op.args["dst"])
+            elif op.op == "rmcoll":
+                self.invalidate(op.coll)
+
+    def clear(self) -> None:
+        n = len(self._lru)
+        self._lru.clear()
+        self._by_coll.clear()
+        self._bytes = 0
+        if n:
+            PERF.inc("invalidations", n)
+        self._gauges()
+
+    # -- introspection --------------------------------------------------------
+    @property
+    def used_bytes(self) -> int:
+        return self._bytes
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    def __contains__(self, key: tuple[str, str]) -> bool:
+        return key in self._lru

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card and check them: the
-erasure-code stripe codec, bulk CRUSH placement and the epoch placement
-table.
+erasure-code stripe codec, bulk CRUSH placement, the epoch placement table
+and the OSD shard data spine.
 
     python3 chip_smoke.py
 
@@ -102,9 +102,34 @@ Phases, one line each; any failure exits non-zero and prints no result:
     K5 (CUDA events), the filter on the card, the copy back and the Python
     left over; the seeds by the numpy hash and copied up against the hash
     on the card; recompute_pgs_per_s; each epoch's rebuild + delta and
-    delta_pgs; lookups a second;
- 9. a ``kernels`` JSON line: per kernel its launches on its paths (phase 4
-    for K1/K2, phases 6-7 for K3, phase 8c for K4, phases 8d-8e for K5), its
+    delta_pgs; lookups a second.  Then two maps that the reference's bulk
+    mapper refuses, config 5's OSDs in straw buckets and config 5's map
+    with chooseleaf_vary_r = 0 (pg_num 1024, 256, 1): the card's table maps
+    each pool with K5 (one launch a pool, every pool fused, K5 == its plain
+    version) and must equal the scalar pipeline on every PG and the CPU's
+    build; and a shape K5 does not express (a host holding an osd and a
+    bucket) must raise on the card with no launch;
+ 8f. the OSD shard data spine (``tools/datapath_bench.py``): RS k=8,m=3 at a
+    4 KiB stripe unit over 128 objects of 4 MiB (704 MiB stored in 11
+    BlockStores), write -> read-verify -> scrub -> degraded read (10
+    objects, shard 0 down), a warm-up drive, then the host round-trip
+    baseline and the drive through the device-resident shard cache, whose
+    scrub checks every shard's device view with one K4 launch; writes
+    coalesce 64 objects into a (8192, 8, 4096) launch.  Checked: byte
+    identity of both drives' reads against the source, cache hits, no
+    steady host bytes and no scalar CRC call, one upload a shard in the
+    first cached scrub and none after, the scrub's K4 CRCs against the host
+    engine on every shard and K4's plain version on a sample, every write
+    tag against the host engine's CRC of the stored shard, K1/K2 and K4
+    launched, K3 not, no fallback; the dense kernel at the path's encode
+    and decode shapes against its plain version and the stored shards.
+    Printed: each drive's phases (seconds, GiB/s), end-to-end GiB/s and
+    their ratio, the write's encode wait and store commit, the device-view
+    upload, K4's sweep (CUDA events) against its HBM bound, peak device
+    memory;
+ 9. a ``kernels`` JSON line: per kernel its launches on its paths (phases 4
+    and 8f for K1/K2, phases 6-7 for K3, phases 8c and 8f for K4, phases
+    8d-8e for K5), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -205,6 +230,24 @@ TABLE_TEMP_10M = 512             # pg_temps at 10M (each is held scalar)
 TABLE_UPMAP_MOVES = 100          # compute_upmaps(max_moves=...)
 TABLE_SAMPLE = 512               # random raw ps a pool held scalar
 TABLE_LOOKUPS = 100_000
+# map shapes the reference's bulk mapper refuses and K5 expresses (straw
+# buckets; jewel's tunables with chooseleaf_vary_r = 0) on config 5's OSDs;
+# pg_num cut so that the scalar pipeline can check every PG
+TABLE_EXPRESSED_PG_NUMS = (1024, 256, 1)
+# phase 8f, the OSD shard data spine (tools/datapath_bench.py): RS k=8,m=3
+# (BASELINE.json's code) at Ceph's stripe unit (osd_pool_erasure_code_
+# stripe_unit 4 KiB, src/common/options/global.yaml.in: 32 KiB stripes) over
+# 128 objects of RBD's default 4 MiB (rbd_default_order 22,
+# src/common/options/rbd.yaml.in): 512 MiB logical, 704 MiB stored, 64 MiB a
+# shard store (osd_datapath_cache_bytes' default); each store's cache keeps
+# the rig's 256 MiB budget, the reference's.  The batcher takes 8192 stripes
+# a launch, so 64 objects' writes coalesce into one (8192, 8, 4096) launch.
+# Cut for the run's time limit: passes 2 (reference 10) and read-verify
+# sweeps a pass 2 (reference 5).  Degraded reads: 128 // 12 = 10 objects
+# with shard 0 down (the reference rig's share).
+DATAPATH = dict(k=8, m=3, n_objects=128, obj_bytes=4 << 20, passes=2,
+                reads_per_pass=2, stripe_unit=4096, max_batch=8192)
+DATAPATH_PLAIN_SAMPLE = 8        # device views held against K4's plain version
 
 
 def log(msg: str) -> None:
@@ -1841,8 +1884,328 @@ def phase_table(dev: torch.device) -> dict:
     out["10M"] = {"epochs": epochs, "pgs": pm.pg_count(),
                   "recompute_pgs_per_s": m.placement_perf.dump()[
                       "recompute_pgs_per_s"]}
+    out["expressed"] = table_straw_vary_r(dev, launches)
     out["launches"] = launches
     return out
+
+
+def table_straw_vary_r(dev: torch.device, launches: dict) -> dict:
+    """Map shapes the reference's bulk mapper refuses and K5 expresses,
+    built on the card: config 5's OSDs in straw (not straw2) buckets, and
+    config 5's map with jewel's chooseleaf_vary_r set to 0.  Each build is
+    driven with the counts set to 0 and must launch K5 once a pool, every
+    pool fused; its table must equal the scalar pipeline on every PG and
+    the CPU's build entry for entry, and K5's rows its plain version's on
+    every pool's seeds.  Then a shape K5 does not express (a host bucket
+    holding an osd and a bucket) must raise ``Unexpressed`` on the card
+    with no launch: nothing is mapped on the host.  ``launches`` gains
+    each build's K5 count."""
+    from ceph_tpu_torch.crush.builder import build_hierarchy
+    from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW
+    from ceph_tpu_torch.crush.vectorized import Unexpressed
+    from ceph_tpu_torch.mon import pg_mapping as pmod
+    from ceph_tpu_torch.mon.osdmap import OSDMap
+    from ceph_tpu_torch.tools.crush_bench import config5_map
+
+    out = {}
+    for kind in ("straw buckets", "chooseleaf_vary_r 0"):
+        m = table_cluster(TABLE_EXPRESSED_PG_NUMS, SEED + 33)
+        if kind == "straw buckets":
+            m.crush = build_hierarchy(config5_map(1000)[2],
+                                      alg=CRUSH_BUCKET_STRAW)
+        else:
+            m.crush.tunables.chooseleaf_vary_r = 0
+        m.invalidate_placement_cache()
+        m.device = dev
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        pm = m.placement_cache()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k5 = launches[f"{kind} build"] = launch_counts()["crush_map_rule"]
+        if k5 != len(m.pools) or pm.fused_pools != len(m.pools) \
+                or pm.scalar_pools or pm.device.type != "cuda":
+            raise RuntimeError(f"epoch table, {kind}: {k5} K5 launches, "
+                               f"{pm.fused_pools} fused and {pm.scalar_pools} "
+                               f"scalar pools on {pm.device}")
+        weights = m.osd_weights()
+        for pool in m.pools.values():
+            vc = pmod._vector_crush_for(m.crush, pool.crush_rule, dev)
+            seeds = pmod.pool_seeds(pool, dev)
+            w = vc.device_weights(weights)
+            plain = vc.map_firstn if vc.firstn else vc.map_indep
+            if not torch.equal(vc.map_device(seeds, pool.size, w),
+                               plain(seeds, pool.size, w)):
+                raise RuntimeError(f"epoch table, {kind}: K5 differs from "
+                                   f"its plain version on pool {pool.name}")
+        for pid, pool in m.pools.items():
+            for ps in range(pool.pg_num):
+                want = m._pg_to_up_acting_scalar(pid, ps)
+                if pm.lookup(pid, ps) != want:
+                    raise RuntimeError(
+                        f"epoch table, {kind}: pool {pid} ps {ps} "
+                        f"{pm.lookup(pid, ps)} vs the scalar pipeline {want}")
+        cpu = pmod.PGMapping.build(OSDMap.from_dict(m.to_dict(),
+                                                    device="cpu"))
+        bad = table_arrays_equal(pm, cpu)
+        if bad:
+            raise RuntimeError(f"epoch table, {kind}: the card's table and "
+                               f"the CPU's differ at {bad}")
+        log(f"epoch table, {kind} ({pm.pg_count()} PGs): {k5} K5 launches, "
+            f"every pool fused, the build on the card in {secs:.4f} s; K5 == "
+            f"its plain version on every pool, the table == the scalar "
+            f"pipeline on every PG, == the CPU build")
+        out[kind] = {"s": secs, "pgs": pm.pg_count(), "launches": k5}
+    m = table_cluster(TABLE_EXPRESSED_PG_NUMS, SEED + 34)
+    host = m.crush.buckets[m.crush.buckets[-1].items[0]]
+    while host.items[0] < 0:
+        host = m.crush.buckets[host.items[0]]
+    host.items.append(m.crush.buckets[-1].items[1])
+    host.item_weights.append(0x10000)
+    m.invalidate_placement_cache()
+    m.device = dev
+    reset_launches()
+    try:
+        m.placement_cache()
+    except Unexpressed as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("epoch table: a map shape K5 does not express "
+                           "built a table on the card")
+    if launch_counts()["crush_map_rule"]:
+        raise RuntimeError("epoch table: K5 launched for a map shape it does "
+                           "not express")
+    log(f"epoch table, a host bucket holding an osd and a bucket: refused on "
+        f"the card with no launch ({refused})")
+    out["refused"] = refused
+    return out
+
+
+def datapath_dense(rig, dev: torch.device) -> dict:
+    """The dense kernels at the data spine's launch shapes, on the cached
+    rig's resident shards: the write's encode at (max_batch, k, chunk) and
+    the degraded read's decode of shard 0 at its padded batch, each against
+    the parity or shard the path stored and against the kernel's plain
+    version (in slices).  Times by CUDA events."""
+    from ceph_tpu_torch.ops import gf2kernels as gk
+    from ceph_tpu_torch.tools import datapath_bench as dp
+
+    k, m, chunk = rig.k, rig.m, rig.sinfo.chunk_size
+    oids = sorted(rig.meta)
+    per = rig.sinfo.object_size_to_shard_size(DATAPATH["obj_bytes"]) // chunk
+
+    def shards_of(ids, objs):
+        """(objects x stripes, len(ids), chunk) from the device views."""
+        return torch.cat([torch.stack([
+            rig.stores[s].shard_cache.device_view(dp.COLL, oid).view(
+                per, chunk) for s in ids], dim=1) for oid in objs])
+
+    degraded = max(2, len(oids) // 12) * per
+    erasures = [0]
+    dmat, dindex = rig.codec.decode_entry(erasures)
+    cases = {
+        "encode": (rig.codec.encode_matrix[k:],
+                   oids[:DATAPATH["max_batch"] // per], list(range(k)),
+                   list(range(k, k + m))),
+        f"decode{erasures}": (dmat, oids[:gk.bucket_batch(degraded) // per],
+                              list(dindex), erasures)}
+    out = {}
+    for label, (mat, objs, src, dst) in cases.items():
+        mat = np.ascontiguousarray(mat, np.uint8)
+        data, want = shards_of(src, objs), shards_of(dst, objs)
+        b, r = data.shape[0], mat.shape[0]
+        name, g = gk.dense_kernel_for(b, k, r, chunk)
+        if name == "gf2_matmul_mma":
+            w = torch.from_numpy(gk.w_gN_planemajor(mat, g)).to(dev)
+            kernel = lambda: gk.gf2_matmul_mma(mat, data, g)  # noqa: E731
+            plain = lambda x: gk.gf2_matmul_grouped_plain(w, x, g)  # noqa: E731
+        else:
+            w = torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev)
+            kernel = lambda: gk.gf2_matmul_popc(mat, data)  # noqa: E731
+            plain = lambda x: gk.gf2_matmul_plain(w, x)  # noqa: E731
+        got = kernel()
+        plain_ms, err = plain_in_slices(plain, data, got)
+        if err or not torch.equal(got, want):
+            raise RuntimeError(f"datapath {label}: {name} differs from its "
+                               f"plain version ({err}) or the stored shards")
+        ms = time_ms(kernel)
+        out[label] = {"name": name, "g": g, "shape": [b, k, chunk], "r": r,
+                      "ms": ms, "plain_ms": plain_ms}
+        log(f"datapath {label} at the path's launch shape ({b}, {k}, "
+            f"{chunk}) -> {r}: {name} {ms:.4f} ms (CUDA events), plain "
+            f"{plain_ms:.2f} ms, == its plain version and the stored shards")
+    return out
+
+
+def phase_datapath(dev: torch.device) -> dict:
+    """The OSD shard data spine on the card (``tools/datapath_bench.py`` at
+    ``DATAPATH``): write -> read-verify -> scrub -> degraded read over 11
+    BlockStores, a warm-up drive, then the host round-trip baseline drive
+    and the drive through the shard cache, which this phase drives piece by
+    piece (``_Rig``, ``drive_phases``) so that its checks see the open rig.
+    The launch counts are set to 0 before each of the two drives and read
+    at its end, before any check launches.  Checks: byte identity (the
+    bench's gates), cache hits, no steady host bytes and no scalar CRC
+    call, one upload a resident shard in the first cached scrub and none
+    after, the scrub's K4 CRCs against the host engine on every shard and
+    against K4's plain version on a sample, every write tag against the
+    host engine's CRC of the stored shard, K1/K2 and K4 launched in each
+    drive, no fallback."""
+    import asyncio
+    import shutil
+    from ceph_tpu_torch.ops import crc32c_batch as crc
+    from ceph_tpu_torch.os.device_cache import PERF as DATAPATH_PERF
+    from ceph_tpu_torch.tools import datapath_bench as dp
+
+    shards = (DATAPATH["k"] + DATAPATH["m"]) * DATAPATH["n_objects"]
+    sizes = {key: DATAPATH[key] for key in ("k", "m", "n_objects", "obj_bytes",
+                                           "passes", "reads_per_pass")}
+    need = dp.drive_disk_bytes(DATAPATH["k"], DATAPATH["m"],
+                               DATAPATH["n_objects"], DATAPATH["obj_bytes"])
+    path = {}
+
+    def inspect(rig):
+        """The checks on the cached rig after its last pass."""
+        uploads0 = DATAPATH_PERF.get("device_uploads")
+        views, host, tags, stored = [], [], [], []
+        for oid in sorted(rig.meta):
+            for s, st in enumerate(rig.stores):
+                host.append(st.shard_cache.get(dp.COLL, oid).buf)
+                views.append(st.shard_cache.device_view(dp.COLL, oid))
+                tags.append(rig.meta[oid][2][s])
+                stored.append(st.read(dp.COLL, oid))
+        if DATAPATH_PERF.get("device_uploads") != uploads0 \
+                or len(views) != shards:
+            raise RuntimeError("datapath: a shard was not resident on the "
+                               "card after the cached scrubs")
+        host_crcs = crc.crc32c_rows(np.stack(host))
+        k4_crcs = crc.crc32c_resident_batch(views)
+        if not np.array_equal(k4_crcs, host_crcs):
+            raise RuntimeError("datapath: the scrub's K4 CRCs differ from the "
+                               "host engine's")
+        if not np.array_equal(np.asarray(tags, np.uint32),
+                              crc.crc32c_batch(stored)):
+            raise RuntimeError("datapath: a write tag differs from the host "
+                               "engine's CRC of the stored shard")
+        del stored
+        stacked = torch.stack(views)
+        # K4's plain version on a sample of the views, as 4 KiB chunk rows
+        # whose CRCs the GF(2) fold joins (whole 512 KiB rows would take the
+        # plain loop 65,536 steps)
+        pick = np.random.default_rng(SEED + 40).choice(
+            shards, DATAPATH_PLAIN_SAMPLE, replace=False)
+        chunk = DATAPATH["stripe_unit"]
+        sample = stacked[torch.from_numpy(pick).to(dev)]
+        plain = crc.to_uint32(crc.crc32c_chunks_plain(
+            sample.reshape(-1, chunk))).reshape(len(pick), -1)
+        if not np.array_equal(crc.fold_chunk_crcs(plain.T, chunk),
+                              k4_crcs[pick]):
+            raise RuntimeError("datapath: K4 differs from its plain version "
+                               "on the resident views")
+        path["k4_ms"] = time_ms(lambda: crc.crc32c_chunks(stacked))
+        path["k4_shape"] = tuple(stacked.shape)
+        path["k4_bytes"] = stacked.numel()
+        del stacked, sample
+        path["dense"] = datapath_dense(rig, dev)
+
+    async def drives():
+        """The warm-up and baseline drives through ``_drive``, then the
+        cached drive piece by piece; each timed drive's launches."""
+        launches = {}
+        await dp._drive(False, base_dir=dp.bench_dir(need), device=dev,
+                        **{**DATAPATH, "passes": 1, "reads_per_pass": 1})
+        torch.cuda.synchronize()
+        reset_launches()
+        baseline = await dp._drive(False, base_dir=dp.bench_dir(need),
+                                   device=dev, **DATAPATH)
+        torch.cuda.synchronize()
+        launches["baseline"] = launch_counts()
+        objects = dp.source_objects(DATAPATH["n_objects"],
+                                    DATAPATH["obj_bytes"])
+        base_dir = dp.bench_dir(need)
+        reset_launches()
+        try:
+            rig = dp._Rig(DATAPATH["k"], DATAPATH["m"],
+                          DATAPATH["stripe_unit"], True, base_dir,
+                          device=dev, max_batch=DATAPATH["max_batch"])
+            try:
+                phases, digests = await dp.drive_phases(
+                    rig, objects, passes=DATAPATH["passes"],
+                    reads_per_pass=DATAPATH["reads_per_pass"])
+                torch.cuda.synchronize()
+                launches["cached"] = launch_counts()
+                inspect(rig)
+                ec_batch = rig.batcher.perf.dump()
+            finally:
+                rig.close()
+        finally:
+            shutil.rmtree(base_dir, ignore_errors=True)
+        cached = dp.drive_report(True, phases, ec_batch, digests)
+        return dp.compare(baseline, cached, **sizes, device=dev), launches
+
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated()   # of the earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()       # by the earlier phases
+    t0 = time.perf_counter()
+    res, launches = asyncio.new_event_loop().run_until_complete(drives())
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    bad = dp.gate_failures(res)
+    if bad:
+        raise RuntimeError(f"datapath: {bad}")
+    cached, base = res["cached_run"], res["baseline_run"]
+    ups = {name: ph["counters"]["device_uploads"]
+           for name, ph in cached["phases"].items()}
+    if ups.pop("scrub_0") != shards or any(ups.values()):
+        raise RuntimeError(f"datapath: device uploads by phase {ups}, want "
+                           f"{shards} in scrub_0 and none after")
+    batch = cached["ec_batch"]
+    fallbacks = sum(b.get(key, 0) for b in (batch, base["ec_batch"]) for key in
+                    ("fallback_ops", "mesh_fallbacks", "crc_host_batches"))
+    for drive, counts in launches.items():
+        dense = counts["gf2_matmul_popc"] + counts["gf2_matmul_mma"]
+        if not dense or not counts["crc32c_chunks"] or counts["xor_sched"] \
+                or fallbacks:
+            raise RuntimeError(f"datapath {drive} drive: launches {counts}, "
+                               f"fallbacks {fallbacks}")
+    for run in (base, cached):
+        log(f"datapath {'cached' if run['cached'] else 'baseline'} drive: "
+            f"{run['end_to_end_GiBps']} GiB/s end to end over "
+            f"{run['seconds']} s; by phase " + ", ".join(
+                f"{name} {ph['seconds']} s {ph['GiBps']} GiB/s"
+                for name, ph in dp.agg_phases(run["phases"]).items())
+            + f"; write: encode wait {run['phases']['write']['encode_s']:.4f}"
+            f" s, store commit {run['phases']['write']['commit_s']:.4f} s")
+    up_bytes = cached["phases"]["scrub_0"]["counters"]["device_upload_bytes"]
+    up_s = cached["phases"]["scrub_0"]["views_s"]
+    bound_ms = path["k4_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"datapath (RS k={DATAPATH['k']},m={DATAPATH['m']}, "
+        f"{DATAPATH['n_objects']} objects of {DATAPATH['obj_bytes'] >> 20} "
+        f"MiB, {shards} shards; reduced: passes {DATAPATH['passes']} "
+        f"(reference 10), reads_per_pass {DATAPATH['reads_per_pass']} "
+        f"(reference 5)): "
+        f"cached {res['datapath_GiBps']} GiB/s vs baseline "
+        f"{res['baseline_GiBps']} GiB/s ({res['vs_host_roundtrip']}x); cache "
+        f"hits {res['cache_hits']}, steady host bytes "
+        f"{res['steady_host_bytes_read']}, scalar CRC calls "
+        f"{res['scalar_calls_on_batched_paths']}; device-view upload "
+        f"{up_bytes} B in {up_s * 1e3:.1f} ms ({up_bytes / up_s / 1e9:.2f} "
+        f"GB/s, with the cache reads); the cached scrub's views gathered "
+        f"{cached['phases']['scrub_1']['views_s'] * 1e3:.1f} ms, its sweep "
+        f"{cached['phases']['scrub_1']['sweep_s'] * 1e3:.1f} ms (host "
+        f"clock); K4 over {path['k4_shape']} {path['k4_ms']:.4f} ms (CUDA "
+        f"events) vs HBM bound {bound_ms:.4f} ms; launches by drive "
+        f"{launches}; peak "
+        f"device memory {peak / GiB:.2f} GiB above the {held / GiB:.2f} GiB "
+        f"the earlier phases hold; {secs:.1f} s")
+    return {"res": res, "launches": launches, "dense": path["dense"],
+            "k4_ms": path["k4_ms"],
+            "k4_shape": path["k4_shape"], "k4_bound_ms": bound_ms,
+            "upload_bytes": up_bytes, "upload_s": up_s, "peak_bytes": peak,
+            "run_peak_bytes": run_peak,
+            "seconds": secs}
 
 
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
@@ -1910,7 +2273,8 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
                       osd: dict, repair: dict, rates: dict,
-                      built: dict, placement: dict, table: dict) -> dict:
+                      built: dict, placement: dict, table: dict,
+                      datapath: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2, K3 and K5 also with their other paths' times and bounds, K1, K2,
     K4 and K5 with their launch configuration, K3 its design per digest."""
@@ -1955,7 +2319,9 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         rows.append({
             "name": name, "route": "cuda",
             "source": "ceph_tpu_torch/csrc/gf2_matmul.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + sum(
+                drive[name] for drive in datapath["launches"].values()),
             "max_abs_err": max(err, small_err[name]),
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
             "bound_ms": round(max(t_bytes, t_ops), 4),
@@ -2053,8 +2419,26 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
             if ms is not None:
                 row["ms_by_path"][label] = round(ms, 4)
                 row["bound_by_path"][label] = bound
+    for label, d in datapath["dense"].items():
+        row = k1 if d["name"] == "gf2_matmul_popc" else k2
+        key = path_label(f"datapath rs8/3 {label}", (*d["shape"], d["r"]))
+        row.setdefault("ms_by_path", {})[key] = round(d["ms"], 4)
+        row.setdefault("bound_by_path", {})[key] = path_bound(
+            (*d["shape"], d["r"]), mhz, b1_rate)
+    dp_base, dp_cached = (datapath["launches"][d] for d in ("baseline",
+                                                            "cached"))
+    base_label = ("datapath baseline drive (write encode, scrub re-encode, "
+                  "degraded decode)")
+    cached_label = "datapath cached drive (write encode, degraded decode)"
+    k2["launches_by_path"] = {
+        "rs8/3 main path (encode_batch + decode_batch)":
+            launches["gf2_matmul_mma"],
+        base_label: dp_base["gf2_matmul_mma"],
+        cached_label: dp_cached["gf2_matmul_mma"]}
     k1["launches_by_path"] = {
         "rs8/3 main path (per-op encode + decode)": launches["gf2_matmul_popc"],
+        base_label: dp_base["gf2_matmul_popc"],
+        cached_label: dp_cached["gf2_matmul_popc"],
         "pmsr5/4 dense encode + decode": pmsr["launches"]["gf2_matmul_popc"],
         "pmsr7/6 dense encode + decode":
             repair["pmsr7_launches"]["gf2_matmul_popc"]}
@@ -2074,7 +2458,14 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
         "source": "ceph_tpu_torch/csrc/crc32c.cu",
         "replaces": "ceph_tpu/ops/crc32c_batch.py:418 (XLA program, not "
                     "Pallas)",
-        "launches": osd["k4_launches"],
+        "launches": osd["k4_launches"] + dp_base["crc32c_chunks"]
+        + dp_cached["crc32c_chunks"],
+        "launches_by_path": {
+            "osd encode+CRC batch": osd["k4_launches"],
+            "datapath baseline drive (fused write CRCs)":
+                dp_base["crc32c_chunks"],
+            "datapath cached drive (fused write CRCs, scrub sweeps)":
+                dp_cached["crc32c_chunks"]},
         "max_abs_err": max(k4["err"], k4_small_err),
         "ms": round(osd["k4_ms"], 4), "plain_ms": round(k4["plain_ms"], 4),
         "bound_ms": round(max(t_bytes, t_ops), 4),
@@ -2086,7 +2477,13 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
             "rs8/3 fused data + parity as two launches": round(
                 osd["k4_two_ms"], 4),
             f"resident rows {tuple(k4['resident_shape'])}": round(
-                k4["resident_ms"], 4)},
+                k4["resident_ms"], 4),
+            f"datapath scrub sweep {datapath['k4_shape']}": round(
+                datapath["k4_ms"], 4)},
+        "bound_by_path": {
+            f"datapath scrub sweep {datapath['k4_shape']}": {
+                "bound_ms": round(datapath["k4_bound_ms"], 4),
+                "bound_by": "bytes"}},
         **crc.kernel_config(dev),
     })
     k5 = placement_row(placement, mhz, table)
@@ -2132,11 +2529,17 @@ def main() -> int:
     t8e = time.perf_counter()
     table = phase_table(dev)
     log(f"phase 8e, the epoch table: {time.perf_counter() - t8e:.1f} s")
+    os.environ.pop("CEPH_TPU_NO_FUSED_CRC", None)   # the fused write CRCs
+    with xor_sched_env(None):          # the data spine keeps its routing
+        datapath = phase_datapath(dev)
+    log(f"phase 8f, the data spine: {datapath['seconds']:.1f} s")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
-                             repair, rates, built, placement, table)
+                             repair, rates, built, placement, table,
+                             datapath)
     log(json.dumps(line))
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / GiB:.2f} "
+    peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
+    log(f"peak device memory {peak / GiB:.2f} "
         f"GiB, total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,10 @@ from ceph_tpu.crush import builder as ref_builder
 from ceph_tpu.crush import mapper as ref_mapper
 from ceph_tpu.crush.hashes import crush_hash32_2_np, crush_hash32_3_np
 from ceph_tpu.crush.ln import crush_ln_np
-from ceph_tpu.crush.types import CRUSH_BUCKET_STRAW
+from ceph_tpu.crush.types import (
+    CRUSH_BUCKET_LIST, CRUSH_BUCKET_STRAW, CRUSH_RULE_CHOOSE_FIRSTN,
+    CRUSH_RULE_SET_CHOOSE_LOCAL_TRIES, CRUSH_RULE_SET_CHOOSELEAF_VARY_R,
+    RuleStep)
 from ceph_tpu.mon.osdmap import PoolSpec, crush_to_dict
 from ceph_tpu.mon.pg_mapping import pool_pps as ref_pool_pps
 from ceph_tpu import native
@@ -266,20 +269,120 @@ def test_kernel_map_words_layout():
 
 
 def test_refused_shapes_raise_value_error_like_the_reference(ref_vec):
-    straw = ref_builder.build_two_level_map(3, 2)
-    straw.buckets[-2].alg = CRUSH_BUCKET_STRAW
+    """Shapes both refuse, with the reference's message: a list bucket, a
+    bucket mixing osds and buckets, a plain choose of a bucket type.  The
+    port's is ``Unexpressed``."""
+    listed = ref_builder.build_two_level_map(3, 2)
+    listed.buckets[-2].alg = CRUSH_BUCKET_LIST
     mixed = ref_builder.build_two_level_map(3, 2)
     mixed.buckets[-1].items.append(100)
     mixed.buckets[-1].item_weights.append(0x10000)
     flat = ref_builder.build_flat_map(4)
     flat.add_rule(ref_builder.replicated_rule(2, -1, choose_type=1,
                                               leaf=False))
-    for cm, rule in ((straw, 0), (mixed, 0), (flat, 2)):
+    for cm, rule in ((listed, 0), (mixed, 0), (flat, 2)):
         with pytest.raises(ValueError) as want:
             ref_vec.VectorCrush(cm, rule)
-        with pytest.raises(ValueError) as got:
+        with pytest.raises(vec.Unexpressed) as got:
             vec.VectorCrush(port_map(cm), rule, device="cpu")
         assert str(got.value) == str(want.value)
+
+
+def _straw_map():
+    """Straw (not straw2) buckets without legacy straw values: the scalar
+    engine draws them as straw2 on their own weights."""
+    return ref_builder.build_hierarchy([3, 4, 5], alg=CRUSH_BUCKET_STRAW)
+
+
+def _straw_under_choose_args():
+    """A straw2 map with a 3-position weight-set whose rack buckets are
+    straw: the scalar engine ignores choose_args for those."""
+    cm = _choose_args_map(np.random.default_rng(5))
+    for bid in sorted(cm.choose_args)[1:6]:
+        cm.buckets[bid].alg = CRUSH_BUCKET_STRAW
+    return cm
+
+
+def _vary_r(vary_r: int, by_step: bool = False):
+    cm = ref_builder.build_hierarchy([3, 4, 5])
+    if by_step:
+        for rule in cm.rules.values():
+            rule.steps.insert(0, RuleStep(CRUSH_RULE_SET_CHOOSELEAF_VARY_R,
+                                          vary_r))
+    else:
+        cm.tunables.chooseleaf_vary_r = vary_r
+    return cm
+
+
+# shapes beyond the reference's VectorCrush that the port expresses
+EXPRESSED = {
+    "straw": _straw_map,
+    "straw under choose_args": _straw_under_choose_args,
+    "vary_r 0": lambda: _vary_r(0),
+    "vary_r 2": lambda: _vary_r(2),
+    "vary_r 0 by a rule step": lambda: _vary_r(0, by_step=True),
+}
+
+
+@pytest.mark.parametrize("rule", [0, 1], ids=["firstn", "indep"])
+@pytest.mark.parametrize("name", list(EXPRESSED))
+def test_plain_expresses_straw_and_vary_r_like_the_scalar_engine(name, rule):
+    """Straw buckets and any chooseleaf_vary_r, held lane by lane against
+    the reference's scalar engine with a quarter of the OSDs reweighted (so
+    the leaf retries run).  firstn's leaf draws depend on vary_r: the rows
+    differ from jewel's on some lanes."""
+    cm = EXPRESSED[name]()
+    rng = np.random.default_rng(43)
+    weights = _reweights(rng, cm.max_devices)
+    xs = seeds(384, seed=47)
+    numrep = 3 if rule == 0 else 4
+    vc = vec.VectorCrush(port_map(cm), rule, device="cpu")
+    got = vc.map_pgs(xs, numrep, weights)
+    np.testing.assert_array_equal(got, scalar_rows(cm, rule, xs, numrep,
+                                                   weights))
+    if name.startswith("vary_r") and rule == 0:
+        jewel = vec.VectorCrush(port_map(_vary_r(1)), 0, device="cpu")
+        assert (got != jewel.map_pgs(xs, numrep, weights)).any()
+
+
+def _unexpressed(kind: str):
+    cm = ref_builder.build_hierarchy([3, 4, 5])
+    steps = cm.rules[0].steps
+    if kind == "legacy straw values":
+        b = cm.buckets[-2]
+        b.alg = CRUSH_BUCKET_STRAW
+        b.straws = [0x10000] * b.size
+    elif kind == "chooseleaf_stable 0":
+        cm.tunables.chooseleaf_stable = 0
+    elif kind == "local retries":
+        steps.insert(0, RuleStep(CRUSH_RULE_SET_CHOOSE_LOCAL_TRIES, 2))
+    elif kind == "replica count":
+        steps[1].arg1 = 2
+    elif kind == "two choose steps":
+        steps.insert(1, RuleStep(CRUSH_RULE_CHOOSE_FIRSTN, 0, 3))
+    return cm
+
+
+@pytest.mark.parametrize("kind", ["legacy straw values", "chooseleaf_stable 0",
+                                  "local retries", "replica count",
+                                  "two choose steps"])
+def test_unexpressed_shapes_are_refused_and_swept(kind):
+    """Shapes the bulk mapper does not express raise ``Unexpressed`` before
+    any launch, and ``bulk_crush`` sweeps them with the scalar engine."""
+    from ceph_tpu_torch.mon import pg_mapping as pm
+
+    cm = _unexpressed(kind)
+    pcm = port_map(cm)
+    if kind == "legacy straw values":
+        pcm.buckets[-2].straws = list(cm.buckets[-2].straws)
+    with pytest.raises(vec.Unexpressed):
+        vec.VectorCrush(pcm, 0, device="cpu")
+    weights = [0x10000] * cm.max_devices
+    xs = seeds(128, seed=53)
+    rows, used = pm.bulk_crush(pcm, 0, xs, 3, weights, min_lanes=1,
+                               device="cpu")
+    assert not used
+    np.testing.assert_array_equal(rows, scalar_rows(cm, 0, xs, 3, weights))
 
 
 def test_cuda_is_the_default_and_raises_without_a_card(monkeypatch):

@@ -44,7 +44,8 @@ from ceph_tpu.crush.types import (CRUSH_RULE_SET_CHOOSE_TRIES,
 from ceph_tpu_torch.crush import vectorized as vec
 from ceph_tpu_torch.ops import _build
 from ceph_tpu_torch.tools.crush_bench import config5_map
-from test_torch_crush import CASE_IDS, CASES, MAPS, port_map, scalar_rows, seeds
+from test_torch_crush import (
+    CASE_IDS, CASES, EXPRESSED, MAPS, _vary_r, port_map, scalar_rows, seeds)
 
 HARNESS = r"""
 #include <barrier>
@@ -325,6 +326,11 @@ NEW_MAPS = {
     # more slots than hosts: indep spends all 100 rounds, firstn its tries
     "4 hosts, 6 slots": (lambda: ref_builder.build_two_level_map(4, 3),
                          {0: 6, 1: 6}),
+    # straw buckets, drawn as straw2; firstn's leaf r under other vary_r
+    "straw buckets": (EXPRESSED["straw"], {0: 3, 1: 4}),
+    "vary_r 0": (EXPRESSED["vary_r 0"], {0: 3, 1: 4}),
+    "vary_r 2 by a rule step": (lambda: _vary_r(2, by_step=True),
+                                {0: 3, 1: 4}),
 }
 
 

@@ -25,13 +25,14 @@ import torch
 from ceph_tpu.crush import crush_do_rule as ref_crush_do_rule
 from ceph_tpu.crush.builder import build_hierarchy
 from ceph_tpu.crush.types import (
-    CRUSH_ITEM_NONE, CRUSH_RULE_SET_CHOOSE_TRIES, RuleStep)
+    CRUSH_BUCKET_STRAW, CRUSH_ITEM_NONE, CRUSH_RULE_SET_CHOOSE_TRIES,
+    RuleStep)
 from ceph_tpu.mon.osdmap import (
     POOL_TYPE_ERASURE, Incremental as RefIncremental, OSDMap as RefOSDMap,
     OsdInfo, PoolSpec, crush_to_dict as ref_crush_to_dict)
 from ceph_tpu.mon.pg_mapping import PGMapping as RefPGMapping
 from ceph_tpu.mon.pg_mapping import pool_pps as ref_pool_pps
-from ceph_tpu_torch.crush.vectorized import VectorCrush, seed_tensor
+from ceph_tpu_torch.crush.vectorized import Unexpressed, VectorCrush, seed_tensor
 from ceph_tpu_torch.mon import pg_mapping as pm_mod
 from ceph_tpu_torch.mon.osdmap import Incremental, OSDMap
 from ceph_tpu_torch.mon.pg_mapping import PGMapping
@@ -499,17 +500,90 @@ def test_card_maps_nothing_without_a_launch(monkeypatch, case, fused):
 
 
 def test_card_refuses_the_host_sweep(monkeypatch):
-    """On the card ``fused="never"`` and a shape K5 does not take raise
-    ValueError: nothing falls back to the host."""
+    """On the card ``fused="never"`` and a shape K5 does not express raise
+    ValueError (the second ``Unexpressed``): nothing falls back to the
+    host."""
     _Launches(monkeypatch)
     m = port_of(make_ref_map(29, [4, 4]))
     seeds = pm_mod.pool_seeds(MGR_POOL, "meta")
     with pytest.raises(ValueError, match="host"):
         pm_mod.bulk_crush_rows(m.crush, 0, seeds, 3, m.osd_weights(),
                                fused="never")
-    m.crush.tunables.chooseleaf_vary_r = 0
-    with pytest.raises(ValueError, match="jewel"):
+    m.crush.tunables.chooseleaf_stable = 0
+    with pytest.raises(Unexpressed, match="jewel"):
         pm_mod.bulk_crush_rows(m.crush, 0, seeds, 3, m.osd_weights())
+
+
+def _card_route(monkeypatch) -> list:
+    """Route every pool of a CPU build through the card's route
+    (``card_rows``, here on CPU seeds: the bulk mapper's plain version
+    stands for K5); the rules it was asked for."""
+    routed = []
+
+    def card_route(crush_map, ruleno, seeds, numrep, weights, **kwargs):
+        routed.append(ruleno)
+        return pm_mod.card_rows(crush_map, ruleno, seeds, numrep, weights)
+    monkeypatch.setattr(pm_mod, "bulk_crush_rows", card_route)
+    return routed
+
+
+def _straw_or_vary_r_map(kind: str) -> RefOSDMap:
+    """A reference map in straw (not straw2) buckets, or with jewel's
+    tunables but chooseleaf_vary_r = 0: shapes the reference's bulk mapper
+    refuses and K5 expresses."""
+    ref = make_ref_map(31, [3, 4])
+    if kind == "straw":
+        ref.crush = build_hierarchy([3, 4], alg=CRUSH_BUCKET_STRAW)
+    else:
+        ref.crush.tunables.chooseleaf_vary_r = 0
+    return ref
+
+
+@pytest.mark.parametrize("kind", ["straw", "vary_r 0"])
+def test_card_maps_straw_and_vary_r_0_with_k5(monkeypatch, kind):
+    """The card's route maps a straw map and a vary_r 0 map with the bulk
+    mapper, nothing on the host: the table equals the reference's
+    ``fused="never"`` build (its scalar pipeline) entry for entry, and every
+    pool counts in ``fused_pools``."""
+    ref = _straw_or_vary_r_map(kind)
+    with pytest.raises(ValueError):
+        load_reference_vectorized().VectorCrush(ref.crush, 0)
+    m = port_of(ref)
+    routed = _card_route(monkeypatch)
+    monkeypatch.setattr(pm_mod, "_sweep", None)
+    pm = PGMapping.build(m)
+    assert sorted(routed) == [0, 1]
+    assert pm.fused_pools == len(ref.pools) and pm.scalar_pools == 0
+    assert_same_table(ref, RefPGMapping.build(ref, fused="never"), pm)
+
+
+def test_card_raises_for_a_shape_k5_does_not_express(monkeypatch):
+    """A map shape K5 does not express (a host bucket holding an osd and a
+    bucket) raises ``Unexpressed`` from the card's route, naming the rule:
+    no table, and no sweep on the host."""
+    ref = make_ref_map(33, [3, 4])
+    m = port_of(ref)
+    host = m.crush.buckets[m.crush.buckets[-1].items[0]]
+    host.items.append(m.crush.buckets[-1].items[1])
+    host.item_weights.append(0x10000)
+    _card_route(monkeypatch)
+    monkeypatch.setattr(pm_mod, "_sweep", None)
+    with pytest.raises(Unexpressed, match="rule 0.*mixed osd/bucket"):
+        PGMapping.build(m)
+
+
+def test_card_route_still_raises_a_kernel_failure():
+    """A shape K5 takes goes to K5 alone: its failure is not answered by
+    the sweep."""
+    m = port_of(make_ref_map(32, [4, 4]))
+
+    class Failing:
+        def map_device(self, seeds, numrep, weights):
+            raise RuntimeError("crush_map_rule: kernel launch failed")
+    seeds = pm_mod.pool_seeds(MGR_POOL, "cpu")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        pm_mod.card_rows(m.crush, 0, seeds, 3, m.osd_weights(),
+                         mapper=lambda *args: Failing())
 
 
 @pytest.mark.parametrize("rule", [0, 1, 9], ids=["firstn", "indep", "none"])

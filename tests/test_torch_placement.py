@@ -4,7 +4,7 @@
 ``bulk_crush`` keeps the reference's routing: the bulk mapper (here its
 plain version, ``device="cpu"``) when the lanes clear the threshold or the
 (map, rule) is warm, the scalar sweep for a map shape ``VectorCrush``
-refuses (a ValueError raised before any launch), ``fused="never"``, or a
+refuses (``Unexpressed``, raised before any launch), ``fused="never"``, or a
 cold map below the threshold; a kernel failure (a RuntimeError) is not
 swallowed.  Rows are held against the reference's scalar sweep, exactly.
 """
@@ -23,7 +23,7 @@ from ceph_tpu.crush import builder as ref_builder
 from ceph_tpu.crush.types import CRUSH_BUCKET_STRAW
 from ceph_tpu.mon.osdmap import PoolSpec
 from ceph_tpu.mon import pg_mapping as ref_pm
-from ceph_tpu_torch.crush.vectorized import VectorCrush
+from ceph_tpu_torch.crush.vectorized import Unexpressed, VectorCrush
 from ceph_tpu_torch.mon import pg_mapping as pm
 from test_torch_crush import MAPS, port_map
 
@@ -80,8 +80,12 @@ def test_auto_below_threshold_is_scalar_until_warm():
 
 
 def _refused_maps():
+    """Shapes K5 does not express: a straw bucket carrying legacy straw
+    values (drawn as legacy straw, not straw2), a bucket mixing osds and
+    buckets."""
     straw = ref_builder.build_two_level_map(4, 3)
     straw.buckets[-2].alg = CRUSH_BUCKET_STRAW
+    straw.buckets[-2].straws = [0x10000 + 0x3000 * i for i in range(3)]
     mixed = ref_builder.build_two_level_map(4, 3)
     mixed.buckets[-1].items.append(11)
     mixed.buckets[-1].item_weights.append(0x10000)
@@ -91,16 +95,33 @@ def _refused_maps():
 @pytest.mark.parametrize("kind", ["straw", "mixed"])
 def test_refused_shape_goes_to_the_scalar_sweep(kind):
     ref_map = _refused_maps()[kind]
+    cm = port_map(ref_map)
+    for bid, b in ref_map.buckets.items():
+        if hasattr(b, "straws"):
+            cm.buckets[bid].straws = list(b.straws)
     weights = [0x10000] * 12
     xs = pm.pool_pps(POOLS[1])
-    rows, used = pm.bulk_crush(port_map(ref_map), 0, xs, 3, weights,
+    rows, used = pm.bulk_crush(cm, 0, xs, 3, weights,
                                fused="auto", min_lanes=1, device="cpu")
     assert not used
     want, _ = ref_pm.bulk_crush(ref_map, 0, xs, 3, weights, fused="never")
     np.testing.assert_array_equal(rows, want)
-    with pytest.raises(ValueError):
-        pm.bulk_crush(port_map(ref_map), 0, xs, 3, weights, fused="always",
-                      device="cpu")
+    with pytest.raises(Unexpressed):
+        pm.bulk_crush(cm, 0, xs, 3, weights, fused="always", device="cpu")
+
+
+def test_a_malformed_map_is_not_swept():
+    """A dangling bucket reference is a malformed map, not a shape K5 does
+    not express: ``bulk_crush`` raises its ValueError on every route that
+    builds the mapper instead of sweeping it."""
+    cm = port_map(ref_builder.build_two_level_map(4, 3))
+    cm.buckets[-1].items[1] = -77
+    xs = pm.pool_pps(POOLS[1])
+    for fused in ("auto", "always"):
+        with pytest.raises(ValueError, match="dangling") as got:
+            pm.bulk_crush(cm, 0, xs, 3, [0x10000] * 12, fused=fused,
+                          min_lanes=1, device="cpu")
+        assert not isinstance(got.value, Unexpressed)
 
 
 def test_kernel_failure_is_not_swallowed(monkeypatch):
