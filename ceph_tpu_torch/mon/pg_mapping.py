@@ -6,12 +6,13 @@ pg->osd table, recomputed in bulk whenever a new map epoch lands, and every
 lookup is an array read.
 
 * ``bulk_crush`` maps a rule over numpy seeds to numpy rows (``crushtool
-  --test``): one ``VectorCrush`` launch (kernel K5) when the lanes clear
-  ``FUSED_MIN_LANES`` or the mapper is warm and the map's shape is one K5
-  takes, else the scalar sweep (``crush/mapper.py``) on the host.
+  --test``): one bulk launch when the lanes clear ``FUSED_MIN_LANES`` or the
+  mapper is warm -- K5 for a map shape it takes, else (on the card) K6 --
+  otherwise the scalar sweep (``crush/mapper.py``) on the host.
   ``bulk_crush_rows`` leaves the raw rows on the seeds' device; on the card
-  it launches K5 for every pool, however small, and never sweeps: a map
-  shape K5 does not express raises ``Unexpressed`` there (``card_rows``).
+  it launches a kernel for every pool, however small, and never sweeps
+  (``card_rows``): K5 for the shapes K5 takes, K6 (``crush/rule_lanes.py``,
+  the scalar engine as a kernel) for every other shape.
 * ``PGMapping.build`` takes each pool's seeds (``pool_seeds``: ``pool_pps``'
   hash as torch ops on the device, kept per pool spec) and maps them, then
   applies the OSDMap's semantics to the rows where they lie, as torch ops:
@@ -21,7 +22,7 @@ lookup is an array read.
   ``(pg_num, width)`` padded with -1, each with its row lengths.  ``delta``
   compares two tables' arrays on the device.  With ``device="cpu"`` the
   same torch code runs on CPU tensors (the bulk mapper is K5's plain
-  version, and small pools take the scalar sweep).
+  version, and small pools and shapes K5 does not take the scalar sweep).
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ import time
 import numpy as np
 import torch
 
-from ..crush import crush_do_rule
 from ..crush.hashes import crush_hash32_2_np
+from ..crush.rule_lanes import RuleLanes, plain_rows as _sweep
 from ..crush.state import crush_to_dict
 from ..crush.types import CRUSH_ITEM_NONE
-from ..crush.vectorized import MapsNothing, Unexpressed, VectorCrush, hash32_2
+from ..crush.vectorized import (MapsNothing, Unexpressed, VectorCrush,
+                                hash32_2, seed_tensor)
 from ..device import resolve_device
 
 # below this many lanes a cold bulk mapper's set-up (tables, a kernel build
@@ -52,6 +54,12 @@ FUSED_MIN_LANES = int(os.environ.get("CEPH_TPU_PLACEMENT_FUSED_MIN",
 # daemon, all deserialized from the same mon map.
 _VC_SHARED: dict[tuple, VectorCrush] = {}
 _VC_SHARED_MAX = 8
+# K5's refusals (``Unexpressed``, ``MapsNothing``) of a structure and rule,
+# so a refused (map, rule) pays for the refusal once, not once a pool and
+# an epoch; bounded the same way
+_VC_REFUSED: dict[tuple, ValueError] = {}
+# K6's flattened (map, rule) per device, shared the same way
+_RL_SHARED: dict[tuple, RuleLanes] = {}
 
 # each pool's seeds per device (``cached_pool_seeds``), bounded the same way
 _SEEDS: dict[tuple, torch.Tensor] = {}
@@ -64,12 +72,14 @@ def _crush_digest(crush_map) -> str:
     change, never mutated in place)."""
     dig = crush_map.__dict__.get("_structure_digest")
     if dig is None:
-        # choose_args are baked into the mapper (CompiledMap.from_map falls
-        # back to map.choose_args) but are NOT part of crush_to_dict --
-        # digest them explicitly
+        # choose_args and legacy straw values are baked into the mappers
+        # but are NOT part of crush_to_dict -- digest them explicitly
+        straws = {bid: b.straws for bid, b in crush_map.buckets.items()
+                  if getattr(b, "straws", None) is not None}
         blob = json.dumps(
             {"crush": crush_to_dict(crush_map),
-             "choose_args": getattr(crush_map, "choose_args", None)},
+             "choose_args": getattr(crush_map, "choose_args", None),
+             "straws": straws},
             sort_keys=True, default=str)
         dig = hashlib.sha256(blob.encode()).hexdigest()
         crush_map.__dict__["_structure_digest"] = dig
@@ -86,15 +96,26 @@ def _vector_crush_for(crush_map, ruleno: int, device=None) -> VectorCrush:
     CrushMap object (its tables stay on the card across weight-only
     epochs), and across structurally-identical maps process-wide.  Raises
     ``Unexpressed``, before any launch, for a map shape K5 does not take,
-    ``MapsNothing`` for a rule that maps nothing."""
+    ``MapsNothing`` for a rule that maps nothing; a refusal is kept per
+    structure and rule and raised again without a new mapper."""
     dev = resolve_device(device)
     cache = crush_map.__dict__.setdefault("_vc_cache", {})
     key = _cache_key(crush_map, ruleno, dev)
     if key not in cache:
-        shared_key = (_crush_digest(crush_map), ruleno, str(dev))
+        digest = _crush_digest(crush_map)
+        refused = _VC_REFUSED.get((digest, ruleno))
+        if refused is not None:
+            raise type(refused)(*refused.args)
+        shared_key = (digest, ruleno, str(dev))
         vc = _VC_SHARED.get(shared_key)
         if vc is None:
-            vc = VectorCrush(crush_map, ruleno, device=dev)
+            try:
+                vc = VectorCrush(crush_map, ruleno, device=dev)
+            except (Unexpressed, MapsNothing) as e:
+                while len(_VC_REFUSED) >= _VC_SHARED_MAX:
+                    _VC_REFUSED.pop(next(iter(_VC_REFUSED)))
+                _VC_REFUSED[(digest, ruleno)] = e
+                raise
             while len(_VC_SHARED) >= _VC_SHARED_MAX:
                 _VC_SHARED.pop(next(iter(_VC_SHARED)))
             _VC_SHARED[shared_key] = vc
@@ -102,23 +123,28 @@ def _vector_crush_for(crush_map, ruleno: int, device=None) -> VectorCrush:
     return cache[key]
 
 
+def _rule_lanes_for(crush_map, ruleno: int, device=None) -> RuleLanes:
+    """K6's flattened (map, rule) on ``device``, shared across
+    structurally-identical maps process-wide (bounded as K5's mappers are).
+    Raises ``ValueError`` for a malformed map, before any launch."""
+    dev = resolve_device(device)
+    key = (_crush_digest(crush_map), ruleno, str(dev))
+    rl = _RL_SHARED.get(key)
+    if rl is None:
+        rl = RuleLanes(crush_map, ruleno, device=dev)
+        while len(_RL_SHARED) >= _VC_SHARED_MAX:
+            _RL_SHARED.pop(next(iter(_RL_SHARED)))
+        _RL_SHARED[key] = rl
+    return rl
+
+
 def _warm(crush_map, ruleno: int, dev: torch.device) -> bool:
-    """Whether the (map, rule) already has a mapper on ``dev``: its bulk
-    launch is then all but free."""
+    """Whether the (map, rule) already has a mapper on ``dev``, K5's or
+    K6's: its bulk launch is then all but free."""
+    shared_key = (_crush_digest(crush_map), ruleno, str(dev))
     return (_cache_key(crush_map, ruleno, dev)
             in crush_map.__dict__.get("_vc_cache", {})
-            or (_crush_digest(crush_map), ruleno, str(dev)) in _VC_SHARED)
-
-
-def _sweep(crush_map, ruleno: int, xs, numrep: int, weights) -> np.ndarray:
-    """The scalar engine over every seed (low 32 bits): (L, numrep) int32
-    rows with CRUSH_ITEM_NONE holes."""
-    xs = np.asarray(xs, np.int64) & 0xFFFFFFFF
-    rows = np.full((len(xs), numrep), CRUSH_ITEM_NONE, dtype=np.int32)
-    for i, x in enumerate(xs.tolist()):
-        got = crush_do_rule(crush_map, ruleno, x, numrep, weights)[:numrep]
-        rows[i, :len(got)] = got
-    return rows
+            or shared_key in _VC_SHARED or shared_key in _RL_SHARED)
 
 
 def bulk_crush(crush_map, ruleno: int, xs, numrep: int, weights,
@@ -129,14 +155,15 @@ def bulk_crush(crush_map, ruleno: int, xs, numrep: int, weights,
     result vector, before any OSDMap-level filtering.  Seeds are taken as
     their low 32 bits (``seed_tensor``).
 
-    ``fused``: 'auto' takes the bulk mapper (K5 on the card, its plain
-    version with ``device="cpu"``) when the lane count clears ``min_lanes``
-    or the (map, rule) already has a mapper, and the map's shape is one it
-    takes, else the scalar sweep on the host; 'always' forces the mapper
-    (raising ``Unexpressed`` if the shape is refused); 'never' is the pure
-    scalar sweep.  A rule that maps nothing gives NONE rows on any route.
-    A kernel build or launch failure is a RuntimeError and propagates, as
-    does the ValueError of a malformed map.
+    ``fused``: 'auto' takes the bulk mapper when the lane count clears
+    ``min_lanes`` or the (map, rule) already has a mapper: K5 on the card
+    (its plain version with ``device="cpu"``) for a shape it takes, else K6
+    on the card and the scalar sweep with ``device="cpu"``; below the lanes
+    a cold (map, rule) takes the scalar sweep on the host.  'always' forces
+    K5 (raising ``Unexpressed`` if the shape is refused); 'never' is the
+    pure scalar sweep.  A rule that maps nothing gives NONE rows on any
+    route.  A kernel build or launch failure is a RuntimeError and
+    propagates, as does the ValueError of a malformed map.
     """
     dev = resolve_device(device)
     lanes = len(xs)
@@ -150,6 +177,10 @@ def bulk_crush(crush_map, ruleno: int, xs, numrep: int, weights,
         except Unexpressed:
             if fused == "always":
                 raise
+            if dev.type == "cuda":
+                rows = _rule_lanes_for(crush_map, ruleno, dev).map_device(
+                    seed_tensor(xs, dev), numrep, weights)
+                return rows.cpu().numpy().astype(np.int64), True
         else:
             return vc.map_pgs(xs, numrep, weights).astype(np.int64), True
     return _sweep(crush_map, ruleno, xs, numrep, weights).astype(np.int64), \
@@ -163,9 +194,9 @@ def bulk_crush_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
     used_fused), rows an (L, numrep) int32 tensor.  ``seeds`` is
     ``seed_tensor``'s (L,) int32.
 
-    On the card K5 launches for every shape it takes, whatever the lane
-    count (``fused`` and ``min_lanes`` do not apply), and ``fused="never"``
-    raises ValueError; ``card_rows`` is that route.  CPU seeds take
+    On the card a kernel launches for every pool, whatever the lane count
+    (``fused`` and ``min_lanes`` do not apply), and ``fused="never"`` raises
+    ValueError; ``card_rows`` is that route.  CPU seeds take
     ``bulk_crush``'s routes.
     """
     dev = seeds.device
@@ -181,17 +212,19 @@ def bulk_crush_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
 
 def card_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
               weights, mapper=None) -> tuple[torch.Tensor, bool]:
-    """The card's route for one pool, chosen before any launch: (rows on
-    the seeds' device, used_fused).  ``mapper(crush_map, ruleno, device)``
-    builds the bulk mapper (``_vector_crush_for`` unless given).
+    """The card's route for one pool, chosen by the map's shape before any
+    launch: (rows on the seeds' device, used_fused).  ``mapper(crush_map,
+    ruleno, device)`` builds K5's bulk mapper (``_vector_crush_for`` unless
+    given); ``_rule_lanes_for`` builds K6's.
 
     * A shape K5 takes: one K5 launch.
     * A rule that maps nothing: NONE rows made on the device, no launch.
-    * A shape K5 does not express (``vectorized.Unexpressed``): raised.
-      Nothing is mapped on the host; the scalar engine serves such a map
-      only in a CPU build (``device="cpu"``).
+    * A shape K5 does not express (``vectorized.Unexpressed``): one K6
+      launch.  Nothing is mapped on the host; the scalar engine serves such
+      a map only in a CPU build (``device="cpu"``).
 
-    A K5 build or launch failure is a RuntimeError and propagates.
+    A K5 or K6 build or launch failure is a RuntimeError and propagates, as
+    does the ValueError of a malformed map.
     """
     dev = seeds.device
     try:
@@ -199,10 +232,9 @@ def card_rows(crush_map, ruleno: int, seeds: torch.Tensor, numrep: int,
     except MapsNothing:
         return torch.full((seeds.shape[0], numrep), CRUSH_ITEM_NONE,
                           dtype=torch.int32, device=dev), False
-    except Unexpressed as e:
-        raise Unexpressed(f"rule {ruleno}: K5 does not express this map's "
-                          f"shape ({e}); the scalar engine maps it only in "
-                          f"a CPU build") from e
+    except Unexpressed:
+        rl = _rule_lanes_for(crush_map, ruleno, dev)
+        return rl.map_device(seeds, numrep, weights), True
     return vc.map_device(seeds, numrep, weights), True
 
 
@@ -312,9 +344,9 @@ class PGMapping:
         """The table of ``osdmap``'s epoch, built on ``osdmap.device`` (a
         RuntimeError when that is CUDA and there is no card).  ``fused`` and
         ``min_lanes`` pick a CPU build's route (``bulk_crush``); on the card
-        every pool takes K5, and a map shape K5 does not express raises
-        ``Unexpressed`` (``card_rows``).  ``scalar_pools`` counts the pools
-        the bulk mapper did not map: swept on the host, or a rule that maps
+        every pool takes a kernel, K5 or, for a map shape K5 does not
+        express, K6 (``card_rows``).  ``scalar_pools`` counts the pools no
+        kernel or bulk mapper mapped: swept on the host, or a rule that maps
         nothing."""
         t0 = time.perf_counter()
         dev = resolve_device(osdmap.device)

@@ -24,8 +24,10 @@ partitions the batch over a 1-D jax mesh of every visible device with
   * a failing launch raises: the reference's ``_sched_health`` /
     ``STATS.note_fallback`` guard is not carried.
 
-``n_devices > 1`` raises ``NotImplementedError``: spanning cards is the
-``torch.distributed`` plane (ROADMAP queue 1, item 5).
+``n_devices > 1`` raises ``NotImplementedError``: a ``MeshCodec`` spanning
+several cards in one process is ROADMAP queue 1, item 5.  Ranks of a
+``torch.distributed`` process group, one a process, run the sharded codec
+(``parallel/sharded_ec.py``).
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ class MeshCodec:
                  perf=None, device=None) -> None:
         if int(n_devices) > 1:
             raise NotImplementedError(
-                f"MeshCodec spans one card; n_devices={n_devices} needs the "
-                f"torch.distributed plane (ROADMAP queue 1, item 5)")
+                f"MeshCodec spans one card; n_devices={n_devices} needs a "
+                f"multi-card MeshCodec (ROADMAP queue 1, item 5)")
         self.device = resolve_device(device)
         self.n_devices = 1
         self.donate = bool(donate)

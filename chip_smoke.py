@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card and check them: the
 erasure-code stripe codec, bulk CRUSH placement, the epoch placement table
-and the OSD shard data spine.
+(K5 and, for the map shapes K5 does not express, K6), the OSD shard data
+spine and the sharded codec over ``torch.distributed``.
 
     python3 chip_smoke.py
 
@@ -107,8 +108,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
     with chooseleaf_vary_r = 0 (pg_num 1024, 256, 1): the card's table maps
     each pool with K5 (one launch a pool, every pool fused, K5 == its plain
     version) and must equal the scalar pipeline on every PG and the CPU's
-    build; and a shape K5 does not express (a host holding an osd and a
-    bucket) must raise on the card with no launch;
+    build.  Then the shapes K5 does not express (ROADMAP queue 3): a host
+    holding an osd and a bucket; uniform, list and tree hierarchies; straw
+    buckets with legacy straw values; argonaut tunables; a chooseleaf of
+    racks; a plain choose of hosts; ``choose 2 racks, chooseleaf 2 hosts``
+    (same pg_nums): K5 must refuse both rules, the card's build must launch
+    K6 once a pool and K5 never, with the host sweep replaced by one that
+    fails, and its table must equal the scalar pipeline on every PG and the
+    CPU's build.  K6 called directly at config 5 (straw2, K5's shape) and
+    on its tree and list variants, 2M lanes, rules 0 x3 and 1 x11: == K5
+    on every lane (straw2), == the scalar engine on a sample, CUDA events;
  8f. the OSD shard data spine (``tools/datapath_bench.py``): RS k=8,m=3 at a
     4 KiB stripe unit over 128 objects of 4 MiB (704 MiB stored in 11
     BlockStores), write -> read-verify -> scrub -> degraded read (10
@@ -127,9 +136,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
     their ratio, the write's encode wait and store commit, the device-view
     upload, K4's sweep (CUDA events) against its HBM bound, peak device
     memory;
- 9. a ``kernels`` JSON line: per kernel its launches on its paths (phases 4
-    and 8f for K1/K2, phases 6-7 for K3, phases 8c and 8f for K4, phases
-    8d-8e for K5), its
+ 9. the sharded codec (``parallel/sharded_ec.py``): at world size 1 (an
+    NCCL group, whose collectives return at once at one rank, so no NCCL
+    operation runs) on phase 4's (1024, 8, 131072) data,
+    ``sharded_ec_step`` with erasures [1, 9], ``sharded_rmw`` of a 48 B
+    write a stripe and ``sharded_cross_recovery``, each against the plain
+    version (in slices) and the host oracle, the checksum against a host
+    sum, K1/K2/K3 counted, each timed beside ``MeshCodec.encode`` /
+    ``decode``; then ``dryrun_multichip``'s checks on 4 ranks on the card
+    over gloo with CUDA tensors (the only run whose collectives move
+    data), LRC k=12,m=4,l=4 also at (64, 4, 3, 131072); then
+    ``graft_entry.entry()`` against its plain version and the host oracle;
+10. a ``kernels`` JSON line: per kernel its launches on its paths (phases
+    4, 8f and 9 for K1/K2, phases 6-7 for K3, phases 8c and 8f for K4, phases
+    8d-8e for K5, phase 8e for K6), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -142,7 +162,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     blocks per SM and spill or local bytes as the CUDA runtime reports
     them (K5 also ptxas's registers and spill bytes), and K3 per digest
     its design, shared memory, and ptxas's registers and spill bytes;
-10. the result line {"ok": true, "device": {...}}.
+11. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; a kernel of the path that did not launch fails the run.
@@ -234,6 +254,23 @@ TABLE_LOOKUPS = 100_000
 # buckets; jewel's tunables with chooseleaf_vary_r = 0) on config 5's OSDs;
 # pg_num cut so that the scalar pipeline can check every PG
 TABLE_EXPRESSED_PG_NUMS = (1024, 256, 1)
+# phase 8e, K6: the map shapes K5 does not express (ROADMAP queue 3), each on
+# config 5's OSDs at TABLE_EXPRESSED_PG_NUMS, built on the card with one K6
+# launch a pool
+K6_SHAPES = ("a host holding an osd and a bucket", "uniform buckets",
+             "list buckets", "tree buckets", "straw with legacy straw values",
+             "argonaut tunables", "chooseleaf of racks",
+             "plain choose of hosts", "choose 2 racks, chooseleaf 2 hosts")
+# K6 timed directly at config 5 (K5's straw2 map) and on its tree and list
+# variants, rules 0 x3 and 1 x11, a launch of K6_LANES; its plain version,
+# the scalar engine, on the first lanes of each rule's seeds
+K6_LANES = 2_000_000
+K6_PLAIN_SAMPLE = {0: 1024, 1: 256}
+K6_BULK_SCALAR = 128             # bulk_crush rows a shape held scalar
+# phase 9, the sharded codec: LRC k=12,m=4,l=4 at full width on four ranks
+# (B, groups, kg, L), beside the dry run's checks
+SHARDED_LRC = (64, 4, 3, 131072)
+SHARDED_RANKS = 4
 # phase 8f, the OSD shard data spine (tools/datapath_bench.py): RS k=8,m=3
 # (BASELINE.json's code) at Ceph's stripe unit (osd_pool_erasure_code_
 # stripe_unit 4 KiB, src/common/options/global.yaml.in: 32 KiB stripes) over
@@ -536,20 +573,20 @@ def phase_mma_rate(dev: torch.device) -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (K1-K3, K4 and K5)."""
-    from ceph_tpu_torch.crush import vectorized
+    """Set every kernel's launch count to 0 (K1-K3, K4, K5 and K6)."""
+    from ceph_tpu_torch.crush import rule_lanes, vectorized
     from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
     for counts in (gf2kernels.LAUNCHES, crc32c_batch.LAUNCHES,
-                   vectorized.LAUNCHES):
+                   vectorized.LAUNCHES, rule_lanes.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def launch_counts() -> dict:
-    from ceph_tpu_torch.crush import vectorized
+    from ceph_tpu_torch.crush import rule_lanes, vectorized
     from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
     return {**gf2kernels.LAUNCHES, **crc32c_batch.LAUNCHES,
-            **vectorized.LAUNCHES}
+            **vectorized.LAUNCHES, **rule_lanes.LAUNCHES}
 
 
 def phase_k4_small(dev: torch.device) -> int:
@@ -753,7 +790,7 @@ def phase_main_path(dev: torch.device) -> tuple[dict, dict]:
         f"(host clock); recovered == lost, 8 stripes == host, per-op 1 MiB "
         f"== isa; launches {launches}")
     return launches, {"data": data, "matrix": codec.encode_matrix[k:],
-                      "decode_ms": dec_ms}
+                      "decode_ms": dec_ms, "codec": codec}
 
 
 def phase_cauchy(dev: torch.device) -> float:
@@ -1542,9 +1579,9 @@ def table_cluster(pg_nums: tuple, seed: int, temps: int | None = None,
     return m
 
 
-def table_arrays_equal(a, b) -> str | None:
-    """The first pool whose arrays differ between two tables, or None."""
-    ta, tb = a.tables(), b.tables()
+def table_arrays_equal(ta: dict, tb: dict) -> str | None:
+    """The first pool whose arrays differ between two tables' ``tables()``,
+    or None."""
     if list(ta) != list(tb):
         return f"pools {list(ta)} vs {list(tb)}"
     for pid in ta:
@@ -1747,7 +1784,7 @@ def phase_table(dev: torch.device) -> dict:
                                                         device="cpu"))
         else:
             cpu = table_on_cpu(m, pps, dev)
-        bad = table_arrays_equal(pm, cpu)
+        bad = table_arrays_equal(pm.tables(), cpu.tables())
         if bad:
             raise RuntimeError(f"epoch table {label}: the card's table and "
                                f"the CPU's differ at {bad}")
@@ -1890,19 +1927,16 @@ def phase_table(dev: torch.device) -> dict:
 
 
 def table_straw_vary_r(dev: torch.device, launches: dict) -> dict:
-    """Map shapes the reference's bulk mapper refuses and K5 expresses,
-    built on the card: config 5's OSDs in straw (not straw2) buckets, and
-    config 5's map with jewel's chooseleaf_vary_r set to 0.  Each build is
+    """Map shapes the reference's bulk mapper refuses, built on the card:
+    config 5's OSDs in straw (not straw2) buckets, and config 5's map with
+    jewel's chooseleaf_vary_r set to 0, which K5 expresses.  Each build is
     driven with the counts set to 0 and must launch K5 once a pool, every
     pool fused; its table must equal the scalar pipeline on every PG and
     the CPU's build entry for entry, and K5's rows its plain version's on
-    every pool's seeds.  Then a shape K5 does not express (a host bucket
-    holding an osd and a bucket) must raise ``Unexpressed`` on the card
-    with no launch: nothing is mapped on the host.  ``launches`` gains
-    each build's K5 count."""
+    every pool's seeds.  Then the shapes K5 does not express, which K6 maps
+    (``table_k6_shapes``).  ``launches`` gains each build's K5 count."""
     from ceph_tpu_torch.crush.builder import build_hierarchy
     from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW
-    from ceph_tpu_torch.crush.vectorized import Unexpressed
     from ceph_tpu_torch.mon import pg_mapping as pmod
     from ceph_tpu_torch.mon.osdmap import OSDMap
     from ceph_tpu_torch.tools.crush_bench import config5_map
@@ -1948,7 +1982,7 @@ def table_straw_vary_r(dev: torch.device, launches: dict) -> dict:
                         f"{pm.lookup(pid, ps)} vs the scalar pipeline {want}")
         cpu = pmod.PGMapping.build(OSDMap.from_dict(m.to_dict(),
                                                     device="cpu"))
-        bad = table_arrays_equal(pm, cpu)
+        bad = table_arrays_equal(pm.tables(), cpu.tables())
         if bad:
             raise RuntimeError(f"epoch table, {kind}: the card's table and "
                                f"the CPU's differ at {bad}")
@@ -1957,29 +1991,515 @@ def table_straw_vary_r(dev: torch.device, launches: dict) -> dict:
             f"its plain version on every pool, the table == the scalar "
             f"pipeline on every PG, == the CPU build")
         out[kind] = {"s": secs, "pgs": pm.pg_count(), "launches": k5}
-    m = table_cluster(TABLE_EXPRESSED_PG_NUMS, SEED + 34)
-    host = m.crush.buckets[m.crush.buckets[-1].items[0]]
-    while host.items[0] < 0:
-        host = m.crush.buckets[host.items[0]]
-    host.items.append(m.crush.buckets[-1].items[1])
-    host.item_weights.append(0x10000)
-    m.invalidate_placement_cache()
-    m.device = dev
-    reset_launches()
-    try:
-        m.placement_cache()
-    except Unexpressed as e:
-        refused = str(e)
-    else:
-        raise RuntimeError("epoch table: a map shape K5 does not express "
-                           "built a table on the card")
-    if launch_counts()["crush_map_rule"]:
-        raise RuntimeError("epoch table: K5 launched for a map shape it does "
-                           "not express")
-    log(f"epoch table, a host bucket holding an osd and a bucket: refused on "
-        f"the card with no launch ({refused})")
-    out["refused"] = refused
+    out["k6"] = table_k6_shapes(dev)
     return out
+
+
+def k6_shape(m, kind: str, rng) -> None:
+    """Give the cluster ``m`` (config 5's map) the K6 shape ``kind``; the
+    type ids are ``build_hierarchy``'s for depth 4: host 1, rack 2."""
+    from ceph_tpu_torch.crush.builder import build_hierarchy
+    from ceph_tpu_torch.crush.types import (
+        CRUSH_BUCKET_LIST, CRUSH_BUCKET_STRAW, CRUSH_BUCKET_TREE,
+        CRUSH_BUCKET_UNIFORM, CRUSH_RULE_CHOOSE_FIRSTN,
+        CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_FIRSTN,
+        CRUSH_RULE_CHOOSELEAF_INDEP, CRUSH_RULE_EMIT, CRUSH_RULE_TAKE,
+        RuleStep)
+    from ceph_tpu_torch.tools.crush_bench import config5_map
+    fanouts = config5_map(1000)[2]
+    host, rack = 1, 2
+    algs = {"uniform buckets": CRUSH_BUCKET_UNIFORM,
+            "list buckets": CRUSH_BUCKET_LIST,
+            "tree buckets": CRUSH_BUCKET_TREE}
+    choose = [r.steps[-2] for r in (m.crush.rules[0], m.crush.rules[1])]
+    if kind == "a host holding an osd and a bucket":
+        crush = m.crush
+        b = crush.buckets[crush.buckets[-1].items[0]]
+        while b.items[0] < 0:
+            b = crush.buckets[b.items[0]]
+        b.items.append(crush.buckets[-1].items[1])
+        b.item_weights.append(0x10000)
+    elif kind in algs:
+        m.crush = build_hierarchy(fanouts, alg=algs[kind])
+    elif kind == "straw with legacy straw values":
+        m.crush = build_hierarchy(fanouts, alg=CRUSH_BUCKET_STRAW)
+        for b in m.crush.buckets.values():
+            b.straws = [int(v) for v in rng.integers(0x8000, 0x30000,
+                                                     b.size)]
+    elif kind == "argonaut tunables":
+        t = m.crush.tunables
+        t.choose_local_tries, t.choose_local_fallback_tries = 2, 5
+        t.choose_total_tries, t.chooseleaf_descend_once = 19, 0
+        t.chooseleaf_vary_r, t.chooseleaf_stable = 0, 0
+    elif kind == "chooseleaf of racks":
+        for step in choose:
+            step.arg2 = rack
+    elif kind == "plain choose of hosts":
+        choose[0].op, choose[1].op = (CRUSH_RULE_CHOOSE_FIRSTN,
+                                      CRUSH_RULE_CHOOSE_INDEP)
+    elif kind == "choose 2 racks, chooseleaf 2 hosts":
+        for rule, (first, leaf, n_racks, n_hosts) in zip(
+                (m.crush.rules[0], m.crush.rules[1]),
+                ((CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSELEAF_FIRSTN,
+                  2, 2),
+                 (CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_CHOOSELEAF_INDEP,
+                  4, 3))):
+            rule.steps[-3:] = [RuleStep(CRUSH_RULE_TAKE, -1),
+                               RuleStep(first, n_racks, rack),
+                               RuleStep(leaf, n_hosts, host),
+                               RuleStep(CRUSH_RULE_EMIT)]
+    else:
+        raise ValueError(kind)
+    m.invalidate_placement_cache()
+
+
+def k6_host_tables(state: tuple) -> tuple[dict, dict]:
+    """The host's answers for a cluster (its ``to_dict()`` and legacy straw
+    values): the scalar pipeline on every PG, and the CPU build's arrays.
+    Run in a worker process, one a shape, while the card builds."""
+    from ceph_tpu_torch.mon.osdmap import OSDMap
+    from ceph_tpu_torch.mon.pg_mapping import PGMapping
+    d, straws = state
+    m = OSDMap.from_dict(d, device="cpu")
+    for bid, values in straws.items():
+        m.crush.buckets[bid].straws = values
+    scalar = {pid: [m._pg_to_up_acting_scalar(pid, ps)
+                    for ps in range(pool.pg_num)]
+              for pid, pool in m.pools.items()}
+    return scalar, PGMapping.build(m).tables()
+
+
+def table_k6_shapes(dev: torch.device) -> dict:
+    """Each shape of ``K6_SHAPES`` (ROADMAP queue 3's list) on config 5's
+    OSDs at ``TABLE_EXPRESSED_PG_NUMS``, built on the card with the counts
+    set to 0 and the host sweep replaced by one that fails: K5 must refuse
+    both rules, the build must launch K6 once a pool and K5 never, every
+    pool mapped by a kernel; the table must equal the scalar pipeline on
+    every PG and the CPU's build (the scalar sweep) entry for entry, both
+    computed by worker processes while the card builds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from ceph_tpu_torch.crush import rule_lanes
+    from ceph_tpu_torch.crush.vectorized import Unexpressed, VectorCrush
+    from ceph_tpu_torch.mon import pg_mapping as pmod
+
+    def no_sweep(*args, **kwargs):
+        raise RuntimeError("a card's seeds were mapped on the host")
+    rng = np.random.default_rng(SEED + 35)
+    maps = {}
+    for kind in K6_SHAPES:
+        m = table_cluster(TABLE_EXPRESSED_PG_NUMS, SEED + 34)
+        k6_shape(m, kind, rng)
+        for rule in (0, 1):
+            try:
+                VectorCrush(m.crush, rule, device="cpu")
+            except Unexpressed:
+                continue
+            raise RuntimeError(f"epoch table, {kind}: K5 expresses rule "
+                               f"{rule}")
+        maps[kind] = m
+    t_host = time.perf_counter()
+    workers = min(len(maps), os.cpu_count() or 1)
+    with ProcessPoolExecutor(workers, multiprocessing.get_context(
+            "spawn")) as pool:
+        host = {kind: pool.submit(k6_host_tables, (m.to_dict(), {
+            bid: list(b.straws) for bid, b in m.crush.buckets.items()
+            if getattr(b, "straws", None) is not None}))
+            for kind, m in maps.items()}
+        out = {}
+        for kind, m in maps.items():
+            m.device = dev
+            torch.cuda.synchronize()
+            reset_launches()
+            sweep, pmod._sweep = pmod._sweep, no_sweep
+            try:
+                t0 = time.perf_counter()
+                pm = m.placement_cache()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                pmod._sweep = sweep
+            counts = launch_counts()
+            k6, k5 = counts["crush_rule_lanes"], counts["crush_map_rule"]
+            if k6 != len(m.pools) or k5 or pm.fused_pools != len(m.pools) \
+                    or pm.scalar_pools or pm.device.type != "cuda":
+                raise RuntimeError(f"epoch table, {kind}: {k6} K6 and {k5} "
+                                   f"K5 launches, {pm.fused_pools} pools "
+                                   f"mapped by a kernel, {pm.scalar_pools} "
+                                   f"scalar, on {pm.device}")
+            # bulk_crush numpy to numpy on the card takes the same route
+            pool = m.pools[1]
+            xs = pmod.pool_pps(pool)
+            reset_launches()
+            rows, used = pmod.bulk_crush(m.crush, pool.crush_rule, xs,
+                                         pool.size, m.osd_weights(),
+                                         min_lanes=1, device=dev)
+            bulk = launch_counts()
+            want = rule_lanes.plain_rows(m.crush, pool.crush_rule,
+                                         xs[:K6_BULK_SCALAR], pool.size,
+                                         m.osd_weights())
+            if not used or bulk["crush_rule_lanes"] != 1 \
+                    or bulk["crush_map_rule"] \
+                    or not np.array_equal(rows[:K6_BULK_SCALAR], want):
+                same = np.array_equal(rows[:K6_BULK_SCALAR], want)
+                raise RuntimeError(f"bulk_crush, {kind}: launches {bulk}, "
+                                   f"rows == the scalar engine: {same}")
+            out[kind] = {"s": secs, "pgs": pm.pg_count(), "launches": k6,
+                         "bulk_launches": 1, "table": pm}
+        for kind, m in maps.items():
+            scalar, cpu = host[kind].result()
+            pm = out[kind].pop("table")
+            for pid, rows in scalar.items():
+                for ps, want in enumerate(rows):
+                    if pm.lookup(pid, ps) != want:
+                        raise RuntimeError(
+                            f"epoch table, {kind}: pool {pid} ps {ps} "
+                            f"{pm.lookup(pid, ps)} vs the scalar pipeline "
+                            f"{want}")
+            bad = table_arrays_equal(pm.tables(), cpu)
+            if bad:
+                raise RuntimeError(f"epoch table, {kind}: the card's table "
+                                   f"and the CPU's differ at {bad}")
+            log(f"epoch table, {kind} ({pm.pg_count()} PGs): K5 refuses both "
+                f"rules; {out[kind]['launches']} K6 launches, no K5 launch, "
+                f"nothing swept on the host, the build on the card in "
+                f"{out[kind]['s']:.4f} s; == the scalar pipeline on every "
+                f"PG, == the CPU build; bulk_crush numpy to numpy: one K6 "
+                f"launch, {K6_BULK_SCALAR} rows == the scalar engine")
+    log(f"epoch table, K6's shapes: the host's checks in "
+        f"{time.perf_counter() - t_host:.1f} s ({workers} processes)")
+    return out
+
+
+def k6_bound(lanes: int, numrep: int, mhz: float, alg: str) -> dict:
+    """K6's least time on config 5's hierarchy, as ``placement_bound``
+    reckons K5's: ``INT_OPS_PER_DRAW`` a hash of a descent with no retry.
+    straw2 draws every child of a bucket; a tree bucket hashes once a
+    level of its node tree (ceil(log2(size)) a bucket); a list bucket at
+    least once (its walk ends at the first accept): both floors."""
+    fanouts = PLACEMENT[2]
+    draws = {"straw2": fanouts,
+             "tree": [int(np.ceil(np.log2(f))) for f in fanouts],
+             "list": [1] * len(fanouts)}[alg]
+    return placement_bound(lanes, numrep, mhz, tuple(draws))
+
+
+def phase_k6(dev: torch.device) -> dict:
+    """K6 called directly on config 5's map (straw2, the shape K5 maps) and
+    on its tree and list variants at ``K6_LANES`` lanes, rules 0 x3 and 1
+    x11: its rows held against K5's on every lane (straw2) and against the
+    scalar engine, its plain version, on the first ``K6_PLAIN_SAMPLE``
+    lanes; CUDA events for K6 (at the full launch and at the sample), the
+    host clock for the scalar engine on the sample."""
+    from ceph_tpu_torch.crush import rule_lanes
+    from ceph_tpu_torch.crush.builder import build_hierarchy
+    from ceph_tpu_torch.crush.types import (CRUSH_BUCKET_LIST,
+                                            CRUSH_BUCKET_TREE)
+    from ceph_tpu_torch.crush.vectorized import VectorCrush, seed_tensor
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.tools.crush_bench import config5_map
+
+    cm, n, fanouts = config5_map(1000)
+    maps = {"straw2": cm,
+            "tree": build_hierarchy(fanouts, alg=CRUSH_BUCKET_TREE),
+            "list": build_hierarchy(fanouts, alg=CRUSH_BUCKET_LIST)}
+    xs = np.random.default_rng(SEED + 40).integers(0, 2**32, K6_LANES)
+    seeds = seed_tensor(xs, dev)
+    weights = [0x10000] * n
+    w = torch.tensor(weights, dtype=torch.int32, device=dev)
+    runs, err = {}, 0
+    for alg, c in maps.items():
+        for rule, numrep in PLACEMENT_RULES:
+            rl = rule_lanes.RuleLanes(c, rule, dev)
+            rows = rl.map_device(seeds, numrep, w)
+            sample = K6_PLAIN_SAMPLE[rule]
+            t0 = time.perf_counter()
+            plain = rule_lanes.plain_rows(c, rule, xs[:sample], numrep,
+                                          weights)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            diff = np.abs(rows[:sample].cpu().numpy().astype(np.int64)
+                          - plain.astype(np.int64))
+            err = max(err, int(diff.max()))
+            k5_note = ""
+            if alg == "straw2":
+                k5 = VectorCrush(c, rule, device=dev).map_device(
+                    seeds, numrep, w)
+                if not torch.equal(rows, k5):
+                    raise RuntimeError(f"K6 differs from K5 at config 5, "
+                                       f"rule {rule}, on "
+                                       f"{int((rows != k5).any(1).sum())} "
+                                       f"lanes")
+                k5_note = f", == K5 on all {K6_LANES} lanes"
+                del k5
+            if err:
+                raise RuntimeError(f"K6 differs from the scalar engine on "
+                                   f"{alg} rule {rule}: max {err}")
+            ms = time_ms(lambda: rl.map_device(seeds, numrep, w), iters=3)
+            sample_ms = time_ms(lambda: rl.map_device(seeds[:sample],
+                                                      numrep, w))
+            runs[(alg, rule)] = {"numrep": numrep, "ms": ms,
+                                 "sample": sample, "sample_ms": sample_ms,
+                                 "plain_ms": plain_ms}
+            log(f"K6 crush_rule_lanes, config 5 {alg}, rule {rule} x{numrep}: "
+                f"{K6_LANES} lanes {ms:.4f} ms ({K6_LANES / ms * 1e3:.4g} "
+                f"mappings/s); on {sample} lanes {sample_ms:.4f} ms, the "
+                f"scalar engine {plain_ms:.1f} ms (host clock), equal"
+                + k5_note)
+            del rows
+    counts = _build.ptxas_counts(_build.report("crush_rule"))
+    return {"runs": runs, "err": err, "config": rule_lanes.kernel_config(
+        dev.index), "ptxas": {"ptxas_registers": counts["registers"],
+                              "ptxas_stack": counts["stack"],
+                              "ptxas_spill_stores": counts["spill_stores"],
+                              "ptxas_spill_loads": counts["spill_loads"]}}
+
+
+def k6_row(k6: dict, table: dict, mhz: float) -> dict:
+    """K6's row of the kernels line: its time a 2M-lane launch at config 5,
+    rule 0 x3 (the shape K5 maps, called directly), its bound, the scalar
+    engine's time on the sample, its other rules and maps, and its launches
+    on the epoch table's shapes (phase 8e)."""
+    runs = k6["runs"]
+    head = runs[("straw2", 0)]
+    paths, bounds, plain = {}, {}, {}
+    for (alg, rule), r in runs.items():
+        label = (f"config 5 {alg}, rule {rule} "
+                 f"{'firstn' if rule == 0 else 'indep'} x{r['numrep']}")
+        paths[f"{label}, {K6_LANES} lanes"] = round(r["ms"], 4)
+        bounds[f"{label}, {K6_LANES} lanes"] = k6_bound(K6_LANES,
+                                                        r["numrep"], mhz, alg)
+        paths[f"{label}, {r['sample']} lanes"] = round(r["sample_ms"], 4)
+        plain[f"{label}, {r['sample']} lanes"] = round(r["plain_ms"], 4)
+    shapes = table["expressed"]["k6"]
+    bound = k6_bound(K6_LANES, head["numrep"], mhz, "straw2")
+    return {
+        "name": "crush_rule_lanes", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_rule.cu",
+        "replaces": "no TPU kernel: ceph_tpu/mon/pg_mapping.py:118-133 sweeps "
+                    "the shapes VectorCrush refuses on the host with "
+                    "ceph_tpu/crush/mapper.py:426 crush_do_rule",
+        "launches": sum(v["launches"] + v["bulk_launches"]
+                        for v in shapes.values()),
+        "launches_by_path": {
+            **{f"epoch table {kind} (phase 8e)": v["launches"]
+               for kind, v in shapes.items()},
+            "bulk_crush numpy to numpy, one a shape (phase 8e)": sum(
+                v["bulk_launches"] for v in shapes.values())},
+        "max_abs_err": k6["err"],
+        "ms": round(head["ms"], 4),
+        "plain_ms": round(head["plain_ms"], 4),
+        "plain_shape": [head["sample"], head["numrep"]],
+        "plain_note": "the scalar engine (K6's plain version) on the first "
+                      f"{head['sample']} lanes, host clock; K6 on the same "
+                      "lanes under ms_by_path",
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes CRUSH",
+        "shape": [K6_LANES, head["numrep"]], "sm_clock_mhz": mhz,
+        "ms_by_path": paths, "plain_ms_by_path": plain,
+        "bound_by_path": bounds,
+        **k6["config"], **k6["ptxas"],
+    }
+
+
+def sharded_rank(rank: int, n: int, device: torch.device) -> dict:
+    """One of phase 9's ranks on the card: ``dryrun_multichip``'s checks,
+    then LRC k=12,m=4,l=4 encode and local repair of position 0 at
+    ``SHARDED_LRC`` (from ``default_rng(1)``) over a (stripe, group) mesh,
+    the repair against the encoded chunk and the encode against the host
+    ``lrc`` plugin on sampled stripes.  Returns ``dryrun_rank``'s result,
+    its launches counted over both."""
+    from ceph_tpu_torch.ec.plugins.lrc import ErasureCodeLrc
+    from ceph_tpu_torch.graft_entry import dryrun_rank
+    from ceph_tpu_torch.ops import gf2kernels
+    from ceph_tpu_torch.parallel import sharded_ec as se
+
+    out = dryrun_rank(rank, n, device)
+    k, m, l = 12, 4, 4
+    b, lgc, kg, lane = SHARDED_LRC
+    lmesh = se.lrc_make_mesh(n, lgc, device)
+    groups = se.SPECS["groups"]
+    data = np.random.default_rng(1).integers(0, 256, size=SHARDED_LRC,
+                                             dtype=np.uint8)
+    chunks = se.lrc_sharded_encode(lmesh, k, m, l,
+                                   se.local_block(data, lmesh, groups))
+    rec = se.lrc_sharded_local_repair(lmesh, k, m, l, 0, chunks)
+    if not torch.equal(rec[:, :, 0], chunks[:, :, 0]):
+        raise RuntimeError("LRC local repair differs from the encoded chunk")
+    codec = ErasureCodeLrc(device="cpu")        # the host oracle
+    codec.init({"k": str(k), "m": str(m), "l": str(l)})
+    lo = se.local_block(np.arange(b), lmesh, ("stripe",))[0].item()
+    g = lmesh.get_local_rank("group")
+    for i in (0, chunks.shape[0] - 1):
+        want = codec.encode(set(range(codec.get_chunk_count())),
+                            data[lo + i].reshape(-1).tobytes())
+        got = chunks[i, 0].cpu().numpy()
+        for j in range(l + 1):
+            if not np.array_equal(got[j], want[g * (l + 1) + j]):
+                raise RuntimeError(f"LRC chunk {g * (l + 1) + j} of stripe "
+                                   f"{lo + i} differs from the lrc plugin")
+    if rank == 0:
+        log(f"sharded LRC k={k} m={m} l={l} at {SHARDED_LRC} on mesh "
+            f"{se.mesh_shape(lmesh)}: encode == the lrc plugin on sampled "
+            f"stripes, local repair of position 0 byte-exact")
+    out["launches"] = dict(gf2kernels.LAUNCHES)
+    return out
+
+
+def phase_sharded(dev: torch.device, main: dict) -> dict:
+    """The sharded codec (``parallel/sharded_ec.py``) on the card.  World
+    size 1 at full width (an NCCL group; at one rank every collective
+    returns its input, so no NCCL operation runs), on the main path's
+    (1024, 8, 131072) data: ``sharded_ec_step`` with erasures [1, 9],
+    ``sharded_rmw`` of a 48 B write a stripe and
+    ``sharded_cross_recovery``, driven with the counts set to 0; each
+    output held against the plain version in slices and the host oracle
+    on sampled stripes, the recovered chunks against
+    the lost ones, the checksum against a host sum; each timed beside
+    ``MeshCodec.encode`` / ``decode`` on the same input.  Then
+    ``dryrun_multichip``'s checks on ``SHARDED_RANKS`` ranks on the one card
+    over gloo with CUDA tensors (NCCL refuses two ranks on one card), the
+    only run whose collectives move data, with LRC k=12,m=4,l=4 at
+    ``SHARDED_LRC``; then ``entry()``."""
+    import torch.distributed as dist
+    from ceph_tpu_torch import graft_entry
+    from ceph_tpu_torch.gf import build_decode_matrix, gen_rs_matrix
+    from ceph_tpu_torch.ops import gf2kernels as gk
+    from ceph_tpu_torch.parallel import MeshCodec
+    from ceph_tpu_torch.parallel import sharded_ec as se
+
+    b, k, m, l = MAIN
+    data, codec = main["data"], main["codec"]
+    gen = gen_rs_matrix(k + m, k)
+    erasures = [1, 9]
+    dec, idx = build_decode_matrix(gen, k, erasures)
+    w_par = torch.from_numpy(gk.bitmatrix_i8(gen[k:])).to(dev)
+    w_dec = torch.from_numpy(gk.bitmatrix_i8(dec)).to(dev)
+    piece = torch.from_numpy(np.random.default_rng(SEED + 50).integers(
+        0, 256, (b, 48), dtype=np.uint8)).to(dev)
+    delta = torch.zeros_like(data)
+    delta[:, 2, 40:88] = data[:, 2, 40:88] ^ piece
+    newdata = data.clone()
+    newdata[:, 2, 40:88] = piece
+
+    def gather(src: list, pick) -> torch.Tensor:
+        return torch.stack([src[0][:, i] if i < k else src[1][:, i - k]
+                            for i in pick], dim=1)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = se.make_mesh(1, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        parity, rec, csum = se.sharded_ec_step(mesh, gen, dec, idx, erasures,
+                                               k, data)
+        new_parity = se.sharded_rmw(mesh, gen, k, parity.clone(), delta)
+        rec2 = se.sharded_cross_recovery(mesh, dec, gather(
+            [newdata, new_parity], idx))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        dense = {n: launches[n] for n in gk.LAUNCHES}
+        if sum(dense.values()) != 4 or any(
+                v for n, v in launches.items() if n not in gk.LAUNCHES):
+            raise RuntimeError(f"the sharded codec's launches {launches}: "
+                               f"want 4 GF(2^8) kernel launches")
+        survivors = gather([data, parity], idx)
+        errs, plain_ms = {}, {}
+        for label, plain_w, x, out in (
+                ("encode", w_par, data, parity),
+                ("decode", w_dec, survivors, rec),
+                ("rmw", w_par, newdata, new_parity),
+                ("cross recovery", w_dec, gather([newdata, new_parity], idx),
+                 rec2)):
+            plain_ms[label], errs[label] = plain_in_slices(
+                lambda y, w=plain_w: gk.gf2_matmul_plain(w, y), x, out)
+            for i, want in zip((0, b // 2, b - 1), host_stripes(
+                    gen[k:] if plain_w is w_par else dec, x, (0, b // 2,
+                                                              b - 1))):
+                if not np.array_equal(out[i].cpu().numpy(), want):
+                    raise RuntimeError(f"sharded {label}: stripe {i} differs "
+                                       f"from the host oracle")
+        if any(errs.values()):
+            raise RuntimeError(f"the sharded codec differs from the plain "
+                               f"version: {errs}")
+        lost = torch.cat([data[:, 1:2], parity[:, 1:2]], dim=1)
+        if not torch.equal(rec, lost) or not torch.equal(rec2, torch.cat(
+                [newdata[:, 1:2], new_parity[:, 1:2]], dim=1)):
+            raise RuntimeError("the sharded codec's recovered chunks differ "
+                               "from the lost ones")
+        host_sum = int(rec.cpu().numpy().astype(np.int64).sum())
+        if int(csum) != host_sum & 0xFFFFFFFF or csum.shape != (1,):
+            raise RuntimeError(f"sharded_ec_step's checksum {int(csum)} vs "
+                               f"the host sum {host_sum} mod 2^32")
+        old = parity.clone()
+        mc = MeshCodec(device=dev)
+        # the step's parts beyond its two products: the survivor gather
+        # and the checksum's reduction (CUDA events)
+        parts = {
+            "survivor gather": time_ms(lambda: gather([data, parity], idx)),
+            "checksum": time_ms(lambda: rec.sum(dtype=torch.int64)
+                                & 0xFFFFFFFF)}
+        ms = {
+            "sharded_encode": time_ms(lambda: se.sharded_encode(
+                mesh, gen, k, data)),
+            "sharded_ec_step": time_ms(lambda: se.sharded_ec_step(
+                mesh, gen, dec, idx, erasures, k, data)),
+            "sharded_rmw": time_ms(lambda: se.sharded_rmw(
+                mesh, gen, k, old, delta)),
+            "sharded_cross_recovery": time_ms(
+                lambda: se.sharded_cross_recovery(mesh, dec, survivors)),
+            "MeshCodec.encode": time_ms(lambda: mc.encode(
+                codec, data, out_np=False)),
+            "MeshCodec.decode": time_ms(lambda: mc.decode(
+                codec, erasures, survivors, out_np=False)),
+        }
+    finally:
+        dist.destroy_process_group()
+    log(f"sharded codec, world size 1 (no collective runs), rs8/3 "
+        f"({b}, {k}, {l}): "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+        + f" (CUDA events; the step's survivor gather "
+        f"{parts['survivor gather']:.4f} ms, checksum "
+        f"{parts['checksum']:.4f} ms); step, rmw and cross recovery == the "
+        f"plain "
+        f"version (in slices, {sum(plain_ms.values()):.1f} ms) and the host "
+        f"oracle on 3 stripes, recovered == lost, checksum {int(csum)} == "
+        f"the host sum {host_sum} mod 2^32; launches {dense}")
+    del survivors, delta, newdata, parity, rec, new_parity, rec2, old
+
+    t0 = time.perf_counter()
+    ranks = graft_entry.spawn_ranks(sharded_rank, SHARDED_RANKS, "cuda",
+                                    "gloo", timeout=300)
+    ranks_s = time.perf_counter() - t0
+    rank_launches = {n: sum(r["launches"][n] for r in ranks)
+                     for n in gk.LAUNCHES}
+    if not sum(rank_launches.values()):
+        raise RuntimeError("the dry run's ranks launched no GF(2^8) kernel")
+    log(f"sharded dry run, {SHARDED_RANKS} ranks on the card over gloo with "
+        f"CUDA tensors (meshes {ranks[0]['mesh']}, {ranks[0]['lrc_mesh']}; "
+        f"LRC at {SHARDED_LRC}): every check held in {ranks_s:.1f} s; "
+        f"launches {rank_launches}")
+
+    reset_launches()
+    fn, (example,) = graft_entry.entry(device=dev)
+    out = fn(example)
+    torch.cuda.synchronize()
+    entry_launches = {n: gk.LAUNCHES[n] for n in gk.LAUNCHES}
+    plain = gk.gf2_matmul_plain(w_par, example[None])[0]
+    from ceph_tpu_torch.gf import gf_matmul
+    if not torch.equal(out, plain) or not np.array_equal(
+            out.cpu().numpy(), gf_matmul(gen[k:], example.cpu().numpy())):
+        raise RuntimeError("entry() differs from its plain version or the "
+                           "host oracle")
+    if not sum(entry_launches.values()):
+        raise RuntimeError("entry() launched no GF(2^8) kernel")
+    log(f"entry(): RS k=8,m=3 parity of {tuple(example.shape)} == the plain "
+        f"version and the host oracle; launches {entry_launches}")
+    return {"ms": ms, "parts": parts, "plain_ms": plain_ms, "errs": errs,
+            "launches": dense, "rank_launches": rank_launches,
+            "entry_launches": entry_launches, "ranks_s": ranks_s,
+            "checksum": int(csum), "host_sum": host_sum}
 
 
 def datapath_dense(rig, dev: torch.device) -> dict:
@@ -2274,10 +2794,11 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
                       osd: dict, repair: dict, rates: dict,
                       built: dict, placement: dict, table: dict,
-                      datapath: dict) -> dict:
+                      datapath: dict, k6: dict, sharded: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
-    K1, K2, K3 and K5 also with their other paths' times and bounds, K1, K2,
-    K4 and K5 with their launch configuration, K3 its design per digest."""
+    K1, K2, K3, K5 and K6 also with their other paths' times and bounds, K1,
+    K2, K4, K5 and K6 with their launch configuration, K3 its design per
+    digest; K1/K2 the sharded codec's paths (phase 9)."""
     from ceph_tpu_torch.ops import crc32c_batch as crc
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_schedule as xs
@@ -2321,7 +2842,9 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
             "source": "ceph_tpu_torch/csrc/gf2_matmul.cu",
             "replaces": replaces,
             "launches": launches[name] + sum(
-                drive[name] for drive in datapath["launches"].values()),
+                drive[name] for drive in datapath["launches"].values())
+            + sharded["launches"][name] + sharded["rank_launches"][name]
+            + sharded["entry_launches"][name],
             "max_abs_err": max(err, small_err[name]),
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
             "bound_ms": round(max(t_bytes, t_ops), 4),
@@ -2444,6 +2967,39 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
             repair["pmsr7_launches"]["gf2_matmul_popc"]}
     k1["config_by_path"] = {path_label("pmsr7/6 dense encode", enc7):
                             gk.popc_config(enc7[1], enc7[3], dev)}
+    # the sharded codec (phase 9): its launches on each kernel, and its
+    # functions' times at world size 1 on the row of the kernel that served
+    # them, beside MeshCodec's on the same input; bounds by bytes
+    for row in (k1, k2):
+        name = row["name"]
+        row["launches_by_path"].update({
+            "sharded codec, world size 1 (phase 9)":
+                sharded["launches"][name],
+            f"sharded dry run, {SHARDED_RANKS} gloo ranks on the card "
+            f"(phase 9)": sharded["rank_launches"][name],
+            "entry() (phase 9)": sharded["entry_launches"][name]})
+    served = k1 if sharded["launches"]["gf2_matmul_popc"] > \
+        sharded["launches"]["gf2_matmul_mma"] else k2
+    mb = 1 << 20
+    sb, sk, sm, sl = MAIN
+    stripe, parity_b, lost_b = sb * sk * sl, sb * sm * sl, sb * 2 * sl
+    sharded_bytes = {   # function: bytes in and out, world size 1
+        "sharded_encode": stripe + parity_b,
+        "sharded_ec_step": stripe + parity_b + lost_b + 8,
+        "sharded_rmw": stripe + 2 * parity_b,
+        "sharded_cross_recovery": stripe + lost_b,
+        "MeshCodec.encode": stripe + parity_b,
+        "MeshCodec.decode": stripe + lost_b}
+    served["sharded_step_parts_ms"] = {
+        name: round(v, 4) for name, v in sharded["parts"].items()}
+    for fn_name, nbytes in sharded_bytes.items():
+        key = f"{fn_name} rs8/3 ({sb},{sk},{sl}), world size 1"
+        served.setdefault("ms_by_path", {})[key] = round(
+            sharded["ms"][fn_name], 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        served.setdefault("bound_by_path", {})[key] = {
+            "bound_ms": round(t_bytes, 4), "bound_by": "bytes",
+            "bytes_mib": round(nbytes / mb, 1)}
 
     # K4 at the fused RS encode: the CRCs of (1024 x 11) rows of 131072 B in
     # one launch; the work's bound: each byte read once and each CRC written
@@ -2488,6 +3044,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     })
     k5 = placement_row(placement, mhz, table)
     rows.append(k5)
+    rows.append(k6_row(k6, table, mhz))
     r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
     log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
         f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
@@ -2528,15 +3085,21 @@ def main() -> int:
     placement = phase_placement(dev)
     t8e = time.perf_counter()
     table = phase_table(dev)
-    log(f"phase 8e, the epoch table: {time.perf_counter() - t8e:.1f} s")
+    k6 = phase_k6(dev)
+    log(f"phase 8e, the epoch table and K6: {time.perf_counter() - t8e:.1f} "
+        f"s")
     os.environ.pop("CEPH_TPU_NO_FUSED_CRC", None)   # the fused write CRCs
     with xor_sched_env(None):          # the data spine keeps its routing
         datapath = phase_datapath(dev)
     log(f"phase 8f, the data spine: {datapath['seconds']:.1f} s")
+    t9 = time.perf_counter()
+    with xor_sched_env(None):          # the sharded codec keeps its routing
+        sharded = phase_sharded(dev, main_inputs)
+    log(f"phase 9, the sharded codec: {time.perf_counter() - t9:.1f} s")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
                              repair, rates, built, placement, table,
-                             datapath)
+                             datapath, k6, sharded)
     log(json.dumps(line))
     peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
     log(f"peak device memory {peak / GiB:.2f} "

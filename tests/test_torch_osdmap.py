@@ -32,6 +32,7 @@ from ceph_tpu.mon.osdmap import (
     OsdInfo, PoolSpec, crush_to_dict as ref_crush_to_dict)
 from ceph_tpu.mon.pg_mapping import PGMapping as RefPGMapping
 from ceph_tpu.mon.pg_mapping import pool_pps as ref_pool_pps
+from ceph_tpu_torch.crush import rule_lanes
 from ceph_tpu_torch.crush.vectorized import Unexpressed, VectorCrush, seed_tensor
 from ceph_tpu_torch.mon import pg_mapping as pm_mod
 from ceph_tpu_torch.mon.osdmap import Incremental, OSDMap
@@ -442,17 +443,19 @@ MGR_POOL = PoolSpec(pool_id=1, name=".mgr", pg_num=1, pgp_num=1)
 
 
 class _Launches:
-    """A stand-in for K5's mapper on a device that is not the CPU (the
-    ``meta`` device stands in for the card here): the real mapper's
-    refusals, built on the CPU; each launch counted, its rows NONE."""
+    """Stand-ins for K5's and K6's mappers on a device that is not the CPU
+    (the ``meta`` device stands in for the card here): the real mappers'
+    refusals, built on the CPU; each launch counted (``n`` K5's, ``k6``
+    K6's), its rows NONE."""
 
     def __init__(self, monkeypatch):
-        self.n = 0
+        self.n = self.k6 = 0
         real = pm_mod._vector_crush_for
+        real_k6 = pm_mod._rule_lanes_for
+        launches = self
 
         def mapper(crush_map, ruleno, dev):
             vc = real(crush_map, ruleno, "cpu")
-            launches = self
 
             class Card:
                 firstn = vc.firstn
@@ -462,11 +465,22 @@ class _Launches:
                     return torch.full((xs.shape[0], numrep), 0,
                                       dtype=torch.int32, device=xs.device)
             return Card()
+
+        def general(crush_map, ruleno, dev):
+            real_k6(crush_map, ruleno, "cpu")
+
+            class Card:
+                def map_device(self, xs, numrep, w):
+                    launches.k6 += 1
+                    return torch.full((xs.shape[0], numrep), 0,
+                                      dtype=torch.int32, device=xs.device)
+            return Card()
         monkeypatch.setattr(pm_mod, "_vector_crush_for", mapper)
+        monkeypatch.setattr(pm_mod, "_rule_lanes_for", general)
 
         def no_sweep(*args, **kwargs):
             raise AssertionError("a card's seeds were mapped on the host")
-        monkeypatch.setattr(pm_mod, "crush_do_rule", no_sweep)
+        monkeypatch.setattr(rule_lanes, "crush_do_rule", no_sweep)
 
 
 @pytest.mark.parametrize("fused", ["auto", "always"])
@@ -500,10 +514,10 @@ def test_card_maps_nothing_without_a_launch(monkeypatch, case, fused):
 
 
 def test_card_refuses_the_host_sweep(monkeypatch):
-    """On the card ``fused="never"`` and a shape K5 does not express raise
-    ValueError (the second ``Unexpressed``): nothing falls back to the
-    host."""
-    _Launches(monkeypatch)
+    """On the card ``fused="never"`` raises ValueError, and a shape K5 does
+    not express (pre-jewel ``chooseleaf_stable`` 0) takes one K6 launch and
+    no K5 launch: nothing falls back to the host."""
+    launches = _Launches(monkeypatch)
     m = port_of(make_ref_map(29, [4, 4]))
     seeds = pm_mod.pool_seeds(MGR_POOL, "meta")
     with pytest.raises(ValueError, match="host"):
@@ -511,7 +525,10 @@ def test_card_refuses_the_host_sweep(monkeypatch):
                                fused="never")
     m.crush.tunables.chooseleaf_stable = 0
     with pytest.raises(Unexpressed, match="jewel"):
-        pm_mod.bulk_crush_rows(m.crush, 0, seeds, 3, m.osd_weights())
+        VectorCrush(m.crush, 0, device="cpu")
+    rows, used = pm_mod.bulk_crush_rows(m.crush, 0, seeds, 3, m.osd_weights())
+    assert used and (launches.n, launches.k6) == (0, 1)
+    assert rows.shape == (1, 3) and rows.device.type == "meta"
 
 
 def _card_route(monkeypatch) -> list:
@@ -559,17 +576,28 @@ def test_card_maps_straw_and_vary_r_0_with_k5(monkeypatch, kind):
 
 def test_card_raises_for_a_shape_k5_does_not_express(monkeypatch):
     """A map shape K5 does not express (a host bucket holding an osd and a
-    bucket) raises ``Unexpressed`` from the card's route, naming the rule:
-    no table, and no sweep on the host."""
+    bucket) takes K6 on the card's route, once a pool, and neither K5 nor
+    the host sweep: the table (K6's plain version here, on CPU seeds) equals
+    the reference's ``fused="never"`` build entry for entry, and every pool
+    counts as mapped by a kernel."""
     ref = make_ref_map(33, [3, 4])
-    m = port_of(ref)
-    host = m.crush.buckets[m.crush.buckets[-1].items[0]]
-    host.items.append(m.crush.buckets[-1].items[1])
+    host = ref.crush.buckets[ref.crush.buckets[-1].items[0]]
+    host.items.append(ref.crush.buckets[-1].items[1])
     host.item_weights.append(0x10000)
-    _card_route(monkeypatch)
+    m = port_of(ref)
+    with pytest.raises(Unexpressed, match="mixed osd/bucket"):
+        VectorCrush(m.crush, 0, device="cpu")
+    routed = _card_route(monkeypatch)
     monkeypatch.setattr(pm_mod, "_sweep", None)
-    with pytest.raises(Unexpressed, match="rule 0.*mixed osd/bucket"):
-        PGMapping.build(m)
+    k6 = []
+    real = pm_mod._rule_lanes_for
+    monkeypatch.setattr(pm_mod, "_rule_lanes_for",
+                        lambda *a: k6.append(a[1]) or real(*a))
+    monkeypatch.setattr(VectorCrush, "map_device", None)
+    pm = PGMapping.build(m)
+    assert sorted(routed) == sorted(k6) == [0, 1]
+    assert pm.fused_pools == len(ref.pools) and pm.scalar_pools == 0
+    assert_same_table(ref, RefPGMapping.build(ref, fused="never"), pm)
 
 
 def test_card_route_still_raises_a_kernel_failure():
