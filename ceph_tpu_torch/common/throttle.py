@@ -1,14 +1,133 @@
-"""FaultInjector (src/common/fault_injector.h:66 analog).
+"""Throttle, Finisher, FaultInjector (src/common analogs).
 
-Port of the injector half of ``ceph_tpu/common/throttle.py``: typed,
-targeted failure injection for tests -- arm a site by name with a
-probability or a countdown; hot paths call check()/maybe_raise().  The
-object stores' reads are wired sites ("objectstore_read": EIO).
+Port of ``ceph_tpu/common/throttle.py``, host code:
+
+  * Throttle (src/common/Throttle.h): async token bucket with
+    backpressure -- get() waits while the budget is exhausted, FIFO
+    fair.  The OSD caps in-flight client op bytes with one
+    (osd_client_message_size_cap).
+  * Finisher (src/common/Finisher.h): ordered completion queue -- one
+    drain task executes callbacks strictly in queue order.
+  * FaultInjector (src/common/fault_injector.h:66): typed, targeted
+    failure injection for tests -- arm a site by name with a
+    probability or a countdown; hot paths call check()/maybe_raise().
+    Wired consumers: the object stores' reads ("objectstore_read": EIO)
+    and the messenger's socket failures.
 """
 
 from __future__ import annotations
 
+import asyncio
 import random
+from collections import deque
+from typing import Awaitable, Callable
+
+
+class Throttle:
+    def __init__(self, name: str, limit: int) -> None:
+        self.name = name
+        self.limit = limit
+        self.current = 0
+        self._waiters: deque[tuple[int, asyncio.Future]] = deque()
+
+    def _wake(self) -> None:
+        while self._waiters:
+            count, fut = self._waiters[0]
+            if self.current + count > self.limit and self.current > 0:
+                break
+            self._waiters.popleft()
+            if not fut.done():
+                self.current += count
+                fut.set_result(None)
+
+    async def get(self, count: int = 1) -> None:
+        """Take ``count`` tokens, waiting while over limit.  A single
+        request larger than the whole limit is admitted alone rather
+        than deadlocking (Throttle::get oversized semantics)."""
+        if count < 0:
+            raise ValueError("negative throttle count")
+        if (self.current + count <= self.limit or self.current == 0) \
+                and not self._waiters:
+            self.current += count
+            return
+        fut = asyncio.get_event_loop().create_future()
+        self._waiters.append((count, fut))
+        try:
+            await fut
+        except asyncio.CancelledError:
+            # Task.cancel() cancels the FUTURE (fut.done() is True but
+            # no tokens were granted); only a future _wake resolved
+            # with a result actually took tokens and owes a put()
+            if fut.cancelled():
+                try:
+                    self._waiters.remove((count, fut))
+                except ValueError:
+                    pass
+                self._wake()     # our slot may have blocked others
+            else:
+                self.put(count)
+            raise
+
+    def get_or_fail(self, count: int = 1) -> bool:
+        if self.current + count > self.limit and self.current > 0:
+            return False
+        self.current += count
+        return True
+
+    def put(self, count: int = 1) -> None:
+        self.current = max(0, self.current - count)
+        self._wake()
+
+    def past_midpoint(self) -> bool:
+        return self.current * 2 >= self.limit
+
+
+class Finisher:
+    """Ordered completion runner: queue() preserves execution order."""
+
+    def __init__(self, name: str = "fin") -> None:
+        self.name = name
+        self._q: asyncio.Queue = asyncio.Queue()
+        self._task: asyncio.Task | None = None
+        self._drained = asyncio.Event()
+        self._drained.set()
+
+    def start(self) -> None:
+        if self._task is None or self._task.done():
+            self._task = asyncio.ensure_future(self._run())
+
+    def queue(self, fn: Callable[[], None | Awaitable]) -> None:
+        self._drained.clear()
+        self._q.put_nowait(fn)
+        self.start()
+
+    async def _run(self) -> None:
+        try:
+            while True:
+                if self._q.empty():
+                    self._drained.set()
+                fn = await self._q.get()
+                try:
+                    out = fn()
+                    if asyncio.iscoroutine(out):
+                        await out
+                except Exception:
+                    pass                      # completions never kill the drain
+        except asyncio.CancelledError:
+            pass
+
+    async def wait_for_empty(self) -> None:
+        await self._drained.wait()
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
 
 
 class FaultInjector:

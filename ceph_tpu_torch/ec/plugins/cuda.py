@@ -50,8 +50,8 @@ class ErasureCodeCuda(ErasureCodeIsa):
         return self.decode_entry(erasures)[0]
 
 
-def _factory(profile):
-    return ErasureCodeCuda(profile.get("technique", K_VANDERMONDE))
+def _factory(profile, device=None):
+    return ErasureCodeCuda(profile.get("technique", K_VANDERMONDE), device)
 
 
 def __erasure_code_init__(registry, name: str) -> None:

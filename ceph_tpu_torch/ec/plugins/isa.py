@@ -65,7 +65,8 @@ class ErasureCodeIsa(RSMatrixCodec):
         super().init(profile)
 
 
-def _factory(profile):
+def _factory(profile, device=None):
+    # host codec: runs on the CPU whatever the caller's device
     return ErasureCodeIsa(profile.get("technique", K_VANDERMONDE))
 
 

@@ -286,8 +286,8 @@ class ErasureCodeLrc(LinearSubchunkCodec):
         return 32
 
 
-def _factory(profile):
-    return ErasureCodeLrc()
+def _factory(profile, device=None):
+    return ErasureCodeLrc(device)
 
 
 def __erasure_code_init__(registry, name: str) -> None:

@@ -259,8 +259,8 @@ class ErasureCodePmsr(LinearSubchunkCodec):
         return {h: [(0, 1)] for h in helpers}
 
 
-def _factory(profile):
-    return ErasureCodePmsr()
+def _factory(profile, device=None):
+    return ErasureCodePmsr(device)
 
 
 def __erasure_code_init__(registry, name: str) -> None:

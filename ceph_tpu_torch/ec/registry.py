@@ -2,7 +2,11 @@
 
 Plugins are named factories resolved at first use by importing
 ``ceph_tpu_torch.ec.plugins.<name>`` and running its entry point; the
-profile-echo check is kept.
+profile-echo check is kept.  The device a codec runs on travels beside
+the profile (``factory(name, profile, device=...)``), never inside it: a
+profile is what the OSDMap carries to every daemon and client.  The
+plugins that run on a device (``cuda``, ``lrc``, ``pmsr``) take it; the
+host plugin ``isa`` ignores it.
 """
 
 from __future__ import annotations
@@ -24,14 +28,16 @@ DEFAULT_PLUGIN_PACKAGE = "ceph_tpu_torch.ec.plugins"
 class ErasureCodePlugin:
     """A named factory."""
 
-    def __init__(self, factory: Callable[[ErasureCodeProfile],
-                                         ErasureCodeInterface],
+    def __init__(self, factory: Callable[..., ErasureCodeInterface],
                  api_version: int = PLUGIN_API_VERSION) -> None:
         self.api_version = api_version
         self._factory = factory
 
-    def factory(self, profile: ErasureCodeProfile) -> ErasureCodeInterface:
-        codec = self._factory(profile)
+    def factory(self, profile: ErasureCodeProfile,
+                device=None) -> ErasureCodeInterface:
+        """``self._factory(profile, device)``: ``device`` as for
+        ``ErasureCodePluginRegistry.factory``."""
+        codec = self._factory(profile, device)
         codec.init(profile)
         return codec
 
@@ -81,13 +87,17 @@ class ErasureCodePluginRegistry:
             return plugin
 
     def factory(
-        self, plugin_name: str, profile: ErasureCodeProfile,
+        self, plugin_name: str, profile: ErasureCodeProfile, device=None,
     ) -> ErasureCodeInterface:
-        """Load (if needed) and instantiate a codec; verify the profile echo."""
+        """Load (if needed) and instantiate a codec; verify the profile echo.
+
+        ``device`` is where a device plugin's codec runs: CUDA unless the
+        caller names the CPU (``None`` resolves to CUDA and raises
+        without a card)."""
         plugin = self._plugins.get(plugin_name)
         if plugin is None:
             plugin = self.load(plugin_name)
-        codec = plugin.factory(profile)
+        codec = plugin.factory(profile, device)
         echoed = codec.get_profile()
         for key, val in profile.items():
             if key not in echoed:

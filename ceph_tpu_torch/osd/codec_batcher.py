@@ -39,6 +39,7 @@ stripes-per-batch histogram, padding waste and flush reasons.
 from __future__ import annotations
 
 import asyncio
+from collections import Counter
 
 import numpy as np
 import torch
@@ -141,6 +142,8 @@ class CodecBatcher:
         self.device = device
         self._groups: dict[tuple, _Group] = {}
         self._closed = False
+        # completed launches by (kind, launch batch shape, erasures)
+        self.launch_shapes: Counter = Counter()
         if perf is not None:
             perf.hist_register("stripes_per_batch", STRIPE_HIST_BUCKETS)
 
@@ -532,6 +535,8 @@ class CodecBatcher:
                 self.perf.inc("crc_host_batches")
         row = 0
         lane = st.lane
+        self.launch_shapes[(grp.kind, tuple(st.batch.shape),
+                            tuple(grp.extra))] += 1
         for a, fut, w, _ in items:
             n, _, l = a.shape
             if not fut.done():

@@ -2,7 +2,8 @@
 """Drive the port's main paths on one CUDA card and check them: the
 erasure-code stripe codec, bulk CRUSH placement, the epoch placement table
 (K5 and, for the map shapes K5 does not express, K6), the OSD shard data
-spine and the sharded codec over ``torch.distributed``.
+spine, the sharded codec over ``torch.distributed`` and the RADOS cluster
+(monitor, OSDs and a librados client over the messenger).
 
     python3 chip_smoke.py
 
@@ -147,9 +148,28 @@ Phases, one line each; any failure exits non-zero and prints no result:
     over gloo with CUDA tensors (the only run whose collectives move
     data), LRC k=12,m=4,l=4 also at (64, 4, 3, 131072); then
     ``graft_entry.entry()`` against its plain version and the host oracle;
-10. a ``kernels`` JSON line: per kernel its launches on its paths (phases
-    4, 8f and 9 for K1/K2, phases 6-7 for K3, phases 8c and 8f for K4, phases
-    8d-8e for K5, phase 8e for K6), its
+10. the RADOS cluster (``tools/ec_osd_bench.py``'s ``ClusterDrive``): a
+    monitor, 12 OSDs (one a host, MemStore, the shard cache at 64 MiB) and a
+    librados client in one process on the card, an EC pool on plugin=cuda RS
+    k=8,m=3 at a 4 KiB stripe unit and pg_num 32, 128 objects of 4 MiB:
+    write_full at concurrency 16 (a warm round, 2 timed rounds, one round of
+    16 objects under ``torch.profiler``, one of 16 under cProfile), a read
+    sweep, one OSD killed and marked down (kept in), a degraded read sweep,
+    a degraded write of half the objects, the OSD revived and recovered from
+    the PG logs, a read sweep, ``scrub_ec`` of every PG on its primary.
+    Checked: every read equals its source; 8 sampled objects' shards on
+    every OSD and every shard of the revived OSD equal the host encode (the
+    ``isa`` plugin), each CRC tag the host engine's; K2, K4 and K5 launched,
+    K4 in the scrub; stripes a launch above 1, no fallback; no scrub
+    inconsistency; the dense kernel at the write's and the degraded read's
+    launch shapes, K4 at the write's CRC rows and K5 at the pool against
+    their plain versions. Printed: the rates (host clock), batching and
+    flush reasons, boot, mark-down, recovery and scrub seconds, the card's
+    busy share (the profiled round's kernels and copies over its wall time),
+    the host split of the cProfile'd round, launches by stage;
+11. a ``kernels`` JSON line: per kernel its launches on its paths (phases
+    4, 8f, 9 and 10 for K1/K2, phases 6-7 for K3, phases 8c, 8f and 10 for
+    K4, phases 8d, 8e and 10 for K5, phase 8e for K6), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -162,7 +182,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     blocks per SM and spill or local bytes as the CUDA runtime reports
     them (K5 also ptxas's registers and spill bytes), and K3 per digest
     its design, shared memory, and ptxas's registers and spill bytes;
-11. the result line {"ok": true, "device": {...}}.
+12. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; a kernel of the path that did not launch fails the run.
@@ -172,6 +192,7 @@ It needs one card; without one it exits with code 2 before doing anything.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -285,6 +306,25 @@ SHARDED_RANKS = 4
 DATAPATH = dict(k=8, m=3, n_objects=128, obj_bytes=4 << 20, passes=2,
                 reads_per_pass=2, stripe_unit=4096, max_batch=8192)
 DATAPATH_PLAIN_SAMPLE = 8        # device views held against K4's plain version
+# phase 10, the RADOS cluster (tools/ec_osd_bench.py's ClusterDrive): one
+# monitor and 12 OSDs, one a host (RS k=8,m=3 needs 11 hosts for failure
+# domain host; the 12th is where recovery can go), MemStore (the reference
+# cluster's default store), the shard cache at its default 64 MiB an OSD; an
+# EC pool on plugin=cuda k=8 m=3 reed_sol_van (BASELINE.json's code) at
+# the pool's default stripe unit, Ceph's 4 KiB, and osd_pool_default_pg_num
+# 32; 128 objects of RBD's default 4 MiB (512 MiB logical, 704 MiB stored).
+# write_full at concurrency 16, a warm round and 2 timed rounds; a read
+# sweep; one OSD killed and marked down (kept in: mon_osd_down_out_interval
+# long); a degraded read sweep; a degraded write round over half of the
+# objects; the OSD
+# revived and recovered from the PG logs; a read sweep; scrub_ec of every PG
+# on its primary.  Nothing is cut.
+CLUSTER = dict(n_osds=12, k=8, m=3, pg_num=32, n_objects=128,
+               obj_bytes=4 << 20, concurrency=16, rounds=2)
+CLUSTER_STRIPE_UNIT = 4096       # the pool's default; the host oracle's
+CLUSTER_ORACLE_SAMPLE = 8        # objects whose every shard the host checks
+CLUSTER_PROFILED_OBJECTS = 16    # objects of the torch.profiler write round
+CLUSTER_HOST_OBJECTS = 16        # objects of the cProfile'd write round
 
 
 def log(msg: str) -> None:
@@ -2728,6 +2768,437 @@ def phase_datapath(dev: torch.device) -> dict:
             "seconds": secs}
 
 
+@contextlib.contextmanager
+def card_busy(out: dict):
+    """The card's busy time over the block by ``torch.profiler`` (CUDA
+    activity only): kernel and copy time over the block's wall time, into
+    ``out``.  Where the profiler sees no device time, ``out["kernel_s"]``
+    stays None ("not measured")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+    kernel = copy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copy += e.self_device_time_total
+        else:
+            kernel += e.self_device_time_total
+    out["kernel_s"] = kernel / 1e6 if kernel else None
+    out["copy_s"] = copy / 1e6 if kernel else None
+
+
+# where a host second of the cluster goes, by the file (or builtin) that
+# spent it (cProfile's own time)
+HOST_BUCKETS = (
+    ("messenger (msg/)", ("/ceph_tpu_torch/msg/",)),
+    ("host CRC engine (native.py)", ("/ceph_tpu_torch/native.py",)),
+    ("store commit and reads (os/)", ("/ceph_tpu_torch/os/",)),
+    ("batcher (marshal, fan-out)", ("/ceph_tpu_torch/osd/codec_batcher.py",)),
+    ("codec wrappers (ops/, parallel/, ec/)",
+     ("/ceph_tpu_torch/ops/", "/ceph_tpu_torch/parallel/",
+      "/ceph_tpu_torch/ec/")),
+    ("PG, backend, OSD (osd/)", ("/ceph_tpu_torch/osd/",)),
+    ("client (client/)", ("/ceph_tpu_torch/client/",)),
+    ("maps and placement (mon/, crush/)",
+     ("/ceph_tpu_torch/mon/", "/ceph_tpu_torch/crush/")),
+    ("common (denc, counters, config)", ("/ceph_tpu_torch/common/",)),
+    ("event loop and sockets", ("/asyncio/", "selectors.py", "socket",
+                                "select", "epoll")),
+    ("torch (copies, launches)", ("/torch/", "torch.", "Tensor")),
+    ("numpy", ("/numpy/", "numpy.")),
+)
+HOST_FUNCS = (   # (file suffix, function): cumulative seconds
+    ("osd/codec_batcher.py", "_marshal"),
+    ("osd/codec_batcher.py", "_dispatch"),
+    ("osd/codec_batcher.py", "_complete"),
+    ("os/store.py", "queue_transaction"),
+    ("msg/message.py", "encode"),
+    ("msg/message.py", "unwrap_frame"),
+    ("msg/message.py", "_decode_meta"),
+    ("ceph_tpu_torch/native.py", "crc32c"),
+    ("ops/crc32c_batch.py", "crc32c_batch"),
+)
+
+
+def host_split(stats) -> dict:
+    """cProfile's own time by ``HOST_BUCKETS``, and ``HOST_FUNCS``'
+    cumulative seconds."""
+    buckets: dict[str, float] = {}
+    funcs: dict[str, float] = {}
+    for (fname, _, func), (_, _, tt, ct, _) in stats.stats.items():
+        where = f"{fname} {func}"
+        name = next((label for label, keys in HOST_BUCKETS
+                     if any(key in where for key in keys)), "other")
+        buckets[name] = buckets.get(name, 0.0) + tt
+        for suffix, fn in HOST_FUNCS:
+            if fname.endswith(suffix) and func == fn:
+                funcs[f"{suffix}:{fn}"] = funcs.get(f"{suffix}:{fn}", 0) + ct
+    total = sum(buckets.values())
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    return {"total_s": total,
+            "by_bucket": {k: v for k, v in sorted(
+                buckets.items(), key=lambda kv: -kv[1])},
+            "functions_cumulative_s": funcs,
+            "top_own_s": {f"{fname.rsplit('/', 2)[-1]}:{func}": st[2]
+                          for (fname, _, func), st in top}}
+
+
+def cluster_shards(drive, oid: str) -> dict:
+    """(osd, shard label) -> (bytes, CRC tag) of ``oid`` on every live
+    OSD's store."""
+    from ceph_tpu_torch.osd.backend import CRC_XATTR, SHARD_XATTR
+    omap = drive.cluster.mon.osdmap
+    _, ps = omap.object_to_pg(drive.pool_id, oid)
+    coll = f"pg_{omap.pg_name(drive.pool_id, ps)}"
+    out = {}
+    for osd in drive.cluster.osds:
+        if osd.is_stopped() or not osd.store.exists(coll, oid):
+            continue
+        label = osd.store.getattr(coll, oid, SHARD_XATTR)
+        crc = osd.store.getattr(coll, oid, CRC_XATTR)
+        out[(osd.whoami, int(label))] = (
+            bytes(osd.store.read(coll, oid, 0, None)),
+            None if crc is None else int(crc))
+    return out
+
+
+def cluster_oracle(drive) -> dict:
+    """The host oracle: ``CLUSTER_ORACLE_SAMPLE`` objects' shards on every
+    OSD, and every shard the revived OSD holds, against the port's host
+    encode of the same object (``gf.gf_matmul`` through the ``isa`` plugin on
+    the CPU, ``StripeInfo.encode``); each shard's CRC tag against
+    ``native.crc32c`` of its bytes."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    isa = registry().factory("isa", {"k": str(CLUSTER["k"]),
+                                     "m": str(CLUSTER["m"]),
+                                     "technique": "reed_sol_van"})
+    sinfo = StripeInfo.for_codec(isa, stripe_unit=CLUSTER_STRIPE_UNIT)
+    width = CLUSTER["k"] + CLUSTER["m"]
+    rng = np.random.default_rng(SEED + 100)
+    sample = sorted(rng.choice(drive.oids, CLUSTER_ORACLE_SAMPLE,
+                               replace=False))
+    checked = revived = 0
+    for oid in drive.oids:
+        shards = cluster_shards(drive, oid)
+        mine = {k: v for k, v in shards.items() if k[0] == drive.victim}
+        if oid not in sample and not mine:
+            continue
+        want = sinfo.encode(isa, drive.src[oid])
+        todo = shards if oid in sample else mine
+        if oid in sample and sorted(s for _, s in shards) != \
+                list(range(width)):
+            raise RuntimeError(f"cluster: {oid} has shards "
+                               f"{sorted(shards)}, want one of each of "
+                               f"{width}")
+        for (whoami, label), (raw, tag) in todo.items():
+            if raw != want[label].tobytes():
+                raise RuntimeError(f"cluster: osd.{whoami}'s shard {label} "
+                                   f"of {oid} differs from the host encode")
+            if tag != native.crc32c(raw):
+                raise RuntimeError(f"cluster: osd.{whoami}'s CRC tag of "
+                                   f"shard {label} of {oid} differs from "
+                                   f"the host engine's")
+            checked += 1
+            revived += whoami == drive.victim
+    if revived == 0:
+        raise RuntimeError(f"cluster: the revived osd.{drive.victim} holds no "
+                           f"shard to check")
+    return {"shards_checked": checked, "revived_shards_checked": revived,
+            "sample": list(sample)}
+
+
+def cluster_kernels(drive, launched: dict, dev: torch.device) -> dict:
+    """The kernels at the cluster's launch shapes, on its stored shards:
+    the dense kernel of the most frequent encode and decode launch against
+    its plain version (in slices) and the stored parity or shard; K4 over
+    that encode's data and parity rows against its plain version, the host
+    engine and the stored tags (folded); K5 on the pool's seeds against its
+    plain version.  Times by CUDA events."""
+    from ceph_tpu_torch.mon import pg_mapping as pgm
+    from ceph_tpu_torch.ops import crc32c_batch as crc
+    from ceph_tpu_torch.ops import gf2kernels as gk
+    k, m, chunk = CLUSTER["k"], CLUSTER["m"], CLUSTER_STRIPE_UNIT
+    per = CLUSTER["obj_bytes"] // (k * chunk)
+    codec = next(pg.backend.codec for osd in drive.cluster.osds
+                 for pgid, pg in osd.pgs.items()
+                 if pgid.startswith(f"{drive.pool_id}."))
+
+    def by_label(oid):
+        """shard label -> (bytes, CRC tag) of ``oid``."""
+        return {lab: val for (_, lab), val in
+                cluster_shards(drive, oid).items()}
+
+    def rows_of(objs, labels, b):
+        """(b, len(labels), chunk): the objects' shards at ``labels`` as
+        stripes, zero rows past them (the batcher's padding)."""
+        parts = []
+        for oid in objs:
+            sh = by_label(oid)
+            parts.append(np.stack([np.frombuffer(sh[lab][0], np.uint8)
+                                   .reshape(per, chunk) for lab in labels],
+                                  axis=1))
+        arr = np.concatenate(parts)[:b]
+        if arr.shape[0] < b:
+            arr = np.concatenate([arr, np.zeros(
+                (b - arr.shape[0], len(labels), chunk), np.uint8)])
+        return torch.from_numpy(arr).to(dev)
+
+    def top(kind):
+        keys = [key for key in launched if key[0] == kind]
+        if not keys:
+            raise RuntimeError(f"cluster: no {kind} launch through the "
+                               f"OSDs' batchers")
+        return max(keys, key=lambda key: launched[key])
+
+    out = {}
+    enc_key, dec_key = top("encode"), top("decode")
+    for label, (kind, shape, erasures) in (("encode", enc_key),
+                                           ("decode", dec_key)):
+        b = shape[0]
+        objs = drive.oids[:-(-b // per)]
+        if kind == "encode":
+            mat = codec.encode_matrix[k:]
+            src, dst = list(range(k)), list(range(k, k + m))
+        else:
+            mat, index = codec.decode_entry(list(erasures))
+            src, dst = list(index), list(erasures)
+            label = f"decode{list(erasures)}"
+        mat = np.ascontiguousarray(mat, np.uint8)
+        data, want = rows_of(objs, src, b), rows_of(objs, dst, b)
+        r = mat.shape[0]
+        name, g = gk.dense_kernel_for(b, k, r, chunk)
+        if name == "gf2_matmul_mma":
+            w = torch.from_numpy(gk.w_gN_planemajor(mat, g)).to(dev)
+            kernel = lambda: gk.gf2_matmul_mma(mat, data, g)  # noqa: E731
+            plain = lambda x: gk.gf2_matmul_grouped_plain(w, x, g)  # noqa: E731
+        else:
+            w = torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev)
+            kernel = lambda: gk.gf2_matmul_popc(mat, data)  # noqa: E731
+            plain = lambda x: gk.gf2_matmul_plain(w, x)  # noqa: E731
+        got = kernel()
+        plain_ms, err = plain_in_slices(plain, data, got)
+        if err or not torch.equal(got, want):
+            raise RuntimeError(f"cluster {label}: {name} differs from its "
+                               f"plain version ({err}) or the stored shards")
+        ms = time_ms(kernel)
+        out[label] = {"name": name, "g": g, "shape": [b, k, chunk], "r": r,
+                      "ms": ms, "plain_ms": plain_ms, "err": err,
+                      "launches": launched[(kind, shape, erasures)]}
+        log(f"cluster {label} at the path's launch shape ({b}, {k}, {chunk})"
+            f" -> {r} ({launched[(kind, shape, erasures)]} launches): {name} "
+            f"{ms:.4f} ms (CUDA events), plain {plain_ms:.2f} ms, == its "
+            f"plain version and the stored shards")
+        if kind == "encode":
+            # K4 over the encode's data and parity rows, as the fused
+            # write CRCs run it
+            b_obj = len(objs) * per
+            rows = torch.cat([data[:b_obj], want[:b_obj]], dim=1).reshape(
+                -1, chunk)
+            k4 = crc.to_uint32(crc.crc32c_chunks(rows))
+            plain_t0 = time.perf_counter()
+            k4_plain = crc.to_uint32(crc.crc32c_chunks_plain(rows))
+            torch.cuda.synchronize()
+            k4_plain_ms = (time.perf_counter() - plain_t0) * 1e3
+            host = crc.crc32c_rows(rows.cpu().numpy())
+            tags = np.asarray([by_label(oid)[lab][1] for oid in objs
+                               for lab in range(k + m)], np.uint32)
+            folded = np.asarray(crc.fold_chunk_crcs(
+                k4.reshape(len(objs), per, k + m).transpose(1, 0, 2).reshape(
+                    per, -1), chunk), np.uint32).reshape(-1)
+            if not (np.array_equal(k4, k4_plain) and np.array_equal(k4, host)
+                    and np.array_equal(folded, tags)):
+                raise RuntimeError("cluster: K4 differs from its plain "
+                                   "version, the host engine or the stored "
+                                   "tags at the write's CRC rows")
+            out["crc"] = {"shape": list(rows.shape), "err": 0,
+                          "ms": time_ms(lambda: crc.crc32c_chunks(rows)),
+                          "plain_ms": k4_plain_ms}
+            log(f"cluster K4 over the write's {tuple(rows.shape)} CRC rows: "
+                f"{out['crc']['ms']:.4f} ms (CUDA events), plain "
+                f"{k4_plain_ms:.1f} ms (host clock), == its plain version, "
+                f"the host engine and the stored tags")
+    # K5 at the pool's table: rule 1, size k+m, pg_num lanes
+    omap = drive.cluster.mon.osdmap
+    pool = omap.pools[drive.pool_id]
+    weights = omap.osd_weights()
+    seeds = pgm.pool_seeds(pool, dev)
+    vc = pgm._vector_crush_for(omap.crush, pool.crush_rule, dev)
+    rows5 = vc.map_device(seeds, pool.size, weights)
+    plain5 = pgm._vector_crush_for(omap.crush, pool.crush_rule,
+                                   torch.device("cpu")).map_device(
+        seeds.cpu(), pool.size, weights)
+    err5 = int((rows5.cpu().long() - plain5.long()).abs().max())
+    cpu_map = type(omap).from_dict(omap.to_dict(), device="cpu")
+    card, host_tab = (omap.placement_cache().tables()[drive.pool_id],
+                      cpu_map.placement_cache().tables()[drive.pool_id])
+    if err5 or not all(np.array_equal(a, b) for a, b in zip(card, host_tab)):
+        raise RuntimeError("cluster: K5 differs from its plain version, or "
+                           "the card's table from the CPU's, at the pool")
+    out["placement"] = {"lanes": pool.pg_num, "numrep": pool.size,
+                        "err": err5,
+                        "ms": time_ms(lambda: vc.map_device(seeds, pool.size,
+                                                            weights))}
+    log(f"cluster K5 at the pool's {pool.pg_num} lanes x{pool.size}: "
+        f"{out['placement']['ms']:.4f} ms (CUDA events), == its plain version;"
+        f" the card's table == the CPU's")
+    return out
+
+
+def phase_cluster(dev: torch.device) -> dict:
+    """The RADOS cluster on the card at ``CLUSTER``: ``ClusterDrive``
+    (``tools/ec_osd_bench.py``) through the daemons' entry points, every
+    daemon on ``dev``.  The launch counts are set to 0 just before the boot
+    and read after the scrub, by stage.  Checks: every read equals its
+    source; the host oracle on sampled objects and on the revived OSD;
+    K2, K4 and K5 launched; stripes a launch above 1; no scrub
+    inconsistency and K4 launched in the scrub; the kernels at the path's
+    shapes against their plain versions."""
+    import asyncio
+    import cProfile
+    import pstats
+    from ceph_tpu_torch.tools.ec_osd_bench import ClusterDrive
+
+    drive = ClusterDrive(**CLUSTER, device=dev)
+    stages: dict[str, dict] = {}
+    busy: dict = {}
+    osds: list = []                  # every OSD of the phase, the killed one too
+    loop = asyncio.new_event_loop()
+
+    async def run():
+        reset_launches()
+        last = launch_counts()
+
+        def mark(stage):
+            nonlocal last
+            torch.cuda.synchronize()
+            now = launch_counts()
+            stages[stage] = {k: now[k] - last[k] for k in now
+                             if now[k] != last[k]}
+            last = now
+
+        await drive.boot()
+        osds.extend(drive.cluster.osds)
+        mark("boot")
+        await drive.write_rounds()
+        mark("write")
+        objs = list(drive.src.items())
+        with card_busy(busy):
+            busy["objects"] = len(objs[:CLUSTER_PROFILED_OBJECTS])
+            await drive.write(dict(objs[:CLUSTER_PROFILED_OBJECTS]))
+        mark("torch.profiler write")
+        prof = cProfile.Profile()
+        prof.enable()
+        host_s = await drive.write(dict(objs[:CLUSTER_HOST_OBJECTS]))
+        prof.disable()
+        mark("cProfile write")
+        await drive.read_sweep("read")
+        mark("read")
+        await drive.kill()
+        mark("kill")
+        await drive.read_sweep("degraded_read")
+        mark("degraded read")
+        await drive.degraded_write()
+        mark("degraded write")
+        await drive.revive()
+        osds.append(drive.revived_osd())
+        mark("revive and recovery")
+        await drive.read_sweep("read_after_recovery")
+        mark("read after recovery")
+        await drive.scrub()
+        mark("scrub")
+        return prof, host_s
+
+    t0 = time.perf_counter()
+    try:
+        prof, host_s = loop.run_until_complete(run())
+        launches = {}
+        for counts in stages.values():
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+        secs = time.perf_counter() - t0
+        rep = drive.report
+        if rep["mismatches"]:
+            raise RuntimeError(f"cluster: reads differ from their source: "
+                               f"{rep['mismatches'][:5]}")
+        if rep["scrub_inconsistent"] or \
+                rep["scrub_objects"] != CLUSTER["n_objects"]:
+            raise RuntimeError(f"cluster: scrub found "
+                               f"{rep['scrub_inconsistent']} over "
+                               f"{rep['scrub_objects']} objects")
+        occ = rep["write_occupancy"]
+        if occ["stripes_per_launch"] <= 1 or occ["fallback_ops"] \
+                or occ["mesh"]["fallbacks"]:
+            raise RuntimeError(f"cluster: write batching {occ}")
+        for name in ("gf2_matmul_mma", "crc32c_chunks", "crush_map_rule"):
+            if not launches.get(name):
+                raise RuntimeError(f"cluster: {name} never launched; "
+                                   f"launches by stage {stages}")
+        if not stages.get("scrub", {}).get("crc32c_chunks"):
+            raise RuntimeError(f"cluster: the scrub launched no K4 "
+                               f"({stages.get('scrub')})")
+        launched = sum((osd.codec_batcher.launch_shapes for osd in osds),
+                       collections.Counter())
+        oracle = cluster_oracle(drive)
+        kernels = cluster_kernels(drive, launched, dev)
+        split = host_split(pstats.Stats(prof))
+    finally:
+        loop.run_until_complete(drive.stop())
+        loop.close()
+    wall = busy["wall_s"]
+    summary = drive.summary()
+    log(f"cluster ({CLUSTER['n_osds']} OSDs, RS k={CLUSTER['k']},"
+        f"m={CLUSTER['m']} on cuda, pg_num {CLUSTER['pg_num']}, "
+        f"{CLUSTER['n_objects']} objects of {CLUSTER['obj_bytes'] >> 10} KiB, "
+        f"MemStore; nothing cut): write {rep['write_GiBps']:.4f} GiB/s over "
+        f"{CLUSTER['rounds']} timed rounds ({rep['write_s']:.3f} s; warm "
+        f"round {rep['warm_write_s']:.3f} s), read {rep['read_GiBps']:.4f}, "
+        f"degraded read {rep['degraded_read_GiBps']:.4f}, degraded write "
+        f"{rep['degraded_write_GiBps']:.4f}, read after recovery "
+        f"{rep['read_after_recovery_GiBps']:.4f} GiB/s (host clock); boot "
+        f"{rep['boot_s']:.2f} s, mark down {rep['mark_down_s']:.2f} s, "
+        f"recovery {rep['recovery_s']:.3f} s, scrub {rep['scrub_s']:.3f} s "
+        f"({rep['scrub_objects']} objects, clean)")
+    log(f"cluster write batching (timed rounds): {occ['stripes_per_launch']} "
+        f"stripes a launch over {occ['batches']} launches, flush reasons "
+        f"{occ['flush_reasons']}, pad waste {occ['pad_waste_bytes']} B, "
+        f"pipeline {occ['ec_pipeline']}")
+    kern = busy.get("kernel_s")
+    log(f"cluster card busy share of a write round of {busy['objects']} "
+        f"objects under torch.profiler ({wall:.3f} s): " + (
+            f"{(kern + busy['copy_s']) / wall:.4%} (kernels {kern:.4f} s, "
+            f"{kern / wall:.4%}; copies {busy['copy_s']:.4f} s, "
+            f"{busy['copy_s'] / wall:.4%})"
+            if kern else "no device time seen (not measured)"))
+    log(f"cluster host split of a cProfile'd write round of "
+        f"{CLUSTER_HOST_OBJECTS} objects ({host_s:.3f} s wall, "
+        f"{split['total_s']:.3f} s profiled, the main thread): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split["by_bucket"].items())
+        + "; cumulative: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in
+            split["functions_cumulative_s"].items())
+        + "; most own time: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in split["top_own_s"].items()))
+    log(f"cluster launches by stage {stages}; the batchers' launches by "
+        f"(kind, shape, erasures) {dict(launched)}; host oracle: "
+        f"{oracle['shards_checked']} shards ({oracle['revived_shards_checked']}"
+        f" on the revived osd.{drive.victim}) == the host encode, tags == "
+        f"the host engine; {secs:.1f} s")
+    return {"report": rep, "summary": summary, "launches": launches,
+            "stages": stages, "launched": launched, "busy": busy,
+            "split": split, "oracle": oracle,
+            "kernels": kernels, "seconds": secs}
+
+
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
     """The SM clock nvidia-smi reads while ``fn``'s launches run."""
     for _ in range(launches):
@@ -2789,12 +3260,57 @@ def path_label(name: str, shape: tuple) -> str:
     return f"{name} ({b},{k},{l})->{r}"
 
 
+def cluster_paths(rows: list, cluster: dict, mhz: float,
+                  b1_rate: float) -> None:
+    """Phase 10's launches on each kernel's row (the totals included), and
+    its launch shapes' times and bounds beside the kernel that served
+    them: the dense kernel at the write's encode and the degraded read's
+    decode, K4 over the write's CRC rows, K5 at the pool's table."""
+    by_name = {row["name"]: row for row in rows}
+    label = (f"cluster, {CLUSTER['n_osds']} OSDs RS {CLUSTER['k']}/"
+             f"{CLUSTER['m']} (phase 10)")
+    for name, row in by_name.items():
+        n = cluster["launches"].get(name, 0)
+        row["launches"] += n
+        row.setdefault("launches_by_path", {})[label] = n
+    kern = cluster["kernels"]
+    for key in [k for k in kern if k.startswith(("encode", "decode"))]:
+        d = kern[key]
+        row = by_name[d["name"]]
+        shape = (*d["shape"], d["r"])
+        path = path_label(f"cluster rs8/3 {key}", shape)
+        row["ms_by_path"][path] = round(d["ms"], 4)
+        row.setdefault("plain_ms_by_path", {})[path] = round(d["plain_ms"], 4)
+        row["bound_by_path"][path] = path_bound(shape, mhz, b1_rate)
+        row["max_abs_err"] = max(row["max_abs_err"], d["err"])
+    c = kern["crc"]
+    nrows, l = c["shape"]
+    row = by_name["crc32c_chunks"]
+    path = f"cluster write CRC rows ({nrows}, {l})"
+    row["ms_by_path"][path] = round(c["ms"], 4)
+    row.setdefault("plain_ms_by_path", {})[path] = round(c["plain_ms"], 4)
+    t_bytes = (nrows * l + 4 * nrows) / HBM_BYTES_PER_S * 1e3
+    t_ops = nrows * l / (SMEM_LOOKUPS_PER_CLOCK * mhz * 1e6) * 1e3
+    row["bound_by_path"][path] = {
+        "bound_ms": round(max(t_bytes, t_ops), 4),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    p = kern["placement"]
+    row = by_name["crush_map_rule"]
+    path = (f"cluster epoch table: rule 1 indep x{p['numrep']}, "
+            f"{p['lanes']} lanes")
+    row["ms_by_path"][path] = round(p["ms"], 4)
+    row["bound_by_path"][path] = placement_bound(
+        p["lanes"], p["numrep"], mhz, (CLUSTER["n_osds"], 1))
+    row["max_abs_err"] = max(row["max_abs_err"], p["err"])
+
+
 def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       lrc: dict, pmsr: dict, k3_small_err: int,
                       cauchy_ms: float, k4: dict, k4_small_err: int,
                       osd: dict, repair: dict, rates: dict,
                       built: dict, placement: dict, table: dict,
-                      datapath: dict, k6: dict, sharded: dict) -> dict:
+                      datapath: dict, k6: dict, sharded: dict,
+                      cluster: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2, K3, K5 and K6 also with their other paths' times and bounds, K1,
     K2, K4, K5 and K6 with their launch configuration, K3 its design per
@@ -3045,6 +3561,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     k5 = placement_row(placement, mhz, table)
     rows.append(k5)
     rows.append(k6_row(k6, table, mhz))
+    cluster_paths(rows, cluster, mhz, b1_rate)
     r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
     log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
         f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
@@ -3096,10 +3613,13 @@ def main() -> int:
     with xor_sched_env(None):          # the sharded codec keeps its routing
         sharded = phase_sharded(dev, main_inputs)
     log(f"phase 9, the sharded codec: {time.perf_counter() - t9:.1f} s")
+    with xor_sched_env(None):          # the cluster keeps its routing
+        cluster = phase_cluster(dev)
+    log(f"phase 10, the RADOS cluster: {cluster['seconds']:.1f} s")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
                              repair, rates, built, placement, table,
-                             datapath, k6, sharded)
+                             datapath, k6, sharded, cluster)
     log(json.dumps(line))
     peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
     log(f"peak device memory {peak / GiB:.2f} "

@@ -103,6 +103,22 @@ def test_decode_and_rmw_coalesce_and_match_reference():
     assert perf.get("mesh_launches") == 4 and perf.get("mesh_rmw_launches") == 1
 
 
+def test_launch_shapes_count_each_launch_by_kind_shape_and_erasures():
+    _, port = _pair()
+    rng = np.random.default_rng(11)
+    full = rng.integers(0, 256, (6, 6, 64), dtype=np.uint8)
+    calls = [lambda b, s=s: b.encode(port, full[s, :4])
+             for s in (slice(0, 2), slice(2, 5))]
+    calls += [lambda b, s=s: b.decode(port, [0, 4], full[s][:, [1, 2, 3, 5]])
+              for s in (slice(0, 1), slice(1, 6))]
+    batcher = CodecBatcher(device="cpu")
+    run(_gather(batcher, calls))
+    b5, b6 = MeshCodec(device="cpu").pad_batch(5), \
+        MeshCodec(device="cpu").pad_batch(6)
+    assert batcher.launch_shapes == {("encode", (b5, 4, 64), ()): 1,
+                                     ("decode", (b6, 4, 64), (0, 4)): 1}
+
+
 def test_flat_codec_crcs_take_the_host_pass():
     """The reference's flat codecs take its host CRC pass; the port's
     fuse their chunk CRCs into the one mesh launch (kernel K4 on the card)
