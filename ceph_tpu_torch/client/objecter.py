@@ -35,7 +35,7 @@ class Objecter:
                  msgr_opts: dict | None = None, device=None) -> None:
         self.device = resolve_device(device)
         self.msgr = Messenger(name, secret=secret, **(msgr_opts or {}))
-        self.osdmap = OSDMap(device=self.device)
+        self.osdmap = OSDMap(device=self.device, shared_tables=True)
         self.mon_addr: tuple[str, int] | None = None
         self._tid = itertools.count(1)
         self._reqid_serial = itertools.count(1)
@@ -109,11 +109,16 @@ class Objecter:
             return
         task = loop.create_task(self._refresh_map_once(timeout))
         self._refresh_inflight = task
-        try:
-            await task
-        finally:
-            if getattr(self, "_refresh_inflight", None) is task:
-                self._refresh_inflight = None
+        task.add_done_callback(self._refresh_done)
+        # shielded: a caller cancelled mid-fetch (its op timed out) must
+        # not cancel the fetch the other callers share
+        await asyncio.shield(task)
+
+    def _refresh_done(self, task: asyncio.Task) -> None:
+        if getattr(self, "_refresh_inflight", None) is task:
+            self._refresh_inflight = None
+        if not task.cancelled():
+            task.exception()     # retrieved by whoever awaited it
 
     _REFRESH_MIN_S = 0.5
 
@@ -142,7 +147,8 @@ class Objecter:
                     if inc.epoch == self.osdmap.epoch + 1:
                         self.osdmap.apply_incremental(inc)
                 return
-            new_map = OSDMap.from_dict(payload, device=self.device)
+            new_map = OSDMap.from_dict(payload, device=self.device,
+                                     shared_tables=True)
             # a slow full-map reply must not regress past incrementals
             # _dispatch applied while we waited
             if new_map.epoch >= self.osdmap.epoch:

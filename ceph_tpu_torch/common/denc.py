@@ -1,8 +1,10 @@
 """denc: versioned, bounded binary encoding (src/include/denc.h analog).
 
-Port of ``ceph_tpu/common/denc.py``, the pure-Python codec: the
-reference's C value codec (``native/denc_value.cc``) is byte-identical to
-it and is not carried.  BlockStore encodes its onodes with it.
+Port of ``ceph_tpu/common/denc.py``.  As in the reference, the generic
+tagged value (every message's wire meta) runs in C, ``csrc/host/
+denc_value.cc`` (``common/denc_native.py`` builds it at first use); the
+Python body is the reference implementation and the path for the exact-type
+mismatches the C codec refuses.  BlockStore encodes its onodes with it.
 
 The reference serializes every persistent/wire type with a tiny
 discipline that buys decades of compat:
@@ -23,6 +25,8 @@ reads new encodings (up to struct_compat), new code reads old ones
 from __future__ import annotations
 
 import struct
+
+from . import denc_native
 
 
 class DencError(ValueError):
@@ -109,7 +113,17 @@ class Encoder:
         meta's replacement for json.dumps.  Deliberately mirrors
         JSON's semantics so the switch is invisible to message
         handlers: dict keys coerce to strings, tuples become lists.
-        Raises DencError on types JSON could not carry either."""
+        Raises DencError on types JSON could not carry either.
+
+        The C codec (byte-identical format) encodes; an int subclass or a
+        foreign type takes the Python body."""
+        try:
+            self.buf += denc_native.load().encode_value(v)
+            return self
+        except TypeError:
+            pass            # subclass or foreign type: the Python body
+        except ValueError as e:
+            raise DencError(str(e)) from e      # e.g. the depth limit
         return self._value_py(v)
 
     def _value_py(self, v, depth: int = 0) -> "Encoder":
@@ -230,7 +244,17 @@ class Decoder:
 
     # -- generic tagged value ------------------------------------------------
     def value(self):
-        return self._value_py()
+        """The C codec's decode of one tagged value (byte-identical format
+        to ``_value_py``), held to the enclosing envelope."""
+        end = self._ends[-1] if self._ends else len(self.data)
+        try:
+            obj, pos = denc_native.load().decode_value(self.data, self.pos)
+        except ValueError as e:
+            raise DencError(str(e)) from e
+        if pos > end:
+            raise DencError("value ran past envelope end")
+        self.pos = pos
+        return obj
 
     def _value_py(self, depth: int = 0):
         if depth > 200:

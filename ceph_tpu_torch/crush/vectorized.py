@@ -82,6 +82,11 @@ _NO_SEL = 2**31 - 1          # firstn's selection of an exhausted slot
 
 # launches of K5, counted where the wrapper launches it
 LAUNCHES = {"crush_map_rule": 0}
+# weight vectors a mapper made on its device (``device_weights``): one for
+# each distinct vector it was given, whatever the number of launches
+WEIGHT_UPLOADS = {"crush_map_rule": 0}
+# distinct weight vectors a mapper keeps on its device (the oldest go)
+_WEIGHTS_KEPT = 8
 
 
 # -- plain PyTorch version: hashes, crush_ln, straw2 ------------------------
@@ -524,6 +529,8 @@ class VectorCrush:
         self.map_words = torch.from_numpy(kernel_map_words(
             cm, firstn, leaf, choose_tries, self.recurse_tries,
             self.vary_r)).to(dev)
+        # weight vectors on ``dev`` by their content (``device_weights``)
+        self._weights: dict[bytes, torch.Tensor] = {}
 
     # -- plain PyTorch version ----------------------------------------------
     def _descend(self, x, r, pos, upto: int):
@@ -647,13 +654,31 @@ class VectorCrush:
     # -- K5's wrapper -------------------------------------------------------
     def device_weights(self, osd_weights) -> torch.Tensor:
         """``osd_weights`` as an int32 tensor on this mapper's device, padded
-        with 0 (out) to the map's max_devices."""
-        if not isinstance(osd_weights, torch.Tensor):
-            osd_weights = torch.from_numpy(np.asarray(osd_weights, np.int64))
-        w = osd_weights.to(self.device, torch.int32).contiguous()
-        short = self.cm.max_devices - w.shape[0]
+        with 0 (out) to the map's max_devices.  A tensor already on the
+        device is used as it is; any other vector is made on the device
+        once for each distinct content and kept (the newest
+        ``_WEIGHTS_KEPT``), so the epochs and pools that map with the same
+        weights upload them once.  The kept tensor is shared: callers do
+        not write to it."""
+        if isinstance(osd_weights, torch.Tensor) \
+                and osd_weights.device == self.device:
+            w = osd_weights.to(torch.int32).contiguous()
+            short = self.cm.max_devices - w.shape[0]
+            return torch.cat([w, w.new_zeros(short)]) if short > 0 else w
+        if isinstance(osd_weights, torch.Tensor):
+            osd_weights = osd_weights.cpu().numpy()
+        host = np.asarray(osd_weights, np.int64).astype(np.int32)
+        short = self.cm.max_devices - host.shape[0]
         if short > 0:
-            w = torch.cat([w, w.new_zeros(short)])
+            host = np.concatenate([host, np.zeros(short, np.int32)])
+        key = host.tobytes()
+        w = self._weights.get(key)
+        if w is None:
+            w = torch.from_numpy(host).to(self.device)
+            WEIGHT_UPLOADS["crush_map_rule"] += 1
+            while len(self._weights) >= _WEIGHTS_KEPT:
+                self._weights.pop(next(iter(self._weights)))
+            self._weights[key] = w
         return w
 
     def map_device(self, xs: torch.Tensor, numrep: int,

@@ -503,11 +503,13 @@ class Monitor:
             t.add_done_callback(self._bg_tasks.discard)
 
     async def _push_subscribers(self, inc: Incremental) -> None:
+        # one dict for every subscriber's message: each is encoded on its
+        # own connection, none is changed after
+        body = inc.to_dict()
         dead = []
         for name, conn in list(self.subscribers.items()):
             try:
-                await conn.send(Message("osdmap_inc",
-                                        {"inc": inc.to_dict()}))
+                await conn.send(Message("osdmap_inc", {"inc": body}))
             except (ConnectionError, OSError):
                 dead.append(name)
         for name in dead:
@@ -1094,10 +1096,19 @@ class Monitor:
             except (ConnectionError, OSError):
                 self.subscribers.pop(name, None)
 
+    def _full_map(self) -> dict:
+        """``self.osdmap.to_dict()``, made once a map generation: every
+        daemon's map-freshness probe fetches the full map every few quiet
+        seconds.  Shared by the messages that carry it; none changes it."""
+        key = (self.osdmap.epoch, self.osdmap._mutation_gen)
+        memo = getattr(self, "_full_map_memo", None)
+        if memo is None or memo[0] != key:
+            memo = self._full_map_memo = (key, self.osdmap.to_dict())
+        return memo[1]
+
     async def _h_sub_osdmap(self, conn, msg) -> None:
         self.subscribers[msg.from_name] = conn
-        await conn.send(Message("osdmap_full",
-                                {"map": self.osdmap.to_dict()}))
+        await conn.send(Message("osdmap_full", {"map": self._full_map()}))
         cfg = self.services.config_for(msg.from_name)
         if cfg:                  # central config lands at subscription
             await conn.send(Message("config_update", {"config": cfg}))
@@ -1120,7 +1131,7 @@ class Monitor:
             await conn.send(Message("osdmap_incs", {"incs": incs}))
         else:
             await conn.send(Message("osdmap_full",
-                                    {"map": self.osdmap.to_dict()}))
+                                    {"map": self._full_map()}))
 
     # -- commands -----------------------------------------------------------
     async def _h_mon_command(self, conn, msg) -> None:

@@ -14,6 +14,10 @@ Port of ``ceph_tpu/mon/osdmap.py``, host code copied.  The differences: an
 need no card; and the CRUSH map's dict form is ``crush/state.py``'s.
 ``to_dict()`` / ``from_dict(d, device=...)`` carry a map across from
 another implementation: the placement engine's state is the map itself.
+A map made with ``shared_tables=True`` (the daemons' and the clients')
+takes its table from ``pg_mapping.shared_table``, one for each placement
+content in a process; and any blocklist entry in the map fences, whatever
+its expiry (the monitor's tick removes expired entries).
 """
 
 from __future__ import annotations
@@ -212,7 +216,7 @@ class Incremental:
 
 
 class OSDMap:
-    def __init__(self, device=None) -> None:
+    def __init__(self, device=None, shared_tables: bool = False) -> None:
         # where the placement table is built: CUDA unless "cpu"; resolved
         # (and refused without a card) only when a table is built
         self.device = device
@@ -231,23 +235,26 @@ class OSDMap:
         self._pcache: tuple[int, Any] | None = None
         self._weights_memo: tuple[int, list[int]] | None = None
         self._placement_perf = None
+        # take the table from the process-wide registry
+        # (``pg_mapping.shared_table``): set by the daemons and clients,
+        # each of which holds its own copy of the same epoch
+        self.shared_tables = shared_tables
         # explicit placement overrides (OSDMap.cc:2705 _apply_upmap /
         # pg_temp): upmap items rewrite the raw CRUSH result (balancer
         # output), pg_temp overrides the ACTING set only (serving
         # continuity while the up set backfills)
         self.pg_temp: dict[str, list[int]] = {}
         self.pg_upmap_items: dict[str, list[tuple[int, int]]] = {}
-        # fenced client instances: "name:incarnation" -> expiry (wall
-        # clock).  OSDs refuse ops from these (OSDMap blocklist)
+        # fenced client instances: "name:incarnation" -> expiry (the
+        # monitor's wall clock).  OSDs refuse ops from these (OSDMap
+        # blocklist)
         self.blocklist: dict[str, float] = {}
 
-    def is_blocklisted(self, instance_id: str,
-                       now: float | None = None) -> bool:
-        import time as _time
-        exp = self.blocklist.get(instance_id)
-        if exp is None:
-            return False
-        return exp > (_time.time() if now is None else now)
+    def is_blocklisted(self, instance_id: str) -> bool:
+        """Any entry in the map fences, whatever this daemon's clock
+        says of its expiry: the monitor's tick removes expired entries
+        by an incremental, so every OSD unfences at the same epoch."""
+        return instance_id in self.blocklist
 
     # -- queries ------------------------------------------------------------
     def exists(self, osd: int) -> bool:
@@ -319,16 +326,22 @@ class OSDMap:
         cached = self.peek_placement_cache()
         if cached is not None:
             return cached
-        from .pg_mapping import PGMapping
-        pm = PGMapping.build(self, perf=self.placement_perf)
+        from .pg_mapping import PGMapping, shared_table
+        pm = (shared_table(self, perf=self.placement_perf)
+              if self.shared_tables
+              else PGMapping.build(self, perf=self.placement_perf))
         self._pcache = (self._mutation_gen, pm)
         return pm
 
     def invalidate_placement_cache(self) -> None:
         """Out-of-band map surgery (tests, offline tools editing
         fields directly) must call this; apply_incremental and the
-        dict loaders bump the generation themselves."""
+        dict loaders bump the generation themselves.  The CRUSH map's
+        cached structure digest and mappers go too, so an edit made to
+        it in place keys a new table (``pg_mapping.table_key``)."""
         self._mutation_gen += 1
+        self.crush.__dict__.pop("_structure_digest", None)
+        self.crush.__dict__.pop("_vc_cache", None)
 
     # -- placement ----------------------------------------------------------
     def object_to_pg(self, pool_id: int, name: str, nspace: str = "",
@@ -530,8 +543,9 @@ class OSDMap:
         }
 
     @classmethod
-    def from_dict(cls, d: dict, device=None) -> "OSDMap":
-        m = cls(device)
+    def from_dict(cls, d: dict, device=None,
+                  shared_tables: bool = False) -> "OSDMap":
+        m = cls(device, shared_tables)
         m.epoch = d["epoch"]
         m.max_osd = d["max_osd"]
         for o, i in d.get("osds", {}).items():

@@ -17,12 +17,18 @@ lookup is an array read.
   hash as torch ops on the device, kept per pool spec) and maps them, then
   applies the OSDMap's semantics to the rows where they lie, as torch ops:
   upmap on the rows that carry items, the live filter with EC holes
-  normalized to -1, pg_temp; one copy of the whole table comes back.  The
-  table is arrays, not lists: per pool ``up`` and ``acting`` are int32
-  ``(pg_num, width)`` padded with -1, each with its row lengths.  ``delta``
-  compares two tables' arrays on the device.  With ``device="cpu"`` the
-  same torch code runs on CPU tensors (the bulk mapper is K5's plain
-  version, and small pools and shapes K5 does not take the scalar sweep).
+  normalized to -1, pg_temp.  What the host knows before the launch (the
+  live OSDs, the upmap items, the pg_temps: ``BuildInputs``) goes up in one
+  copy, and the whole table comes back in one: a build waits for the card
+  once.  The table is arrays, not lists: per pool ``up`` and ``acting`` are
+  int32 ``(pg_num, width)`` padded with -1, each with its row lengths, on
+  the host.  ``delta`` compares two tables' host arrays.  With
+  ``device="cpu"`` the same torch code runs on CPU tensors (the bulk mapper
+  is K5's plain version, and small pools and shapes K5 does not take the
+  scalar sweep).
+* ``shared_table`` hands the maps of one process that hold the same
+  placement inputs (``table_key``) one immutable table: an in-process
+  cluster's daemons and clients each hold their own copy of every epoch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import hashlib
 import json
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -41,6 +48,7 @@ from ..crush.state import crush_to_dict
 from ..crush.types import CRUSH_ITEM_NONE
 from ..crush.vectorized import (MapsNothing, Unexpressed, VectorCrush,
                                 hash32_2, seed_tensor)
+from .. import device as device_mod
 from ..device import resolve_device
 
 # below this many lanes a cold bulk mapper's set-up (tables, a kernel build
@@ -64,6 +72,34 @@ _RL_SHARED: dict[tuple, RuleLanes] = {}
 # each pool's seeds per device (``cached_pool_seeds``), bounded the same way
 _SEEDS: dict[tuple, torch.Tensor] = {}
 _SEEDS_MAX = 16
+
+# the tables ``shared_table`` built, by ``table_key``; the oldest go.  An
+# in-process cluster's holders work through a burst of epochs at their own
+# pace (64 OSDs booting make 64 epochs), so the bound covers such a burst
+_TABLES: dict[tuple, "PGMapping"] = {}
+_TABLES_MAX = 64
+
+# a build's copies between the host and its device, counted where they are
+# made (``_upload``, ``_download``): one each a build
+TRANSFERS = {"to_device": 0, "to_host": 0}
+# the tables ``PGMapping.build`` made in this process
+BUILDS = {"tables": 0}
+
+
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``arr`` on ``dev``; to the card from pinned memory, without waiting
+    for it."""
+    TRANSFERS["to_device"] += 1
+    t = torch.from_numpy(arr)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host: the one wait for the card of a build."""
+    TRANSFERS["to_host"] += 1
+    return t.cpu().numpy()
 
 
 def _crush_digest(crush_map) -> str:
@@ -262,7 +298,7 @@ def pool_seeds(pool, device) -> torch.Tensor:
     stable = torch.where((pgs & mask) < pool.pgp_num, pgs & mask,
                          pgs & (mask >> 1))
     if pool.flags & 1:      # FLAG_HASHPSPOOL
-        pps = hash32_2(stable, torch.tensor(pool.pool_id, device=device))
+        pps = hash32_2(stable, torch.full_like(stable, pool.pool_id))
     else:
         pps = (stable + pool.pool_id) & 0xFFFFFFFF
     return torch.where(pps >= 2**31, pps - 2**32, pps).to(torch.int32)
@@ -312,30 +348,195 @@ def _pool_pgs(overrides: dict, pool_id: int, pg_num: int) -> list:
     return out
 
 
+def _by_pg(overrides: dict, value=tuple) -> tuple:
+    """A pg_temp or upmap dict as the build reads it, whatever its order:
+    each key's ``value(v)`` under the pg it names (``(pool, pg)``, or the key
+    itself when it does not parse), sorted by pg, in the dict's order within
+    a pg (two keys naming one pg apply in that order)."""
+    out: dict = {}
+    for key, v in overrides.items():
+        pool, _, ps = key.partition(".")
+        try:
+            pg = (pool, int(ps, 16))
+        except ValueError:
+            pg = (key, -1)
+        out.setdefault(pg, []).append(value(v))
+    return tuple(sorted((pg, tuple(vs)) for pg, vs in out.items()))
+
+
+def _pairs(items) -> tuple:
+    return tuple(map(tuple, items))
+
+
+def table_key(osdmap) -> tuple:
+    """Every input of ``PGMapping.build(osdmap)``, in a canonical order:
+    the device, the CRUSH map's structure, the weights, which OSDs exist
+    and are up, the pools' placement fields, the pg_temps and upmap items.
+    Maps with equal keys get entry-identical tables, whatever their epochs
+    and however their dicts were filled."""
+    return (_device_name(osdmap.device), _crush_digest(osdmap.crush),
+            tuple(osdmap.osd_weights()),
+            tuple(sorted((o, info.up) for o, info in osdmap.osds.items())),
+            tuple(sorted((pid, p.pool_id, p.pg_num, p.pgp_num, p.flags,
+                          p.size, p.crush_rule, p.can_shift_osds())
+                         for pid, p in osdmap.pools.items())),
+            _by_pg(osdmap.pg_temp), _by_pg(osdmap.pg_upmap_items, _pairs))
+
+
+_DEVICES: dict = {}
+
+
+def _device_name(device) -> str:
+    """``str(resolve_device(device))``, resolved once for each name and
+    default."""
+    key = (str(device), device_mod.DEFAULT_DEVICE)
+    name = _DEVICES.get(key)
+    if name is None:
+        name = _DEVICES[key] = str(resolve_device(device))
+    return name
+
+
+def shared_table(osdmap, perf=None) -> "PGMapping":
+    """``PGMapping.build(osdmap)``, built once for all the maps of this
+    process with the same ``table_key`` (the newest ``_TABLES_MAX`` keys are
+    kept).  ``perf`` counts a build as ``bulk_recomputes`` and a table found
+    built as ``shared_tables``."""
+    key = table_key(osdmap)
+    pm = _TABLES.get(key)
+    if pm is not None:
+        if perf is not None:
+            perf.inc("shared_tables")
+        return pm
+    pm = PGMapping.build(osdmap, perf=perf)
+    while len(_TABLES) >= _TABLES_MAX:
+        _TABLES.pop(next(iter(_TABLES)))
+    _TABLES[key] = pm
+    return pm
+
+
+class BuildInputs:
+    """What a build applies that the host knows before any launch: the live
+    OSDs, each pool's upmap items and pg_temps, packed into one int32 buffer
+    and copied to the device once.
+
+    * ``live`` (host bool array, index < ``n_live``) and ``live_dev``;
+    * ``upmaps[pool_id]``: (pgs, frm, to, ok) on the device, ``pgs`` the
+      distinct pgs with items, the others (steps, len(pgs)): each pg's j-th
+      item at step j, ``ok`` false for padding and for an item whose target
+      does not exist (``OSDMap._apply_upmap`` skips those);
+    * ``temps[pool_id]``: (width, pgs, block, lens), the pg_temps after the
+      live filter, ``block`` (len(pgs), width) padded with -1."""
+
+    def __init__(self, osdmap, n_live: int, dev: torch.device) -> None:
+        self.n_live = n_live
+        self.live = live_osds(osdmap, n_live)
+        parts: list[np.ndarray] = [self.live.astype(np.int32)]
+        upmaps, temps = {}, {}
+        for pool_id, pool in osdmap.pools.items():
+            plan = self._upmap_plan(osdmap, pool_id, pool)
+            if plan is not None:
+                upmaps[pool_id] = len(parts)
+                parts.extend(plan)
+            width, plan = self._temp_plan(osdmap, pool_id, pool)
+            temps[pool_id] = (width, len(parts) if plan else None)
+            parts.extend(plan)
+        sizes = [p.size for p in parts]
+        flat = np.concatenate([p.reshape(-1) for p in parts])
+        dev_flat = _upload(flat, dev)
+        views, off = [], 0
+        for p, n in zip(parts, sizes):
+            views.append(dev_flat[off:off + n].view(p.shape))
+            off += n
+        self.live_dev = views[0] != 0
+        self.upmaps = {pid: (views[i].long(), views[i + 1], views[i + 2],
+                             views[i + 3] != 0)
+                       for pid, i in upmaps.items()}
+        self.temps = {pid: (width, None if i is None else
+                            (views[i].long(), views[i + 1], views[i + 2]))
+                      for pid, (width, i) in temps.items()}
+
+    @staticmethod
+    def _upmap_plan(osdmap, pool_id: int, pool) -> list | None:
+        """[pgs, frm, to, ok] for a pool's upmap items, or None."""
+        seq: dict[int, list[tuple[int, int, bool]]] = {}
+        for pgid, pg in _pool_pgs(osdmap.pg_upmap_items, pool_id,
+                                  pool.pg_num):
+            for frm, to in osdmap.pg_upmap_items[pgid]:
+                # an id past int32 matches no row entry and is never placed
+                fits = all(-2**31 <= v < 2**31 for v in (frm, to))
+                seq.setdefault(pg, []).append(
+                    (frm if fits else 0, to if fits else 0,
+                     fits and osdmap.exists(to)))
+        if not seq:
+            return None
+        pgs = sorted(seq)
+        steps = max(len(v) for v in seq.values())
+        frm = np.zeros((steps, len(pgs)), np.int32)
+        to = np.zeros_like(frm)
+        ok = np.zeros_like(frm)
+        for i, pg in enumerate(pgs):
+            for j, (f, t, good) in enumerate(seq[pg]):
+                frm[j, i], to[j, i], ok[j, i] = f, t, good
+        return [np.asarray(pgs, np.int32), frm, to, ok]
+
+    def _temp_plan(self, osdmap, pool_id: int, pool) -> tuple[int, list]:
+        """(acting width, [pgs, block, lens] or []) for a pool's pg_temps:
+        a temp whose filtered list is empty falls back to up (an EC temp of
+        holes is not empty)."""
+        live, n_live = self.live, self.n_live
+        temps: dict[int, list[int]] = {}
+        for pgid, pg in _pool_pgs(osdmap.pg_temp, pool_id, pool.pg_num):
+            temp = osdmap.pg_temp[pgid]
+            if not temp:
+                continue
+            act = [int(o) if (o != CRUSH_ITEM_NONE and o >= 0
+                              and o < n_live and live[o]) else -1
+                   for o in temp]
+            if pool.can_shift_osds():
+                act = [o for o in act if o >= 0]
+            if act:
+                temps[pg] = act
+            else:
+                temps.pop(pg, None)
+        width = max([pool.size] + [len(a) for a in temps.values()])
+        if not temps:
+            return width, []
+        pgs = sorted(temps)
+        block = np.full((len(pgs), width), -1, dtype=np.int32)
+        for i, pg in enumerate(pgs):
+            block[i, :len(temps[pg])] = temps[pg]
+        lens = np.asarray([len(temps[pg]) for pg in pgs], np.int32)
+        return width, [np.asarray(pgs, np.int32), block, lens]
+
+
 class PGMapping:
     """The full-cluster placement table for one OSDMap epoch.
 
     ``up`` and ``acting`` per (pool, raw pg), entry-identical to the per-PG
     ``OSDMap._pg_to_up_acting_scalar`` result.  Per pool the table holds
-    four int32 arrays: ``up`` and ``acting`` of shape (pg_num, width),
+    four int32 host arrays: ``up`` and ``acting`` of shape (pg_num, width),
     padded with -1 past each row's length, and the lengths.  ``up``'s width
     is the pool's size; ``acting``'s the larger of that and the longest
-    pg_temp the pool applies.  They are kept twice: on the build's device
-    (``delta`` reads them there) and on the host (``lookup``, ``tables``).
-    Instances are immutable snapshots: a new epoch builds a new PGMapping
-    (OSDMap memoizes one per mutation generation and hands the previous one
-    to ``delta``)."""
+    pg_temp the pool applies.  They are made on the build's device and
+    copied back in one transfer.  Instances are immutable snapshots: a new
+    epoch builds a new PGMapping (OSDMap memoizes one per mutation
+    generation and hands the previous one to ``delta``); ``epoch`` is the
+    epoch of the map it was built for, and a shared table (``shared_table``)
+    serves every map with the same inputs."""
 
     def __init__(self, epoch: int, device) -> None:
         self.epoch = epoch
         self.device = torch.device(device)
         self.fused_pools = 0
         self.scalar_pools = 0
-        # pool_id -> (up, up_len, acting, acting_len)
-        self._dev: dict[int, tuple[torch.Tensor, ...]] = {}
+        # pool_id -> (up, up_len, acting, acting_len): on the device until
+        # ``_copy_back``, then on the host
+        self._pending: dict[int, tuple[torch.Tensor, ...]] = {}
         self._host: dict[int, tuple[np.ndarray, ...]] = {}
         self._pg_num: dict[int, int] = {}
         self._pg_num_mask: dict[int, int] = {}
+        # the last ``delta``: (weak reference to prev, its result)
+        self._delta_memo: tuple | None = None
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -352,7 +553,7 @@ class PGMapping:
         dev = resolve_device(osdmap.device)
         pm = cls(osdmap.epoch, dev)
         weights = osdmap.osd_weights()
-        live = live_osds(osdmap, len(weights) + 1)
+        inputs = BuildInputs(osdmap, len(weights) + 1, dev)
         for pool_id, pool in osdmap.pools.items():
             rows, used_fused = bulk_crush_rows(
                 osdmap.crush, pool.crush_rule, cached_pool_seeds(pool, dev),
@@ -361,8 +562,9 @@ class PGMapping:
                 pm.fused_pools += 1
             else:
                 pm.scalar_pools += 1
-            pm._ingest_pool(osdmap, pool_id, pool, rows, live)
+            pm._ingest_pool(pool_id, pool, rows, inputs)
         pm._copy_back()
+        BUILDS["tables"] += 1
         dt = time.perf_counter() - t0
         if perf is not None:
             perf.inc("bulk_recomputes")
@@ -375,31 +577,34 @@ class PGMapping:
                                round(total / dt, 1))
         return pm
 
-    def _ingest_pool(self, osdmap, pool_id: int, pool, rows: torch.Tensor,
-                     live: np.ndarray) -> None:
+    def _ingest_pool(self, pool_id: int, pool, rows: torch.Tensor,
+                     inputs: BuildInputs) -> None:
         """Raw CRUSH rows (int32, on this table's device; rewritten in
         place) -> up/acting with the full OSDMap semantics (OSDMap.cc
-        _apply_upmap, _raw_to_up_osds, pg_temp): torch ops over the dense
-        rows, Python only for the sparse override dicts."""
+        _apply_upmap, _raw_to_up_osds, pg_temp), as torch ops over the rows
+        and ``inputs``' tensors: nothing is read back."""
         dev = self.device
-        n_live = live.shape[0]
+        n_live = inputs.n_live
         npg, size = rows.shape
         # upmap rewrite first (it edits the RAW result, NONE entries
-        # included): only the pgs that carry items, in the dict's order
-        items = _pool_pgs(osdmap.pg_upmap_items, pool_id, pool.pg_num)
-        if items:
-            pgs = sorted({pg for _, pg in items})
-            idx = torch.tensor(pgs, dtype=torch.long, device=dev)
-            raw = dict(zip(pgs, rows[idx].tolist()))
-            for pgid, pg in items:
-                raw[pg] = osdmap._apply_upmap(pgid, raw[pg])
-            rows[idx] = torch.tensor([raw[pg] for pg in pgs],
-                                     dtype=torch.int32, device=dev)
+        # included): the rows that carry items, each pg's items in order --
+        # an item is skipped when its target is already in the row, else it
+        # replaces the first entry equal to its source
+        plan = inputs.upmaps.get(pool_id)
+        if plan is not None:
+            idx, frm, to, ok = plan
+            sub = rows[idx]
+            for j in range(frm.shape[0]):
+                f, t = frm[j][:, None], to[j][:, None]
+                hit = sub == f
+                first = hit & (hit.cumsum(dim=1) == 1)
+                apply = ok[j] & ~(sub == t).any(dim=1)
+                sub = torch.where(first & apply[:, None], t, sub)
+            rows[idx] = sub
         # live filter, holes normalized to -1 (EC shard ids ride the
         # position, so indep pools keep holes; replicated compact in order)
-        live_d = torch.from_numpy(live).to(dev)
         ok = ((rows != CRUSH_ITEM_NONE) & (rows >= 0) & (rows < n_live)
-              & live_d[rows.clamp(0, n_live - 1).long()])
+              & inputs.live_dev[rows.clamp(0, n_live - 1).long()])
         up = torch.where(ok, rows, -1)
         if pool.can_shift_osds():
             order = torch.sort((~ok).to(torch.int8), dim=1,
@@ -408,56 +613,35 @@ class PGMapping:
             up_len = ok.sum(dim=1, dtype=torch.int32)
         else:
             up_len = torch.full((npg,), size, dtype=torch.int32, device=dev)
-        # pg_temp overrides the acting set; a temp whose filtered list is
-        # empty falls back to up (an EC temp of holes is not empty)
-        temps: dict[int, list[int]] = {}
-        for pgid, pg in _pool_pgs(osdmap.pg_temp, pool_id, pool.pg_num):
-            temp = osdmap.pg_temp[pgid]
-            if not temp:
-                continue
-            act = [int(o) if (o != CRUSH_ITEM_NONE and o >= 0
-                              and o < n_live and live[o]) else -1
-                   for o in temp]
-            if pool.can_shift_osds():
-                act = [o for o in act if o >= 0]
-            if act:
-                temps[pg] = act
-            else:
-                temps.pop(pg, None)
-        width = max([size] + [len(a) for a in temps.values()])
+        # pg_temp overrides the acting set
+        width, temps = inputs.temps[pool_id]
         acting = torch.nn.functional.pad(up, (0, width - size), value=-1)
         acting_len = up_len.clone()
-        if temps:
-            pgs = sorted(temps)
-            block = np.full((len(pgs), width), -1, dtype=np.int32)
-            for i, pg in enumerate(pgs):
-                block[i, :len(temps[pg])] = temps[pg]
-            idx = torch.tensor(pgs, dtype=torch.long, device=dev)
-            acting[idx] = torch.from_numpy(block).to(dev)
-            acting_len[idx] = torch.tensor([len(temps[pg]) for pg in pgs],
-                                           dtype=torch.int32, device=dev)
-        self._dev[pool_id] = (up, up_len, acting, acting_len)
+        if temps is not None:
+            idx, block, lens = temps
+            acting[idx] = block
+            acting_len[idx] = lens
+        self._pending[pool_id] = (up, up_len, acting, acting_len)
         self._pg_num[pool_id] = pool.pg_num
         self._pg_num_mask[pool_id] = pool.pg_num_mask
 
     def _copy_back(self) -> None:
-        """Every pool's arrays packed into one buffer on the device, copied
-        to the host in one transfer; both sides become views of it."""
-        parts = [t for arrays in self._dev.values() for t in arrays]
+        """Every pool's arrays packed into one buffer on the device and
+        copied to the host in one transfer; the host arrays are views of
+        it."""
+        parts = [t for arrays in self._pending.values() for t in arrays]
         if not parts:
             return
-        flat = torch.cat([t.reshape(-1) for t in parts])
-        host = flat.cpu().numpy()
+        host = _download(torch.cat([t.reshape(-1) for t in parts]))
         off = 0
-        for pool_id, arrays in self._dev.items():
-            dev_views, host_views = [], []
+        for pool_id, arrays in self._pending.items():
+            views = []
             for t in arrays:
                 n = t.numel()
-                dev_views.append(flat[off:off + n].view(t.shape))
-                host_views.append(host[off:off + n].reshape(t.shape))
+                views.append(host[off:off + n].reshape(t.shape))
                 off += n
-            self._dev[pool_id] = tuple(dev_views)
-            self._host[pool_id] = tuple(host_views)
+            self._host[pool_id] = tuple(views)
+        self._pending = {}
 
     # -- queries ------------------------------------------------------------
     def raw_pg(self, pool_id: int, ps: int) -> int:
@@ -496,33 +680,43 @@ class PGMapping:
         from ``prev``, including pgs of pools present in only one of
         the two tables (pool create/delete, pg_num resize).  Exactly
         the brute-force entry-for-entry diff, so a map consumer can
-        retarget only what moved; the arrays are compared on the device."""
+        retarget only what moved.  The last result is kept: the holders
+        of a shared table ask for the same delta."""
         if prev is self:
             # placement-neutral epochs (up_thru/blocklist-only) carry
             # the table object across generations: nothing moved
             return []
+        memo = self._delta_memo
+        if memo is not None and memo[0]() is prev:
+            changed = list(memo[1])
+        else:
+            changed = self._diff(prev)
+            self._delta_memo = (weakref.ref(prev), tuple(changed))
+        if perf is not None:
+            perf.inc("delta_pgs", len(changed))
+        return changed
+
+    def _diff(self, prev: "PGMapping") -> list[tuple[int, int]]:
         changed: list[tuple[int, int]] = []
-        for pool_id in sorted(set(self._dev) | set(prev._dev)):
-            cur, old = self._dev.get(pool_id), prev._dev.get(pool_id)
+        for pool_id in sorted(set(self._host) | set(prev._host)):
+            cur, old = self._host.get(pool_id), prev._host.get(pool_id)
             if cur is None or old is None:
                 npg = (cur if cur is not None else old)[0].shape[0]
                 changed.extend((pool_id, pg) for pg in range(npg))
                 continue
             n_cur, n_old = cur[0].shape[0], old[0].shape[0]
             n = min(n_cur, n_old)
-            moved = torch.zeros(n, dtype=torch.bool, device=self.device)
+            moved = np.zeros(n, dtype=bool)
             for i in (0, 2):            # up, then acting: rows and lengths
                 a, b = cur[i][:n], old[i][:n]
                 width = max(a.shape[1], b.shape[1])
-                a = torch.nn.functional.pad(a, (0, width - a.shape[1]),
-                                            value=-1)
-                b = torch.nn.functional.pad(b, (0, width - b.shape[1]),
-                                            value=-1)
-                moved |= (a != b).any(dim=1)
+                a = np.pad(a, ((0, 0), (0, width - a.shape[1])),
+                           constant_values=-1)
+                b = np.pad(b, ((0, 0), (0, width - b.shape[1])),
+                           constant_values=-1)
+                moved |= (a != b).any(axis=1)
                 moved |= cur[i + 1][:n] != old[i + 1][:n]
-            changed.extend((pool_id, pg) for pg in
-                           torch.nonzero(moved).flatten().tolist())
+            changed.extend((pool_id, pg)
+                           for pg in np.flatnonzero(moved).tolist())
             changed.extend((pool_id, pg) for pg in range(n, max(n_cur, n_old)))
-        if perf is not None:
-            perf.inc("delta_pgs", len(changed))
         return changed

@@ -65,16 +65,17 @@ class Message:
             kind = KIND_JSON
             payload = Encoder()
             payload.blob(blob)
-        enc = Encoder()
-        enc.start(1, 1)
-        enc.string(self.type)
-        enc.u64(self.seq)
-        enc.string(self.from_name)
-        enc.u8(kind)
-        enc.blob(payload.bytes())
-        enc.list([len(s) for s in self.segments], Encoder.u32)
-        enc.finish()
-        mb = enc.bytes()
+        # the envelope (ENCODE_START(1, 1) | string t | u64 seq | string
+        # from | u8 kind | blob payload | list<u32> seg_lens) packed in
+        # one join: the Encoder's calls a field cost more than the field
+        tb, fb = self.type.encode("utf-8"), self.from_name.encode("utf-8")
+        pb = payload.bytes()
+        inner = b"".join((
+            _U32(len(tb)), tb, _U64(self.seq & 0xFFFFFFFFFFFFFFFF),
+            _U32(len(fb)), fb, _U8(kind), _U32(len(pb)), pb,
+            _U32(len(self.segments)),
+            *[_U32(len(seg)) for seg in self.segments]))
+        mb = b"\x01\x01" + _U32(len(inner)) + inner
         body = mb + b"".join(self.segments)
         crc = crc32c(body) & 0xFFFFFFFF
         return MAGIC + struct.pack("<I", len(mb)) + body + struct.pack(
@@ -100,8 +101,57 @@ class Message:
                    seq=seq, from_name=from_name)
 
 
+_U8 = struct.Struct("<B").pack
+_U32 = struct.Struct("<I").pack
+_U64 = struct.Struct("<Q").pack
+_unpack_u32 = struct.Struct("<I").unpack_from
+_unpack_u64 = struct.Struct("<Q").unpack_from
+
+
+def _split_meta(mb) -> tuple | None:
+    """The envelope's fields read straight off the buffer, or None for
+    anything but a well-formed version 1 envelope (``_decode_meta``'s
+    Decoder then reads it and raises what it raises)."""
+    if len(mb) < 6 or mb[1] > 1:
+        return None
+    end = 6 + _unpack_u32(mb, 2)[0]
+    if end > len(mb):
+        return None
+
+    def blob(pos: int) -> tuple:
+        n = _unpack_u32(mb, pos)[0]
+        if pos + 4 + n > end:
+            raise IndexError
+        return mb[pos + 4:pos + 4 + n], pos + 4 + n
+    try:
+        mtype, pos = blob(6)
+        if pos + 8 > end:
+            return None
+        seq = _unpack_u64(mb, pos)[0]
+        from_name, pos = blob(pos + 8)
+        if pos + 1 > end:
+            return None
+        kind = mb[pos]
+        payload, pos = blob(pos + 1)
+        if pos + 4 > end:
+            return None
+        count = _unpack_u32(mb, pos)[0]
+        if pos + 4 + 4 * count > end:
+            return None
+        seg_lens = list(struct.unpack_from(f"<{count}I", mb, pos + 4))
+        return (str(mtype, "utf-8"), seq, str(from_name, "utf-8"), kind,
+                bytes(payload), seg_lens)
+    except (struct.error, UnicodeDecodeError, IndexError):
+        return None
+
+
 def _decode_meta(mb) -> tuple:
     from .wire_types import WIRE_CODECS
+    fields = _split_meta(mb)
+    if fields is not None:
+        mtype, seq, from_name, kind, payload, seg_lens = fields
+        return _decode_payload(WIRE_CODECS, mtype, seq, from_name, kind,
+                               payload, seg_lens)
     dec = Decoder(mb)
     dec.start(1)
     mtype = dec.string()
@@ -111,6 +161,12 @@ def _decode_meta(mb) -> tuple:
     payload = dec.blob()
     seg_lens = dec.list(Decoder.u32)
     dec.finish()
+    return _decode_payload(WIRE_CODECS, mtype, seq, from_name, kind, payload,
+                           seg_lens)
+
+
+def _decode_payload(WIRE_CODECS, mtype, seq, from_name, kind, payload,
+                    seg_lens) -> tuple:
     if kind == KIND_TYPED:
         codec = WIRE_CODECS.get(mtype)
         if codec is None:
@@ -239,6 +295,9 @@ async def read_frame(reader, compressor=None, aead=None) -> bytes:
 def _meta_seg_lens(mb: bytes) -> list[int]:
     """Just the segment lengths from a meta envelope (what the stream
     reader needs to size the rest of the frame)."""
+    fields = _split_meta(mb)
+    if fields is not None:
+        return fields[5]
     dec = Decoder(mb)
     dec.start(1)
     dec.string()        # t

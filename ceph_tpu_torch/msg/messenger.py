@@ -55,6 +55,10 @@ class Connection:
                  peer_addr: tuple[str, int] | None = None) -> None:
         self.messenger = messenger
         self.peer_name = peer_name
+        # the peer messenger's incarnation, as its hello named it (set
+        # on accepted connections): with peer_name, the instance a
+        # server fences
+        self.peer_inst = ""
         self.reader = reader
         self.writer = writer
         self.outgoing = outgoing
@@ -80,7 +84,7 @@ class Connection:
         self._window_open = asyncio.Event()
         self._window_open.set()
         self._read_task: asyncio.Task | None = None
-        self._ack_task: asyncio.Task | None = None
+        self._ack_timer: asyncio.TimerHandle | None = None
 
     def _window_full(self) -> bool:
         m = self.messenger
@@ -193,10 +197,12 @@ class Connection:
         if (self._ack_pending_msgs >= self.messenger.ack_every
                 or self._ack_pending_bytes >= self.messenger.ack_bytes):
             self._flush_ack()
-        elif self._ack_task is None or self._ack_task.done():
+        elif self._ack_timer is None:
             # idle flush: a sender with a window smaller than our
-            # batching cadence must still see acks eventually
-            self._ack_task = asyncio.ensure_future(self._ack_flusher())
+            # batching cadence must still see acks eventually (a timer,
+            # not a task: an in-process cluster arms thousands a second)
+            self._ack_timer = asyncio.get_running_loop().call_later(
+                ACK_FLUSH_S, self._ack_timeout)
 
     def _flush_ack(self) -> None:
         self._ack_pending_msgs = 0
@@ -209,13 +215,10 @@ class Connection:
         except (ConnectionError, OSError):
             pass
 
-    async def _ack_flusher(self) -> None:
-        try:
-            await asyncio.sleep(ACK_FLUSH_S)
-            if not self.closed and self._ack_pending_msgs:
-                self._flush_ack()
-        except asyncio.CancelledError:
-            pass
+    def _ack_timeout(self) -> None:
+        self._ack_timer = None
+        if not self.closed and self._ack_pending_msgs:
+            self._flush_ack()
 
     async def _resend_unacked(self) -> None:
         for msg, _ in list(self.unacked):
@@ -228,8 +231,8 @@ class Connection:
         self._window_open.set()      # wake throttled senders to error out
         if self._read_task:
             self._read_task.cancel()
-        if self._ack_task:
-            self._ack_task.cancel()
+        if self._ack_timer:
+            self._ack_timer.cancel()
         try:
             self.writer.close()
         except Exception:
@@ -508,6 +511,7 @@ class Messenger:
             writer.close()
             return
         conn = Connection(self, peer_name, reader, writer, outgoing=False)
+        conn.peer_inst = inst
         self._apply_negotiation(conn, nego, hs_nonce, hs_cnonce,
                                 is_server=True, secret=hs_secret)
         conn.in_seq = last_seq
@@ -547,14 +551,18 @@ class Messenger:
         return key(b"c2s"), key(b"s2c")
 
     def _nego_mac(self, nego: dict, nonce: bytes,
-                  cnonce: bytes, secret: bytes | None = None) -> str:
+                  cnonce: bytes, secret: bytes | None = None,
+                  flags: int = 0) -> str:
         """Bind the negotiation to the shared secret: a MITM rewriting
-        the plaintext nego blob (encryption downgrade) fails the MAC."""
+        the plaintext nego blob (encryption downgrade) or the hello's
+        flags byte (stripping HELLO_ACCEPTS_TICKETS downgrades a ticket
+        client to the PSK) fails the MAC."""
         secret = secret if secret is not None else self.secret
         if secret is None:
             return ""
-        blob = json.dumps({k: nego[k] for k in
-                           ("compression", "secure", "salt")},
+        blob = json.dumps({**{k: nego[k] for k in
+                              ("compression", "secure", "salt")},
+                           "flags": flags},
                           sort_keys=True).encode()
         return hmac.new(secret, b"nego" + nonce + cnonce + blob,
                         hashlib.sha256).hexdigest()
@@ -628,14 +636,15 @@ class Messenger:
             # peer that won't (or can't) encrypt gets no session at all
             await reject("peer did not offer secure mode")
         cnonce = bytes.fromhex(payload.get("cnonce", "")) or b"\0" * 16
-        nego["mac"] = self._nego_mac(nego, nonce, cnonce, secret)
+        nego["mac"] = self._nego_mac(nego, nonce, cnonce, secret, flags)
         return payload["name"], payload.get("inst", ""), nego, \
             nonce, cnonce, secret
 
     def _apply_negotiation(self, conn: Connection, nego: dict,
                            nonce: bytes, cnonce: bytes,
                            is_server: bool,
-                           secret: bytes | None = None) -> None:
+                           secret: bytes | None = None,
+                           flags: int = 0) -> None:
         if conn.outgoing is is_server:
             raise ValueError("negotiation direction mismatch")
         secret = secret if secret is not None else self.secret
@@ -648,7 +657,7 @@ class Messenger:
         if not is_server:
             # client: verify the server's pick against the transcript
             # MAC and refuse a downgrade of our secure requirement
-            want = self._nego_mac(nego, nonce, cnonce, secret)
+            want = self._nego_mac(nego, nonce, cnonce, secret, flags)
             if want and not hmac.compare_digest(
                     want, nego.get("mac", "")):
                 raise ValueError("negotiation MAC mismatch (tampered?)")
@@ -674,6 +683,17 @@ class Messenger:
 
     async def _handshake_client(self, reader, writer,
                                 peer_name: str = ""):
+        """The client's side of the hello; a peer that closes the stream
+        mid-handshake (a daemon shutting down accepts, then closes) is a
+        failed connection, as a refused one is."""
+        try:
+            return await self._hello_client(reader, writer, peer_name)
+        except asyncio.IncompleteReadError as e:
+            writer.close()
+            raise ConnectionError(f"{peer_name or 'peer'} closed the "
+                                  f"connection during the handshake") from e
+
+    async def _hello_client(self, reader, writer, peer_name: str):
         hdr = await reader.readexactly(21)
         if hdr[:4] != HELLO_MAGIC:
             raise ValueError("bad hello")
@@ -710,7 +730,7 @@ class Messenger:
         (last_seq,) = struct.unpack("<Q", await reader.readexactly(8))
         (nego_len,) = struct.unpack("<I", await reader.readexactly(4))
         nego = json.loads(await reader.readexactly(nego_len))
-        return last_seq, nego, nonce, cnonce, secret
+        return last_seq, nego, nonce, cnonce, secret, flags
 
     # -- client -------------------------------------------------------------
     async def connect(self, addr: tuple[str, int],
@@ -736,12 +756,13 @@ class Messenger:
                 replay = [m for m, _ in conn.unacked]
             reader, writer = await asyncio.open_connection(
                 addr[0], addr[1])
-            last_seq, nego, hs_nonce, hs_cnonce, hs_secret = \
+            last_seq, nego, hs_nonce, hs_cnonce, hs_secret, hs_flags = \
                 await self._handshake_client(reader, writer, peer_name)
             conn = Connection(self, peer_name, reader, writer,
                               outgoing=True, peer_addr=addr)
             self._apply_negotiation(conn, nego, hs_nonce, hs_cnonce,
-                                    is_server=False, secret=hs_secret)
+                                    is_server=False, secret=hs_secret,
+                                    flags=hs_flags)
             # continue the server's seq space: a same-incarnation
             # session survives connection churn, and starting below
             # last_seq would get every message deduped as a replay
@@ -774,9 +795,9 @@ class Messenger:
                 try:
                     reader, writer = await asyncio.open_connection(
                         conn.peer_addr[0], conn.peer_addr[1])
-                    last_seq, nego, hs_nonce, hs_cnonce, hs_secret = \
-                        await self._handshake_client(reader, writer,
-                                                     conn.peer_name)
+                    (last_seq, nego, hs_nonce, hs_cnonce, hs_secret,
+                     hs_flags) = await self._handshake_client(
+                         reader, writer, conn.peer_name)
                     # swap + replay under the SEND lock: a sender mid-
                     # flight must not write a newer seq onto the fresh
                     # stream before the replay of older unacked frames
@@ -786,7 +807,8 @@ class Messenger:
                         self._apply_negotiation(conn, nego, hs_nonce,
                                                 hs_cnonce,
                                                 is_server=False,
-                                                secret=hs_secret)
+                                                secret=hs_secret,
+                                                flags=hs_flags)
                         conn._trim_acked(last_seq)
                         conn.reader, conn.writer = reader, writer
                         # server->client stream restarts on new accept

@@ -74,6 +74,14 @@ def load() -> ctypes.CDLL:
             u64p = ctypes.POINTER(ctypes.c_uint64)
             lib.ceph_crc32c.restype = ctypes.c_uint32
             lib.ceph_crc32c.argtypes = [ctypes.c_uint32, u8p, ctypes.c_size_t]
+            # the same entry for a bytes object, passed as it lies: every
+            # message frame is checksummed twice, so the numpy view and
+            # the pointer cast of the buffer path are the bulk of a call
+            crc_bytes = lib["ceph_crc32c"]
+            crc_bytes.restype = ctypes.c_uint32
+            crc_bytes.argtypes = [ctypes.c_uint32, ctypes.c_char_p,
+                                  ctypes.c_size_t]
+            lib.crc32c_bytes = crc_bytes
             lib.ceph_crc32c_batch.restype = None
             lib.ceph_crc32c_batch.argtypes = [u32p, u8p, u64p, u64p,
                                               ctypes.c_int]
@@ -84,21 +92,30 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+_PERF = None
+
+
 def _count_scalar(nbytes: int) -> None:
     """Every per-buffer call counts against the batched pipeline's
     "integrity" set, so a perf dump shows which paths skip the batched
     API."""
-    from .ops.crc32c_batch import PERF
-    PERF.inc("scalar_calls")
-    PERF.inc("scalar_bytes", nbytes)
+    global _PERF
+    if _PERF is None:
+        from .ops.crc32c_batch import PERF
+        _PERF = PERF
+    _PERF.inc("scalar_calls")
+    _PERF.inc("scalar_bytes", nbytes)
 
 
 def crc32c(data, crc: int = 0xFFFFFFFF) -> int:
     """CRC32-C of one buffer from ``crc`` (default the common -1 seed),
     raw register (no final XOR)."""
+    lib = _lib or load()
+    if type(data) is bytes:
+        _count_scalar(len(data))
+        return lib.crc32c_bytes(crc, data, len(data)) if data else crc
     buf = np.frombuffer(data, dtype=np.uint8)
     _count_scalar(buf.size)
-    lib = load()
     if buf.size == 0:
         return crc
     return int(lib.ceph_crc32c(

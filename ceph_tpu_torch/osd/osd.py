@@ -109,7 +109,7 @@ class OSD:
         self.msgr: Messenger | None = None
         self.mon_addr: tuple[str, int] | None = None
         self.monmap: list[list] = []
-        self.osdmap = OSDMap(device=self.device)
+        self.osdmap = OSDMap(device=self.device, shared_tables=True)
         self.pgs: dict[str, PG] = {}
         # backfill reservation slots (AsyncReserver.h / osd_max_backfills):
         # local = backfills this OSD primaries, remote = backfills
@@ -129,6 +129,8 @@ class OSD:
         self._tid = itertools.count(1)
         self._waiters: dict[int, asyncio.Future] = {}
         self._hb_last: dict[int, float] = {}
+        # the heartbeat peers of the last tick (``_heartbeat_once``)
+        self._hb_peers: set[int] = set()
         self._tasks: list[asyncio.Task] = []
         self._stopped = False
         self._track = make_task_tracker(self._tasks)
@@ -516,7 +518,8 @@ class OSD:
         # map touch only the PGs that actually moved
         prev = self.osdmap.peek_placement_cache()
         old_perf = self.osdmap._placement_perf
-        self.osdmap = OSDMap.from_dict(map_dict, device=self.device)
+        self.osdmap = OSDMap.from_dict(map_dict, device=self.device,
+                                         shared_tables=True)
         if old_perf is not None:
             # counters are per-daemon, not per-map-object: a full-map
             # ingest must not zero the recompute/delta history
@@ -978,11 +981,13 @@ class OSD:
         must never block the heartbeat cycle (the reference runs a
         dedicated hb messenger for the same reason)."""
         try:
-            await asyncio.wait_for(
-                self.msgr.send(
+            # a timeout scope, not wait_for's task: 64 OSDs ping ten
+            # peers a second each on one event loop
+            async with asyncio.timeout(1.0):
+                await self.msgr.send(
                     self._peer_addr(osd), f"osd.{osd}",
                     Message("osd_ping", {"from_osd": self.whoami,
-                                         "stamp": now})), 1.0)
+                                         "stamp": now}))
         except (ConnectionError, OSError, asyncio.TimeoutError):
             pass
 
@@ -1089,6 +1094,16 @@ class OSD:
                 pg.kick_snap_trim(pg.pool.removed_snaps)
         self._maybe_schedule_scrubs(now)
         peers = self._heartbeat_peers()
+        # a peer that enters the set starts a fresh clock, as the
+        # reference's new HeartbeatInfo does (OSD::maybe_update_heartbeat
+        # _peers): the stamp it left with, or one from its pings while it
+        # was out of the set, is no evidence for this peering.  Judged by
+        # it, a map change that swaps a ring neighbour (a kill) reports a
+        # live peer at once, and each false mark-down's epoch swaps more
+        entered = set(peers) - self._hb_peers
+        self._hb_peers = set(peers)
+        for osd in entered:
+            self._hb_last[osd] = now
         await asyncio.gather(*(self._ping_one(o, now) for o in peers),
                              return_exceptions=True)
         for osd in peers:
@@ -1248,18 +1263,25 @@ class OSD:
         # blocklist fence (OSD.cc session blocklist check): a fenced
         # instance's delayed/in-flight writes must NOT land -- this is
         # what makes cap revocation and rbd lock steal safe against a
-        # wedged-but-alive client
-        reqid = msg.data.get("reqid") or [None]
-        iid = reqid[0]
+        # wedged-but-alive client.  The instance is the connection's
+        # ("name:incarnation" as the handshake gave them), never the
+        # message's reqid: a client stamping another reqid would step
+        # round its own fence
+        iid = f"{conn.peer_name}:{conn.peer_inst}"
         # an entry may name a full instance ("client.x:inc") or a bare
         # entity ("client.x" -- rbd lock break fences every instance)
-        if iid is not None and (
-                self.osdmap.is_blocklisted(str(iid))
-                or self.osdmap.is_blocklisted(
-                    str(iid).split(":", 1)[0])):
+        if self.osdmap.is_blocklisted(iid) \
+                or self.osdmap.is_blocklisted(conn.peer_name):
             await conn.send(Message(
                 "osd_op_reply", {"tid": msg.data.get("tid"),
                                  "err": "EBLOCKLISTED"}))
+            return
+        reqid = msg.data.get("reqid")
+        if reqid and str(reqid[0]) != iid:
+            await conn.send(Message(
+                "osd_op_reply", {"tid": msg.data.get("tid"),
+                                 "err": "EPERM reqid names another "
+                                        "instance"}))
             return
         pg = self._get_pg(msg.data["pgid"])
         if pg is None:

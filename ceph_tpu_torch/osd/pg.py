@@ -44,6 +44,27 @@ WATCH_OPS = {"watch", "unwatch", "notify", "list_watchers", "list_snaps"}
 CALL_OPS = {"call"}     # cls method execution (CEPH_OSD_OP_CALL)
 
 
+
+async def _reacquire(lock: asyncio.Lock) -> None:
+    """Take ``lock`` back, even when the caller is cancelled while it
+    waits: the acquire runs on as its own task, the caller waits for it
+    through every cancellation, and the first cancellation is raised
+    once the lock is held again."""
+    acquire = asyncio.ensure_future(lock.acquire())
+    cancelled = None
+    while True:
+        try:
+            await asyncio.shield(acquire)
+            break
+        except asyncio.CancelledError as e:
+            if acquire.cancelled():
+                raise
+            cancelled = cancelled or e
+            if acquire.done():
+                break
+    if cancelled is not None:
+        raise cancelled
+
 class PG:
     def __init__(self, osd, pgid: str, pool, ec_profile: dict | None) -> None:
         self.osd = osd
@@ -900,7 +921,10 @@ class PG:
         round trip would re-serialize the whole PG on one object --
         exactly the await-under-lock failure mode the pipeline
         removes.  Loops because another op may slot a new commit for
-        the same object between the wake-up and the re-acquire."""
+        the same object between the wake-up and the re-acquire.  An op
+        cancelled here leaves with the lock held all the same
+        (``_reacquire``), so the caller's ``async with`` releases what
+        it holds."""
         while True:
             gate = self._obj_commits.get(oid)
             if gate is None or gate.done():
@@ -909,7 +933,7 @@ class PG:
             try:
                 await asyncio.wait({gate})
             finally:
-                await self.lock.acquire()
+                await _reacquire(self.lock)
 
     def _chain_commit(self, oid: str, commit) -> asyncio.Task:
         """Per-(PG, object) completion ordering: this op's commit

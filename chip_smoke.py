@@ -2,8 +2,10 @@
 """Drive the port's main paths on one CUDA card and check them: the
 erasure-code stripe codec, bulk CRUSH placement, the epoch placement table
 (K5 and, for the map shapes K5 does not express, K6), the OSD shard data
-spine, the sharded codec over ``torch.distributed`` and the RADOS cluster
-(monitor, OSDs and a librados client over the messenger).
+spine, the sharded codec over ``torch.distributed``, the RADOS cluster
+(monitor, OSDs and a librados client over the messenger) and the traffic
+and failure harness that drives it (loadgen, the recovery and straggler
+benches, chaos).
 
     python3 chip_smoke.py
 
@@ -167,9 +169,45 @@ Phases, one line each; any failure exits non-zero and prints no result:
     flush reasons, boot, mark-down, recovery and scrub seconds, the card's
     busy share (the profiled round's kernels and copies over its wall time),
     the host split of the cProfile'd round, launches by stage;
-11. a ``kernels`` JSON line: per kernel its launches on its paths (phases
-    4, 8f, 9 and 10 for K1/K2, phases 6-7 for K3, phases 8c, 8f and 10 for
-    K4, phases 8d, 8e and 10 for K5, phase 8e for K6), its
+11. the traffic and failure harness at the reference's own shapes (bench.py's
+    non-smoke modes), every daemon on the card, launches counted by
+    sub-phase (11a by stage), in a process of its own (``chip_smoke.py
+    --harness``: a fresh interpreter, as a user starts the harness; phase
+    1's XOR schedules passed across).  11a, loadgen (``run_workload`` at
+    ``bench.py::_cluster_spec(smoke=False)``, depth cut: ``HARNESS_LOADGEN``):
+    64 OSDs, an EC 2+1 pool on cuda at pg_num 256, objects lognormal around
+    16 KiB, the 0.50/0.35/0.15 read/write/RMW mix, Zipf s=1.1, 32
+    closed-loop clients, load, steady, one OSD killed (degraded), revived
+    (backfill), SimCluster's own heartbeats; checked: ``cluster_gates``, no
+    failed or wedged op, only the victim ever marked down, the degraded
+    stage's longest loop stall under the 1 s heartbeat interval, the
+    kill detected, the OSD revived, clean after, degraded reads and
+    recovery dispatches seen, RMW runs through the EC backend's
+    partial-write path, ``scrub_ec`` of every PG clean, 8 sampled objects
+    read back with their stored shards and tags == the host encode of the
+    bytes read, K2/K4/K5 launched, the kernels at the path's launch shapes
+    and K5 at the pool against their plain versions; printed: ops/s, GiB/s
+    and p50/p95/p99/p99.9 per phase and class, the p99 degradation ratios,
+    down detection, the scheduler's dispatches, stripes a launch, tables
+    built, map epochs and K5 launches by stage, the loop's longest stall
+    and p99 and the collector's pauses by stage.  11b,
+    ``recovery_bench`` at ``code_configs(smoke=False)`` (RS k=8,m=4 on cuda,
+    LRC k=8,m=4,l=3, PMSR k=5,m=4; 16 objects of 128 KiB, pg_num 16), a
+    cluster a code on the default routes (K1 serves PMSR, K2 RS and LRC),
+    then LRC and PMSR again under ``CEPH_TPU_XOR_SCHED=1`` (K3, its digests
+    built in phase 1): the bench's gates, equal repair counters on both
+    routes, K1 in the PMSR drive and K3 in both scheduled drives, the
+    kernels at each drive's launch shapes against their plain versions.
+    11c, ``straggler_bench`` at bench.py's non-smoke sizes (6 OSDs, EC 2+1,
+    pg_num 64, 48 objects of 16 KiB, 240 reads from 8 clients, lognormal
+    stragglers mu=ln 0.5, sigma=0.35, capped at 2 s): its gates (hedged
+    p99 at least 2x better, extra sub-reads at most 1.5x, nothing failed,
+    wedged, leaked or mismatched, one straggler schedule).  11d,
+    ``tools/chaos.py --smoke`` (one kill-last round at seed 7);
+12. a ``kernels`` JSON line: per kernel its launches on its paths (phases
+    4, 8f, 9, 10 and 11 for K1/K2, phases 6-7 and 11b for K3, phases 8c,
+    8f, 10 and 11 for K4, phases 8d, 8e, 10 and 11 for K5, phase 8e for
+    K6), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -182,7 +220,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     blocks per SM and spill or local bytes as the CUDA runtime reports
     them (K5 also ptxas's registers and spill bytes), and K3 per digest
     its design, shared memory, and ptxas's registers and spill bytes;
-12. the result line {"ok": true, "device": {...}}.
+13. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; a kernel of the path that did not launch fails the run.
@@ -200,6 +238,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -325,6 +364,37 @@ CLUSTER_STRIPE_UNIT = 4096       # the pool's default; the host oracle's
 CLUSTER_ORACLE_SAMPLE = 8        # objects whose every shard the host checks
 CLUSTER_PROFILED_OBJECTS = 16    # objects of the torch.profiler write round
 CLUSTER_HOST_OBJECTS = 16        # objects of the cProfile'd write round
+# phase 11, the traffic and failure harness at the reference's own shapes
+# (bench.py's non-smoke modes).  11a: bench.py::_cluster_spec(smoke=False),
+# 64 OSDs (one a host), pg_num 256, an EC pool at k=2,m=1 on cuda
+# reed_sol_van, objects lognormal around 16 KiB clamped to 4-64 KiB, the
+# 0.50/0.35/0.15 read/write/RMW mix with 2 KiB RMW spans, Zipf s=1.1, 32
+# closed-loop clients, one OSD killed under traffic, SimCluster's own
+# heartbeats (1 s interval, 6 s grace at 64 OSDs) and the reference's
+# settings throughout.  Cut: recovery_ops 1,200 -> 300 (the reference's own
+# CPU capture, BENCH_cluster_cpu.json); n_objects 10,000 -> 5,000 for the
+# run's time (phase 11 within 300 s: the load writes 60-90 objects a second,
+# the scrub reads them all).
+HARNESS_LOADGEN = dict(n_osds=64, pg_num=256, n_objects=5000,
+                       obj_size=16 << 10, n_ops=6000, n_clients=32,
+                       recovery_ops=300, kill_osds=1, size_dist="lognormal",
+                       seed=1)
+# the stage each of run_workload's stage ends opens (the loop's stalls and
+# the collector's pauses are kept by the stage they fall in)
+HARNESS_NEXT_STAGE = {"boot": "load", "load": "steady", "steady": "degraded",
+                      "degraded": "backfill", "backfill": "settle",
+                      "report": "scrub"}
+# the degraded stage's longest loop stall must stay under SimCluster's
+# heartbeat interval at 64 OSDs
+HARNESS_STALL_LIMIT = 1.0
+HARNESS_ORACLE_SAMPLE = 8
+# phase 11 runs in a process of its own: its flag, and the tag of the line
+# that carries its summary back
+HARNESS_FLAG = "--harness"
+HARNESS_TAG = "phase 11 summary: "        # 11a objects whose every shard the host checks
+# 11b: recovery_bench.code_configs(smoke=False) at bench.py --recovery's
+# sizes (16 objects of 128 KiB, pg_num 16); nothing cut
+HARNESS_RECOVERY = dict(n_objects=16, obj_size=128 << 10, pg_num=16, seed=7)
 
 
 def log(msg: str) -> None:
@@ -419,6 +489,11 @@ def path_matrices() -> dict:
         f"pmsr5/4 decode{list(PMSR_LOST)}": pmsr5.repair_matrix(*plan),
         "pmsr5/4 aggregate": pmsr5.aggregate_matrix(
             0, tuple(range(1, 1 + pmsr5.d))),
+        # phase 11b's degraded reads under CEPH_TPU_XOR_SCHED=1: a PMSR
+        # k=5,m=4 data chunk lost, repaired from the first k survivors
+        **{f"pmsr5/4 decode[{q}]": pmsr5.repair_matrix(*pmsr5.decode_plan(
+            {pmsr5.chunk_index(i) for i in range(5)},
+            set(range(n5)) - {q})) for q in range(5)},
     }
 
 
@@ -466,6 +541,14 @@ def phase_build() -> dict:
             + (f"nvcc {secs:.2f} s" if built else "already built"))
     log(f"build: {len(sources)} sources + {len(set(k3.values()))} K3 digests "
         f"in {dt:.2f} s ({len(reports)} compiled, sm_90a, all at once)")
+    # the host codecs the daemons' messages and stores run (g++)
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.common import denc_native
+    t0 = time.perf_counter()
+    native.load()
+    denc_native.load()
+    log(f"host build: the CRC32C engine and the denc value codec in "
+        f"{time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -1672,17 +1755,17 @@ def table_on_cpu(m, pps: dict, dev: torch.device):
     the same seeds and weights), ingested on the CPU."""
     from ceph_tpu_torch.crush.vectorized import seed_tensor
     from ceph_tpu_torch.mon.pg_mapping import (
-        PGMapping, bulk_crush_rows, live_osds)
+        BuildInputs, PGMapping, bulk_crush_rows)
     cpu = PGMapping(m.epoch, "cpu")
     weights = m.osd_weights()
-    live = live_osds(m, len(weights) + 1)
+    inputs = BuildInputs(m, len(weights) + 1, torch.device("cpu"))
     for pid, pool in m.pools.items():
         rows, used = bulk_crush_rows(m.crush, pool.crush_rule,
                                      seed_tensor(pps[pid], dev), pool.size,
                                      weights)
         if not used:
             raise RuntimeError(f"pool {pid} took the scalar sweep")
-        cpu._ingest_pool(m, pid, pool, rows.cpu(), live)
+        cpu._ingest_pool(pid, pool, rows.cpu(), inputs)
     cpu._copy_back()
     return cpu
 
@@ -1755,14 +1838,15 @@ def staged_build(m, dev: torch.device) -> dict:
     t0 = time.perf_counter()
     pm = pmod.PGMapping(m.epoch, dev)
     weights = m.osd_weights()
-    live = pmod.live_osds(m, len(weights) + 1)
+    inputs = stage("inputs", lambda: pmod.BuildInputs(
+        m, len(weights) + 1, dev))
     for pid, pool in m.pools.items():
         seeds = stage("seeds", lambda: pmod.cached_pool_seeds(pool, dev))
         rows, used = stage("crush", lambda: pmod.bulk_crush_rows(
             m.crush, pool.crush_rule, seeds, pool.size, weights), kernel=True)
         if not used:
             raise RuntimeError(f"pool {pid} was not mapped by K5")
-        stage("filter", lambda: pm._ingest_pool(m, pid, pool, rows, live))
+        stage("filter", lambda: pm._ingest_pool(pid, pool, rows, inputs))
     stage("copy back", pm._copy_back)
     split["total"] = time.perf_counter() - t0
     return split
@@ -1770,9 +1854,10 @@ def staged_build(m, dev: torch.device) -> dict:
 
 def split_line(split: dict) -> str:
     """A staged build's host clock by stage, and the Python left over."""
-    stages = ("seeds", "crush", "filter", "copy back")
+    stages = ("inputs", "seeds", "crush", "filter", "copy back")
     left = split["total"] - sum(split[k] for k in stages)
-    return (f"{split['total']:.4f} s = seeds (pool_seeds on the card, or "
+    return (f"{split['total']:.4f} s = inputs (one copy up) "
+            f"{split['inputs']:.4f}, seeds (pool_seeds on the card, or "
             f"the cache) {split['seeds']:.4f}, crush {split['crush']:.4f} "
             f"(K5 {split['K5']:.4f} by CUDA events), filter "
             f"{split['filter']:.4f}, copy back {split['copy back']:.4f}, "
@@ -2854,12 +2939,18 @@ def host_split(stats) -> dict:
 def cluster_shards(drive, oid: str) -> dict:
     """(osd, shard label) -> (bytes, CRC tag) of ``oid`` on every live
     OSD's store."""
+    return pool_shards(drive.cluster, drive.pool_id, oid)
+
+
+def pool_shards(cluster, pool_id: int, oid: str) -> dict:
+    """(osd, shard label) -> (bytes, CRC tag) of ``oid`` of a pool on every
+    live OSD's store of a ``SimCluster``."""
     from ceph_tpu_torch.osd.backend import CRC_XATTR, SHARD_XATTR
-    omap = drive.cluster.mon.osdmap
-    _, ps = omap.object_to_pg(drive.pool_id, oid)
-    coll = f"pg_{omap.pg_name(drive.pool_id, ps)}"
+    omap = cluster.mon.osdmap
+    _, ps = omap.object_to_pg(pool_id, oid)
+    coll = f"pg_{omap.pg_name(pool_id, ps)}"
     out = {}
-    for osd in drive.cluster.osds:
+    for osd in cluster.osds:
         if osd.is_stopped() or not osd.store.exists(coll, oid):
             continue
         label = osd.store.getattr(coll, oid, SHARD_XATTR)
@@ -3199,6 +3290,624 @@ def phase_cluster(dev: torch.device) -> dict:
             "kernels": kernels, "seconds": secs}
 
 
+class StageMarks:
+    """Launch counts and seconds by stage of a harness drive: ``mark(stage)``
+    at the end of each stage (``run_workload``'s ``on_stage``).  The counts
+    are set to 0 when the marks start."""
+
+    def __init__(self) -> None:
+        self.stages: dict[str, dict] = {}
+        self.seconds: dict[str, float] = {}
+        reset_launches()
+        self._last = launch_counts()
+        self._t = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        now, t = launch_counts(), time.perf_counter()
+        self.stages[stage] = {k: now[k] - self._last[k] for k in now
+                              if now[k] != self._last[k]}
+        self.seconds[stage] = t - self._t
+        self._last, self._t = now, t
+
+
+def launch_matrix(codec, kind: str, extra) -> tuple[np.ndarray, int]:
+    """The GF(2^8) matrix of a batcher launch and the sub-chunk rows a
+    chunk, as ``MeshCodec`` picks them: the parity for an encode or an RMW
+    delta, the repair or decode matrix of the erasures for a decode."""
+    from ceph_tpu_torch.parallel.mesh_codec import MeshCodec
+    alpha = MeshCodec._alpha(codec)
+    if kind in ("encode", "rmw"):
+        mat = MeshCodec._parity_matrix(codec)
+    elif MeshCodec._flat(codec):
+        mat = codec.decode_flat_matrix(list(extra))
+    else:
+        mat = codec.decode_matrix_for(list(extra))
+    return np.ascontiguousarray(mat, np.uint8), alpha
+
+
+def harness_kernel(label: str, codec, key: tuple, n: int, dev: torch.device,
+                   seed: int) -> dict:
+    """The kernel that serves a batcher launch shape ``key`` (kind, (B, k,
+    L), extra) on its route (the cost model's, under the caller's
+    ``CEPH_TPU_XOR_SCHED``) against its plain version on seeded data of
+    that shape, two stripes against the host oracle; CUDA events."""
+    from ceph_tpu_torch.ops import gf2kernels as gk
+    from ceph_tpu_torch.ops import xor_schedule as xs
+    kind, (b, k, l), extra = key
+    mat, alpha = launch_matrix(codec, kind, extra)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (b, k * alpha, l // alpha), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    r = mat.shape[0]
+    shape = (b, k * alpha, l // alpha, r)
+    sched = xs.want_scheduled(gk.bitmatrix_i8(mat), l // alpha, "cuda")
+    if sched is not None:
+        name, g = "xor_sched", None
+        kernel = lambda: xs.xor_sched(sched, x)  # noqa: E731
+        plain = lambda v: xs.apply_bits_plain(sched, v)  # noqa: E731
+    else:
+        name, g = gk.dense_kernel_for(b, k * alpha, r, l // alpha)
+        if name == "gf2_matmul_mma":
+            w = torch.from_numpy(gk.w_gN_planemajor(mat, g)).to(dev)
+            kernel = lambda: gk.gf2_matmul_mma(mat, x, g)  # noqa: E731
+            plain = lambda v: gk.gf2_matmul_grouped_plain(w, v, g)  # noqa: E731
+        else:
+            w = torch.from_numpy(gk.bitmatrix_i8(mat)).to(dev)
+            kernel = lambda: gk.gf2_matmul_popc(mat, x)  # noqa: E731
+            plain = lambda v: gk.gf2_matmul_plain(w, v)  # noqa: E731
+    got = kernel()
+    plain_ms, err = plain_in_slices(plain, x, got)
+    pick = [0, b - 1]
+    host = host_stripes(mat, x, pick)
+    if err or not all(np.array_equal(got[i].cpu().numpy(), h)
+                      for i, h in zip(pick, host)):
+        raise RuntimeError(f"harness {label}: {name} differs from its plain "
+                           f"version ({err}) or the host oracle at {key}")
+    ms = time_ms(kernel)
+    log(f"harness {label} {kind}{list(extra) if kind == 'decode' else ''} at"
+        f" the path's launch shape ({b}, {k * alpha}, {l // alpha}) -> {r} "
+        f"({n} launches): {name} {ms:.4f} ms (CUDA events), plain "
+        f"{plain_ms:.2f} ms, == its plain version and the host oracle")
+    return {"name": name, "g": g, "shape": list(shape), "ms": ms,
+            "plain_ms": plain_ms, "err": err, "launches": n, "sched": sched,
+            "path": path_label(f"harness {label} {kind}", shape)}
+
+
+def top_launches(shapes: collections.Counter) -> list:
+    """The most frequent launch shape of each kind, with its count."""
+    out = []
+    for kind in ("encode", "rmw", "decode"):
+        keys = [key for key in shapes if key[0] == kind]
+        if keys:
+            key = max(keys, key=lambda key: shapes[key])
+            out.append((key, shapes[key]))
+    return out
+
+
+def pool_codec(cluster, pool_id: int):
+    return next(pg.backend.codec for osd in cluster.osds
+                if not osd.is_stopped() for pgid, pg in osd.pgs.items()
+                if pgid.startswith(f"{pool_id}."))
+
+
+def batcher_shapes(osds) -> collections.Counter:
+    return sum((osd.codec_batcher.launch_shapes for osd in osds
+                if osd.codec_batcher is not None), collections.Counter())
+
+
+async def scrub_pool(cluster, pool_id: int) -> tuple[int, list]:
+    """``scrub_ec`` of every PG of the pool on its primary: (objects,
+    inconsistent (pgid, objects))."""
+    from ceph_tpu_torch.osd.scrub import scrub_ec
+    n, bad = 0, []
+    for osd in cluster.osds:
+        if osd.is_stopped():
+            continue
+        for pgid, pg in sorted(osd.pgs.items()):
+            if pgid.startswith(f"{pool_id}.") and pg.is_primary():
+                res = await scrub_ec(pg)
+                n += res.objects_scrubbed
+                if res.inconsistent:
+                    bad.append((pgid, sorted(res.inconsistent)))
+    return n, bad
+
+
+async def harness_oracle(cluster, pool_id: int, oids: list, k: int, m: int,
+                         dev: torch.device) -> int:
+    """Each of ``oids`` read back through librados; its stored shards on
+    every OSD against the port's host encode of the bytes read (the
+    ``isa`` plugin on the CPU, ``StripeInfo.encode`` of the zero-padded
+    object), each CRC tag against the host engine's.  Returns the shards
+    checked."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    isa = registry().factory("isa", {"k": str(k), "m": str(m),
+                                     "technique": "reed_sol_van"})
+    sinfo = StripeInfo.for_codec(isa, stripe_unit=CLUSTER_STRIPE_UNIT)
+    rados = await Rados(cluster.addr, name="client.oracle",
+                        device=dev).connect()
+    checked = 0
+    try:
+        io = await rados.open_ioctx(
+            cluster.mon.osdmap.pools[pool_id].name)
+        for oid in oids:
+            data = bytes(await io.read(oid))
+            pad = sinfo.logical_to_next_stripe_offset(len(data)) - len(data)
+            want = sinfo.encode(isa, data + b"\0" * pad)
+            shards = pool_shards(cluster, pool_id, oid)
+            if sorted(s for _, s in shards) != list(range(k + m)):
+                raise RuntimeError(f"harness: {oid} has shards "
+                                   f"{sorted(shards)}, want one of each "
+                                   f"of {k + m}")
+            for (whoami, label), (raw, tag) in shards.items():
+                if raw != want[label].tobytes() or tag != native.crc32c(raw):
+                    raise RuntimeError(
+                        f"harness: osd.{whoami}'s shard {label} of {oid} "
+                        f"differs from the host encode of the bytes read, "
+                        f"or its tag from the host engine's CRC")
+                checked += 1
+    finally:
+        await rados.shutdown()
+    return checked
+
+
+def harness_loadgen(dev: torch.device) -> dict:
+    """11a: ``run_workload`` at ``HARNESS_LOADGEN`` through the daemons'
+    entry points on ``dev``: launches, tables built and map epochs by
+    stage, the loop's stalls and the collector's pauses by stage, then on
+    the live cluster ``scrub_ec`` of every PG, the host oracle on
+    ``HARNESS_ORACLE_SAMPLE`` objects, K5 at the pool and the kernels at
+    the path's launch shapes.  No profiler runs under the live cluster:
+    its processing stalls the loop (5.2 s after a profiled steady stage on
+    an H100 machine), and phase 10 reads the card's busy share of the same
+    path."""
+    import asyncio
+    from ceph_tpu_torch.common.config import ConfigProxy
+    from ceph_tpu_torch.loadgen import (WorkloadSpec, cluster_gates,
+                                        degradation_ratios, run_workload)
+    from ceph_tpu_torch.mon import pg_mapping as pgm
+    from ceph_tpu_torch.tools.loop_sampler import (GCClock, LoopLag,
+                                                   StageCounts, mark_downs)
+    spec = WorkloadSpec(**HARNESS_LOADGEN).validate()
+    conf = ConfigProxy()
+    marks = StageMarks()
+    by_stage = StageCounts()
+    lag = LoopLag()
+    collector = GCClock()
+    out: dict = {}
+
+    async def on_stage(stage, cluster, report):
+        by_stage.mark(stage, cluster)
+        lag.mark(HARNESS_NEXT_STAGE[stage])
+        collector.mark(HARNESS_NEXT_STAGE[stage])
+        if stage != "report":
+            marks.mark(stage)
+            return
+        marks.mark("settle")
+        out["mark_downs"] = mark_downs(cluster)
+        pool_id = cluster.mon.osdmap.pool_names[spec.pool]
+        t0 = time.perf_counter()
+        out["scrub"] = await scrub_pool(cluster, pool_id)
+        out["scrub_s"] = time.perf_counter() - t0
+        marks.mark("scrub")
+        rng = np.random.default_rng(SEED + 110)
+        sample = sorted(spec.object_name(int(i)) for i in rng.choice(
+            spec.n_objects, HARNESS_ORACLE_SAMPLE, replace=False))
+        out["oracle_shards"] = await harness_oracle(
+            cluster, pool_id, sample, spec.ec_k, spec.ec_m, dev)
+        out["sample"] = sample
+        codec = pool_codec(cluster, pool_id)
+        shapes = batcher_shapes(cluster.osds)
+        out["launched"] = shapes
+        out["kernels"] = [harness_kernel("11a", codec, key, n, dev,
+                                         SEED + 111 + i)
+                          for i, (key, n) in enumerate(top_launches(shapes))]
+        # K5 at the pool's table against its plain version; the card's
+        # table against the CPU's
+        omap = cluster.mon.osdmap
+        pool = omap.pools[pool_id]
+        weights = omap.osd_weights()
+        seeds = pgm.pool_seeds(pool, dev)
+        vc = pgm._vector_crush_for(omap.crush, pool.crush_rule, dev)
+        rows5 = vc.map_device(seeds, pool.size, weights)
+        plain5 = pgm._vector_crush_for(
+            omap.crush, pool.crush_rule, torch.device("cpu")).map_device(
+            seeds.cpu(), pool.size, weights)
+        err5 = int((rows5.cpu().long() - plain5.long()).abs().max())
+        cpu_map = type(omap).from_dict(omap.to_dict(), device="cpu")
+        card, host_tab = (omap.placement_cache().tables()[pool_id],
+                          cpu_map.placement_cache().tables()[pool_id])
+        if err5 or not all(np.array_equal(a, b)
+                           for a, b in zip(card, host_tab)):
+            raise RuntimeError("harness 11a: K5 differs from its plain "
+                               "version, or the card's table from the CPU's")
+        out["placement"] = {
+            "lanes": pool.pg_num, "numrep": pool.size, "err": err5,
+            "n_osds": spec.n_osds,
+            "ms": time_ms(lambda: vc.map_device(seeds, pool.size, weights))}
+        log(f"harness 11a K5 at the pool's {pool.pg_num} lanes x{pool.size} "
+            f"on {spec.n_osds} OSDs: {out['placement']['ms']:.4f} ms (CUDA "
+            f"events), == its plain version; the card's table == the CPU's")
+
+    async def drive():
+        lag.start().mark("boot")
+        collector.mark("boot")
+        try:
+            return await run_workload(
+                spec, conf=conf, log=lambda msg: log(f"  {msg}"), device=dev,
+                on_stage=on_stage)
+        finally:
+            lag.stop()
+
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        report = loop.run_until_complete(drive())
+    finally:
+        loop.close()
+        collector.stop()
+    secs = time.perf_counter() - t0
+    stalls = lag.summary()
+    pauses = collector.summary()
+    stages = {k: v for k, v in marks.stages.items() if k != "scrub"}
+    launches: dict[str, int] = {}
+    for counts in stages.values():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    errors = cluster_gates(report)
+    inter = report.get("interference") or {}
+    counters = report["counters"]
+    batch = counters["ec_batch"]
+    for key in ("down_detected", "revived", "clean_after_revive"):
+        if not inter.get(key):
+            errors.append(f"interference {key} is {inter.get(key)}")
+    if not counters["ec_degraded"].get("degraded_reads"):
+        errors.append("no degraded read recorded")
+    if not report["qos"]["final"].get("dispatched_recovery"):
+        errors.append("no recovery op dispatched")
+    rmw_runs = batch.get("rmw_delta_runs", 0) + batch.get("rmw_full_runs", 0)
+    if not rmw_runs:
+        errors.append("no RMW op reached the EC backend's partial-write path")
+    n_scrubbed, bad = out["scrub"]
+    if bad or not n_scrubbed:
+        errors.append(f"scrub_ec: {n_scrubbed} objects, inconsistent {bad}")
+    for name in ("gf2_matmul_mma", "crc32c_chunks", "crush_map_rule"):
+        if not launches.get(name):
+            errors.append(f"{name} never launched")
+    longest = stalls.get("degraded", {}).get("max_s")
+    if longest is None or longest >= HARNESS_STALL_LIMIT:
+        errors.append(f"the loop stalled {longest} s in the degraded stage "
+                      f"(limit {HARNESS_STALL_LIMIT} s, the heartbeat "
+                      f"interval)")
+    victims = {f"osd.{v}" for v in inter.get("victims", [])}
+    healthy = [m for m in out["mark_downs"] if m.split()[0] not in victims]
+    if healthy or not out["mark_downs"]:
+        errors.append(f"mark-downs beyond the victims {sorted(victims)}: "
+                      f"{out['mark_downs']}")
+    phases = report["phases"]
+    for name, ph in phases.items():
+        t = ph["timing"]
+        log(f"harness 11a {name}: {ph['ops']} ops in {t['elapsed_s']} s, "
+            f"{t['ops_per_s']} ops/s, {t['GiBps']} GiB/s (host clock); "
+            + "; ".join(f"{kind} p50 {lat['p50_s']} p95 {lat['p95_s']} p99 "
+                        f"{lat['p99_s']} p99.9 {lat['p99_9_s']} s"
+                        for kind, lat in t["latency"].items()))
+    degr = {p: degradation_ratios(report, p) for p in ("degraded", "backfill")
+            if p in phases}
+    stripes_a_launch = (batch.get("stripes", 0) / batch["batches"]
+                        if batch.get("batches") else 0.0)
+    log(f"harness 11a ({spec.n_osds} OSDs, EC k={spec.ec_k},m={spec.ec_m} on "
+        f"cuda, pg_num {spec.pg_num}, {spec.n_objects} objects lognormal "
+        f"around {spec.obj_size >> 10} KiB, {spec.n_clients} clients): p99 "
+        f"degradation {degr}; down detected in {inter.get('down_detect_s')} "
+        f"s; bring-up {report['timing']['bringup_s']} s, total "
+        f"{report['timing']['total_s']} s; scheduler dispatches "
+        f"{ {p: {k: v for k, v in q.items() if k.startswith('dispatched')} for p, q in report['qos'].items()} }; "
+        f"ec_batch {stripes_a_launch:.2f} stripes a launch over "
+        f"{batch.get('batches', 0)} launches, RMW runs {rmw_runs} "
+        f"(delta {batch.get('rmw_delta_runs', 0)}); degraded reads "
+        f"{counters['ec_degraded'].get('degraded_reads')}; mark-downs "
+        f"{len(out['mark_downs'])} (the victim's and any healthy OSD's: "
+        f"{out['mark_downs']}); scrub "
+        f"{n_scrubbed} objects clean in {out['scrub_s']:.2f} s; host oracle "
+        f"{out['oracle_shards']} shards of {len(out['sample'])} objects")
+    log(f"harness 11a tables built / map epochs / K5 launches by stage "
+        f"{by_stage.stages}; the loop's stalls by stage (wake-ups, longest, "
+        f"p99 s) {stalls}; the collector's pauses by stage {pauses}")
+    log(f"harness 11a launches by stage {marks.stages}; seconds by stage "
+        f"{ {k: round(v, 2) for k, v in marks.seconds.items()} }; the "
+        f"batchers' launches by (kind, shape, erasures) "
+        f"{dict(out['launched'].most_common(8))}; {secs:.1f} s")
+    if errors:
+        raise RuntimeError(f"harness 11a: {errors}")
+    return {"report": report, "launches": launches, "stages": stages,
+            "stage_s": marks.seconds, "degradation": degr,
+            "stripes_a_launch": stripes_a_launch, "rmw_runs": rmw_runs,
+            "kernels": out["kernels"], "placement": out["placement"],
+            "oracle_shards": out["oracle_shards"], "scrub": out["scrub"],
+            "mark_downs": out["mark_downs"], "counts": by_stage.stages,
+            "stalls": stalls, "gc": pauses, "seconds": secs}
+
+
+def harness_recovery(dev: torch.device) -> dict:
+    """11b: ``recovery_bench`` at ``code_configs(smoke=False)`` and bench.py
+    --recovery's sizes, each code on a cluster of its own on ``dev`` on the
+    default routes (K1 serves PMSR, K2 RS and LRC), then the LRC and PMSR
+    drives again under ``CEPH_TPU_XOR_SCHED=1`` (K3).  Launches a drive;
+    the bench's gates; equal repair counters on both routes; the kernels at
+    each drive's launch shapes."""
+    import asyncio
+    from ceph_tpu_torch.tools import recovery_bench as rb
+    drives: dict[str, dict] = {}
+
+    def drive(spec: dict, tag: str, env: str | None, seed: int) -> None:
+        seen: dict = {}
+
+        async def on_stage(stage, c, result):
+            pool_id = c.mon.osdmap.pool_names["recpool"]
+            seen["codec"] = pool_codec(c, pool_id)
+            seen["shapes"] = batcher_shapes(c.osds)
+
+        loop = asyncio.new_event_loop()
+        try:
+            with xor_sched_env(env):
+                reset_launches()
+                t0 = time.perf_counter()
+                res = loop.run_until_complete(rb.drive_code(
+                    spec, **HARNESS_RECOVERY, device=dev, on_stage=on_stage,
+                    log=lambda msg: log(f"  {msg}")))
+                counts = {k: v for k, v in launch_counts().items() if v}
+                secs = time.perf_counter() - t0
+                kernels = [harness_kernel(f"11b {tag}", seen["codec"], key,
+                                          n, dev, seed + i)
+                           for i, (key, n) in
+                           enumerate(top_launches(seen["shapes"]))]
+        finally:
+            loop.close()
+        drives[tag] = {"result": res, "launches": counts, "seconds": secs,
+                       "kernels": kernels}
+        log(f"harness 11b {tag}: read/shipped {res['read_per_shipped']}x, "
+            f"recovery {res['recovery_wall_s']} s, drive {secs:.1f} s, "
+            f"launches {counts}")
+
+    for i, spec in enumerate(rb.code_configs(smoke=False)):
+        drive(spec, spec["name"], None, SEED + 120 + 10 * i)
+    for i, spec in enumerate(rb.code_configs(smoke=False)):
+        if spec["name"] in ("lrc", "pmsr"):
+            drive(spec, f"{spec['name']} sched", "1", SEED + 160 + 10 * i)
+    res = rb.recovery_summary(
+        {name: drives[name]["result"] for name in ("rs", "lrc", "pmsr")},
+        dict(HARNESS_RECOVERY))
+    errors = rb.recovery_gates(res)
+    counters = ("repair_bytes_read", "repair_bytes_shipped", "repair_reads",
+                "repair_local_repairs", "repair_global_decodes",
+                "repair_fragment_pulls")
+    for name in ("lrc", "pmsr"):
+        dense, sched = (drives[t]["result"] for t in (name, f"{name} sched"))
+        if {k: dense[k] for k in counters} != {k: sched[k] for k in counters}:
+            errors.append(f"{name}: repair counters differ between the "
+                          f"routes: {dense} vs {sched}")
+        if sched["mismatched"] or sched["errors"] or \
+                not sched["recovered_clean"]:
+            errors.append(f"{name} sched: {sched['mismatched']} "
+                          f"{sched['errors']}")
+        if not drives[f"{name} sched"]["launches"].get("xor_sched"):
+            errors.append(f"{name} sched: xor_sched never launched")
+    if not drives["pmsr"]["launches"].get("gf2_matmul_popc"):
+        errors.append("pmsr: gf2_matmul_popc never launched")
+    for name in ("rs", "lrc"):
+        if not drives[name]["launches"].get("gf2_matmul_mma"):
+            errors.append(f"{name}: gf2_matmul_mma never launched")
+    if errors:
+        raise RuntimeError(f"harness 11b: {errors}")
+    codes = res["codes"]
+    log(f"harness 11b (RS k=8,m=4 on cuda, LRC k=8,m=4,l=3, PMSR k=5,m=4; "
+        f"{HARNESS_RECOVERY['n_objects']} objects of "
+        f"{HARNESS_RECOVERY['obj_size'] >> 10} KiB, pg_num "
+        f"{HARNESS_RECOVERY['pg_num']}): read/shipped rs "
+        f"{codes['rs']['read_per_shipped']}x lrc "
+        f"{codes['lrc']['read_per_shipped']}x pmsr "
+        f"{codes['pmsr']['read_per_shipped']}x (lrc vs rs "
+        f"{res['lrc_vs_rs_read_ratio']}x, pmsr read chunks "
+        f"{res['pmsr_read_chunks']}); recovery wall "
+        + ", ".join(f"{t} {d['result']['recovery_wall_s']} s"
+                    for t, d in drives.items())
+        + "; repair counters equal on both routes, every object intact")
+    return {"summary": res, "drives": drives,
+            "seconds": sum(d["seconds"] for d in drives.values())}
+
+
+def harness_straggler(dev: torch.device) -> dict:
+    """11c: ``straggler_bench`` at bench.py --straggler's non-smoke sizes on
+    ``dev``, unhedged then hedged under one straggler schedule; its gates."""
+    import asyncio
+    from ceph_tpu_torch.tools import straggler_bench as sb
+    n_osds, pg_num, n_objects, obj_bytes, n_reads, n_clients = sb.FULL
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        res = loop.run_until_complete(sb.run_straggler_bench(
+            n_osds=n_osds, pg_num=pg_num, n_objects=n_objects,
+            obj_bytes=obj_bytes, n_reads=n_reads, n_clients=n_clients,
+            device=dev, log=lambda msg: log(f"  {msg}")))
+    finally:
+        loop.close()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    secs = time.perf_counter() - t0
+    errors = sb.straggler_gates(res)
+    if not launches.get("gf2_matmul_mma"):
+        errors.append("gf2_matmul_mma never launched")
+    if errors:
+        raise RuntimeError(f"harness 11c: {errors}")
+    un, he = res["unhedged"], res["hedged"]
+    log(f"harness 11c ({n_osds} OSDs, EC 2+1 on cuda, pg_num {pg_num}, "
+        f"{n_objects} objects of {obj_bytes >> 10} KiB, {n_reads} reads from "
+        f"{n_clients} clients, lognormal stragglers on {un['victims']}): p99 "
+        f"{res['p99_unhedged_s']} s unhedged -> {res['p99_hedged_s']} s "
+        f"hedged ({res['p99_speedup']}x), extra sub-reads "
+        f"{res['extra_subread_ratio']}x, bytes {res['extra_byte_ratio']}x; "
+        f"hedges fired {he['hedges_fired']}, won {he['hedges_won']}; "
+        f"{un['ops_per_s']} / {he['ops_per_s']} ops/s; straggler delays "
+        f"{un['straggler_delays']} / {he['straggler_delays']}, one schedule; "
+        f"launches {launches}; {secs:.1f} s")
+    return {"result": res, "launches": launches, "seconds": secs}
+
+
+def harness_chaos(dev: torch.device) -> dict:
+    """11d: ``tools/chaos.py --smoke`` on ``dev`` (one kill-last round at
+    seed 7: write, kill, read every object back, byte-compared)."""
+    from ceph_tpu_torch.tools import chaos
+    reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = chaos.main(["--smoke", "--device", str(dev)])
+    launches = {k: v for k, v in launch_counts().items() if v}
+    secs = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"  {line}")
+    if rc != 0 or not launches.get("gf2_matmul_mma"):
+        raise RuntimeError(f"harness 11d: chaos --smoke exited {rc}, "
+                           f"launches {launches}")
+    log(f"harness 11d chaos --smoke: PASS, launches {launches}; {secs:.1f} s")
+    return {"rc": rc, "launches": launches, "seconds": secs}
+
+
+def phase_harness(dev: torch.device) -> dict:
+    """Phase 11, the traffic and failure harness: 11a loadgen, 11b the
+    recovery bench, 11c the straggler bench, 11d chaos."""
+    out = {}
+    with xor_sched_env(None):          # the cluster keeps its routing
+        out["loadgen"] = harness_loadgen(dev)
+    out["recovery"] = harness_recovery(dev)
+    with xor_sched_env(None):
+        out["straggler"] = harness_straggler(dev)
+        out["chaos"] = harness_chaos(dev)
+    log("phase 11 seconds: " + ", ".join(
+        f"{name} {v['seconds']:.1f}" for name, v in out.items()))
+    return out
+
+
+def harness_summary(out: dict) -> dict:
+    """What the kernels line reads of ``phase_harness``'s result, as JSON: the
+    launches by sub-phase, the kernels at the path's shapes (a schedule by
+    its XOR terms), 11a's K5 at the pool, the seconds."""
+    def kernels(checks: list) -> list:
+        return [{**d, "sched": None if d["sched"] is None
+                 else {"n_terms": d["sched"].n_terms}} for d in checks]
+    return {
+        "loadgen": {"launches": out["loadgen"]["launches"],
+                    "kernels": kernels(out["loadgen"]["kernels"]),
+                    "placement": out["loadgen"]["placement"],
+                    "seconds": out["loadgen"]["seconds"]},
+        "recovery": {"drives": {tag: {"launches": d["launches"],
+                                      "kernels": kernels(d["kernels"])}
+                                for tag, d in out["recovery"]["drives"].items()},
+                     "seconds": out["recovery"]["seconds"]},
+        **{name: {"launches": out[name]["launches"],
+                  "seconds": out[name]["seconds"]}
+           for name in ("straggler", "chaos")}}
+
+
+def phase_harness_process(schedules: dict) -> dict:
+    """Phase 11 in a process of its own (``chip_smoke.py --harness``), as a
+    user starts the harness: a fresh interpreter and heap, not the one
+    phases 1-10 filled (its one event loop carries 97 daemons and clients).
+    The kernels and host codecs are already built; the XOR schedules phase 1
+    compiled go across in a file, so 11b's scheduled drives find them.  Its
+    log lines are passed through; its last line is ``harness_summary``'s
+    JSON.  The process is stopped on any way out."""
+    import pickle
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as fh:
+        pickle.dump(schedules, fh)
+        path = fh.name
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), HARNESS_FLAG, path],
+        stdout=subprocess.PIPE, text=True, cwd=os.path.dirname(
+            os.path.abspath(__file__)))
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(HARNESS_TAG):
+                result = json.loads(line[len(HARNESS_TAG):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        os.unlink(path)
+    if rc != 0 or result is None:
+        raise RuntimeError(f"phase 11's process exited {rc}")
+    return result
+
+
+def harness_main(schedules_path: str | None) -> int:
+    """``--harness [SCHEDULES]``: phase 11 alone on the card, its summary
+    last.  Without the pickled schedules of phase 1, 11b's scheduled drives
+    compile theirs at first use (seconds of host CSE on the loop)."""
+    import pickle
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import xor_schedule as xs
+    if not torch.cuda.is_available():
+        print("chip_smoke --harness: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
+    _build.build(_build.all_sources())       # built by phase 1: found
+    if schedules_path:
+        with open(schedules_path, "rb") as fh:
+            for digest, sched in pickle.load(fh).items():
+                xs._SCHEDULES.setdefault(digest, sched)
+    out = phase_harness(torch.device("cuda", 0))
+    print(HARNESS_TAG + json.dumps(harness_summary(out)), flush=True)
+    return 0
+
+
+def harness_paths(rows: list, harness: dict, mhz: float,
+                  b1_rate: float) -> None:
+    """Phase 11's launches on each kernel's row by sub-phase (the totals
+    included), and its launch shapes' times and bounds beside the kernel
+    that served them."""
+    by_name = {row["name"]: row for row in rows}
+    subs = {"harness 11a loadgen (phase 11)": harness["loadgen"]["launches"]}
+    for tag, d in harness["recovery"]["drives"].items():
+        subs[f"harness 11b recovery, {tag} (phase 11)"] = d["launches"]
+    subs["harness 11c straggler (phase 11)"] = \
+        harness["straggler"]["launches"]
+    subs["harness 11d chaos --smoke (phase 11)"] = harness["chaos"]["launches"]
+    for name, row in by_name.items():
+        for label, counts in subs.items():
+            n = counts.get(name, 0)
+            row["launches"] += n
+            row.setdefault("launches_by_path", {})[label] = n
+    checks = list(harness["loadgen"]["kernels"])
+    for d in harness["recovery"]["drives"].values():
+        checks += d["kernels"]
+    for d in checks:
+        row = by_name[d["name"]]
+        b, k, l, r = d["shape"]
+        sched = d["sched"] and types.SimpleNamespace(**d["sched"])
+        row.setdefault("ms_by_path", {})[d["path"]] = round(d["ms"], 4)
+        row.setdefault("plain_ms_by_path", {})[d["path"]] = round(
+            d["plain_ms"], 4)
+        row.setdefault("bound_by_path", {})[d["path"]] = path_bound(
+            (b, k, l, r), mhz, b1_rate, sched)
+        row["max_abs_err"] = max(row["max_abs_err"], d["err"])
+    p = harness["loadgen"]["placement"]
+    row = by_name["crush_map_rule"]
+    path = (f"harness 11a epoch table: indep x{p['numrep']}, {p['lanes']} "
+            f"lanes, {p['n_osds']} OSDs")
+    row["ms_by_path"][path] = round(p["ms"], 4)
+    row["bound_by_path"][path] = placement_bound(
+        p["lanes"], p["numrep"], mhz, (p["n_osds"], 1))
+    row["max_abs_err"] = max(row["max_abs_err"], p["err"])
+
+
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
     """The SM clock nvidia-smi reads while ``fn``'s launches run."""
     for _ in range(launches):
@@ -3310,7 +4019,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       osd: dict, repair: dict, rates: dict,
                       built: dict, placement: dict, table: dict,
                       datapath: dict, k6: dict, sharded: dict,
-                      cluster: dict) -> dict:
+                      cluster: dict, harness: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2, K3, K5 and K6 also with their other paths' times and bounds, K1,
     K2, K4, K5 and K6 with their launch configuration, K3 its design per
@@ -3562,6 +4271,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     rows.append(k5)
     rows.append(k6_row(k6, table, mhz))
     cluster_paths(rows, cluster, mhz, b1_rate)
+    harness_paths(rows, harness, mhz, b1_rate)
     r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
     log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
         f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
@@ -3616,10 +4326,15 @@ def main() -> int:
     with xor_sched_env(None):          # the cluster keeps its routing
         cluster = phase_cluster(dev)
     log(f"phase 10, the RADOS cluster: {cluster['seconds']:.1f} s")
+    t11 = time.perf_counter()
+    from ceph_tpu_torch.ops import xor_schedule as xs
+    harness = phase_harness_process(dict(xs._SCHEDULES))
+    log(f"phase 11, the traffic and failure harness: "
+        f"{time.perf_counter() - t11:.1f} s")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
                              repair, rates, built, placement, table,
-                             datapath, k6, sharded, cluster)
+                             datapath, k6, sharded, cluster, harness)
     log(json.dumps(line))
     peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
     log(f"peak device memory {peak / GiB:.2f} "
@@ -3631,4 +4346,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) in (2, 3) and sys.argv[1] == HARNESS_FLAG:
+        sys.exit(harness_main(sys.argv[2] if len(sys.argv) == 3 else None))
     sys.exit(main())
