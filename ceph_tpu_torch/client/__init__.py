@@ -8,5 +8,7 @@ Objecter._calc_target src/osdc/Objecter.cc:2783).
 
 from .objecter import Objecter
 from .rados import Rados, IoCtx, RadosError
+from .striper import Layout, RadosStriper
 
-__all__ = ["Objecter", "Rados", "IoCtx", "RadosError"]
+__all__ = ["Objecter", "Rados", "IoCtx", "RadosError", "Layout",
+           "RadosStriper"]

@@ -3,9 +3,10 @@
 erasure-code stripe codec, bulk CRUSH placement, the epoch placement table
 (K5 and, for the map shapes K5 does not express, K6), the OSD shard data
 spine, the sharded codec over ``torch.distributed``, the RADOS cluster
-(monitor, OSDs and a librados client over the messenger) and the traffic
+(monitor, OSDs and a librados client over the messenger), the traffic
 and failure harness that drives it (loadgen, the recovery and straggler
-benches, chaos).
+benches, chaos) and Ceph's client applications over it (RBD, the
+ObjectCacher, radosstriper, the RGW S3 and Swift gateway).
 
     python3 chip_smoke.py
 
@@ -204,10 +205,44 @@ Phases, one line each; any failure exits non-zero and prints no result:
     p99 at least 2x better, extra sub-reads at most 1.5x, nothing failed,
     wedged, leaked or mismatched, one straggler schedule).  11d,
     ``tools/chaos.py --smoke`` (one kill-last round at seed 7);
-12. a ``kernels`` JSON line: per kernel its launches on its paths (phases
-    4, 8f, 9, 10 and 11 for K1/K2, phases 6-7 and 11b for K3, phases 8c,
-    8f, 10 and 11 for K4, phases 8d, 8e, 10 and 11 for K5, phase 8e for
-    K6), its
+12. Ceph's client applications (``tools/apps_drive.py``'s ``AppsDrive`` at
+    ``APPS``) on phase 10's cluster shape plus a replicated pool ``rbd``,
+    in a process of its own (``chip_smoke.py --apps``), launches counted
+    by sub-phase.  12a, an RBD image of 512 MiB (order 22) on the EC pool,
+    16 I/Os in flight: written whole in 4 MiB writes and read back, ``rbd
+    bench``'s 1,024 sequential 4 KiB writes one at a time, 1,024 random
+    4 KiB writes (each an EC read-modify-write: a K2 delta launch), 1,024
+    through the ObjectCacher and a flush, one shard holder of object 0
+    killed (kept in), the image read degraded, the OSD revived and
+    recovered, ``scrub_ec`` of every PG, and where the machine has
+    ``cryptography`` an encrypted 64 MiB image written and read back and a
+    wrong passphrase refused (else a line says it did not run).  12b,
+    RBD's features on a 64 MiB image of the replicated pool (snapshots,
+    protect, clone, copyup, flatten, rollback, resize, discard, export,
+    the object map and ``fast_diff``), an exclusive lock broken by a second
+    client whose blocklist refuses the deposed holder's next write at the
+    OSDs, a live migration, and snapshot- and journal-mode mirroring to a
+    second cluster of 3 OSDs on the card.  12c, radosstriper at
+    ``Layout()``'s defaults: a 128 MiB file written, read, overwritten,
+    truncated and removed, two clients writing one file at once,
+    ``SimpleRADOSStriper`` taking over a lapsed holder's lock.  12d, RGW
+    (4 MiB stripes) through ``Gateway`` and ``S3Client`` over loopback
+    HTTP: 32 PUTs and GETs of 8 MiB, a 64 MiB multipart upload in 8 MiB
+    parts, list, HEAD, a versioned bucket, a Swift PUT and GET, every
+    object read again while the OSD is down, DELETE.  Checked: every read
+    equals its host oracle, 0 failed ops, only the victim marked down, a
+    clean scrub, 8 sampled image objects' shards and tags == the host
+    encode and the host engine, K2, K4 and K5 launched, the dense kernel
+    at the path's encode, RMW and decode launch shapes and K4 at the
+    encode's fused CRC rows (an RMW's shard CRCs are the host engine's)
+    against their plain versions, K5 at both pools.  Printed beside
+    the card's name and power limit: GiB/s of each sweep, IOPS and p50/p99
+    of the 4 KiB writes, flush, recovery and scrub seconds, stripes a
+    launch and flush reasons, launches by sub-phase;
+13. a ``kernels`` JSON line: per kernel its launches on its paths (phases
+    4, 8f, 9, 10, 11 and 12 for K1/K2, phases 6-7 and 11b for K3, phases
+    8c, 8f, 10, 11 and 12 for K4, phases 8d, 8e, 10, 11 and 12 for K5,
+    phase 8e for K6), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -220,7 +255,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     blocks per SM and spill or local bytes as the CUDA runtime reports
     them (K5 also ptxas's registers and spill bytes), and K3 per digest
     its design, shared memory, and ptxas's registers and spill bytes;
-13. the result line {"ok": true, "device": {...}}.
+14. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; a kernel of the path that did not launch fails the run.
@@ -395,6 +430,32 @@ HARNESS_TAG = "phase 11 summary: "        # 11a objects whose every shard the ho
 # 11b: recovery_bench.code_configs(smoke=False) at bench.py --recovery's
 # sizes (16 objects of 128 KiB, pg_num 16); nothing cut
 HARNESS_RECOVERY = dict(n_objects=16, obj_size=128 << 10, pg_num=16, seed=7)
+# phase 12, the client applications (tools/apps_drive.py's AppsDrive): phase
+# 10's cluster (12 OSDs one a host, ec83 RS k=8,m=3 on cuda at the 4 KiB
+# stripe unit, pg_num 32) plus a replicated pool rbd (size 3: the reference
+# refuses snapshots on EC pools); RBD at Ceph's defaults, order 22 and 16
+# I/Os in flight (rbd bench's io-threads, the reference's _gather_bounded
+# limit); rbd bench's io-size 4K and io-total 4M (1,024 I/Os); radosstriper
+# at Layout()'s defaults; RGW at its default 4 MiB stripes.  Cut: the image,
+# 512 MiB (a VM disk is typically 10 GiB or more), for the run's time.
+APPS = dict(n_osds=12, k=8, m=3, pg_num=32, rep_pg_num=32,
+            image_bytes=512 << 20, order=22, io_depth=16, bench_ios=1024,
+            io_size=4096, crypto_bytes=64 << 20, feature_bytes=64 << 20,
+            mirror_osds=3, file_bytes=128 << 20, s3_objects=32,
+            s3_bytes=8 << 20, multipart_bytes=64 << 20, part_bytes=8 << 20,
+            s3_stripe=4 << 20)
+APPS_ORACLE_SAMPLE = 8           # image objects whose every shard the host checks
+APPS_FLAG = "--apps"
+APPS_TAG = "phase 12 summary: "
+# the sub-phase each of the drive's stages belongs to
+APPS_SUBPHASE = {"boot": "12a", "12a write and read": "12a",
+                 "12a sequential 4K": "12a", "12a random 4K": "12a",
+                 "12a cached 4K": "12a", "12d put, get, multipart": "12d",
+                 "12c striper": "12c", "kill": "12a",
+                 "12a degraded read": "12a", "12d degraded get": "12d",
+                 "revive and recovery": "12a", "scrub": "12a",
+                 "12a crypto": "12a", "12b features": "12b",
+                 "12d delete": "12d"}
 
 
 def log(msg: str) -> None:
@@ -504,11 +565,7 @@ def phase_build() -> dict:
     from ceph_tpu_torch.ops import gf2kernels as gk
     from ceph_tpu_torch.ops import xor_sched_codegen as cg
     from ceph_tpu_torch.ops import xor_schedule as xs
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    log(f"card: {smi.stdout.strip().splitlines()[0]}")
+    log(f"card: {card_label()}")
     t0 = time.perf_counter()
     mats = path_matrices()
     scheds = {label: xs.schedule_for(gk.bitmatrix_i8(mat))
@@ -3015,7 +3072,6 @@ def cluster_kernels(drive, launched: dict, dev: torch.device) -> dict:
     that encode's data and parity rows against its plain version, the host
     engine and the stored tags (folded); K5 on the pool's seeds against its
     plain version.  Times by CUDA events."""
-    from ceph_tpu_torch.mon import pg_mapping as pgm
     from ceph_tpu_torch.ops import crc32c_batch as crc
     from ceph_tpu_torch.ops import gf2kernels as gk
     k, m, chunk = CLUSTER["k"], CLUSTER["m"], CLUSTER_STRIPE_UNIT
@@ -3119,29 +3175,7 @@ def cluster_kernels(drive, launched: dict, dev: torch.device) -> dict:
                 f"{k4_plain_ms:.1f} ms (host clock), == its plain version, "
                 f"the host engine and the stored tags")
     # K5 at the pool's table: rule 1, size k+m, pg_num lanes
-    omap = drive.cluster.mon.osdmap
-    pool = omap.pools[drive.pool_id]
-    weights = omap.osd_weights()
-    seeds = pgm.pool_seeds(pool, dev)
-    vc = pgm._vector_crush_for(omap.crush, pool.crush_rule, dev)
-    rows5 = vc.map_device(seeds, pool.size, weights)
-    plain5 = pgm._vector_crush_for(omap.crush, pool.crush_rule,
-                                   torch.device("cpu")).map_device(
-        seeds.cpu(), pool.size, weights)
-    err5 = int((rows5.cpu().long() - plain5.long()).abs().max())
-    cpu_map = type(omap).from_dict(omap.to_dict(), device="cpu")
-    card, host_tab = (omap.placement_cache().tables()[drive.pool_id],
-                      cpu_map.placement_cache().tables()[drive.pool_id])
-    if err5 or not all(np.array_equal(a, b) for a, b in zip(card, host_tab)):
-        raise RuntimeError("cluster: K5 differs from its plain version, or "
-                           "the card's table from the CPU's, at the pool")
-    out["placement"] = {"lanes": pool.pg_num, "numrep": pool.size,
-                        "err": err5,
-                        "ms": time_ms(lambda: vc.map_device(seeds, pool.size,
-                                                            weights))}
-    log(f"cluster K5 at the pool's {pool.pg_num} lanes x{pool.size}: "
-        f"{out['placement']['ms']:.4f} ms (CUDA events), == its plain version;"
-        f" the card's table == the CPU's")
+    out["placement"] = pool_k5(drive.cluster, drive.pool_id, dev, "cluster")
     return out
 
 
@@ -3326,7 +3360,7 @@ def launch_matrix(codec, kind: str, extra) -> tuple[np.ndarray, int]:
 
 
 def harness_kernel(label: str, codec, key: tuple, n: int, dev: torch.device,
-                   seed: int) -> dict:
+                   seed: int, phase: str = "harness") -> dict:
     """The kernel that serves a batcher launch shape ``key`` (kind, (B, k,
     L), extra) on its route (the cost model's, under the caller's
     ``CEPH_TPU_XOR_SCHED``) against its plain version on seeded data of
@@ -3361,16 +3395,16 @@ def harness_kernel(label: str, codec, key: tuple, n: int, dev: torch.device,
     host = host_stripes(mat, x, pick)
     if err or not all(np.array_equal(got[i].cpu().numpy(), h)
                       for i, h in zip(pick, host)):
-        raise RuntimeError(f"harness {label}: {name} differs from its plain "
+        raise RuntimeError(f"{phase} {label}: {name} differs from its plain "
                            f"version ({err}) or the host oracle at {key}")
     ms = time_ms(kernel)
-    log(f"harness {label} {kind}{list(extra) if kind == 'decode' else ''} at"
+    log(f"{phase} {label} {kind}{list(extra) if kind == 'decode' else ''} at"
         f" the path's launch shape ({b}, {k * alpha}, {l // alpha}) -> {r} "
         f"({n} launches): {name} {ms:.4f} ms (CUDA events), plain "
         f"{plain_ms:.2f} ms, == its plain version and the host oracle")
     return {"name": name, "g": g, "shape": list(shape), "ms": ms,
             "plain_ms": plain_ms, "err": err, "launches": n, "sched": sched,
-            "path": path_label(f"harness {label} {kind}", shape)}
+            "path": path_label(f"{phase} {label} {kind}", shape)}
 
 
 def top_launches(shapes: collections.Counter) -> list:
@@ -3467,7 +3501,6 @@ def harness_loadgen(dev: torch.device) -> dict:
     from ceph_tpu_torch.common.config import ConfigProxy
     from ceph_tpu_torch.loadgen import (WorkloadSpec, cluster_gates,
                                         degradation_ratios, run_workload)
-    from ceph_tpu_torch.mon import pg_mapping as pgm
     from ceph_tpu_torch.tools.loop_sampler import (GCClock, LoopLag,
                                                    StageCounts, mark_downs)
     spec = WorkloadSpec(**HARNESS_LOADGEN).validate()
@@ -3506,30 +3539,7 @@ def harness_loadgen(dev: torch.device) -> dict:
                           for i, (key, n) in enumerate(top_launches(shapes))]
         # K5 at the pool's table against its plain version; the card's
         # table against the CPU's
-        omap = cluster.mon.osdmap
-        pool = omap.pools[pool_id]
-        weights = omap.osd_weights()
-        seeds = pgm.pool_seeds(pool, dev)
-        vc = pgm._vector_crush_for(omap.crush, pool.crush_rule, dev)
-        rows5 = vc.map_device(seeds, pool.size, weights)
-        plain5 = pgm._vector_crush_for(
-            omap.crush, pool.crush_rule, torch.device("cpu")).map_device(
-            seeds.cpu(), pool.size, weights)
-        err5 = int((rows5.cpu().long() - plain5.long()).abs().max())
-        cpu_map = type(omap).from_dict(omap.to_dict(), device="cpu")
-        card, host_tab = (omap.placement_cache().tables()[pool_id],
-                          cpu_map.placement_cache().tables()[pool_id])
-        if err5 or not all(np.array_equal(a, b)
-                           for a, b in zip(card, host_tab)):
-            raise RuntimeError("harness 11a: K5 differs from its plain "
-                               "version, or the card's table from the CPU's")
-        out["placement"] = {
-            "lanes": pool.pg_num, "numrep": pool.size, "err": err5,
-            "n_osds": spec.n_osds,
-            "ms": time_ms(lambda: vc.map_device(seeds, pool.size, weights))}
-        log(f"harness 11a K5 at the pool's {pool.pg_num} lanes x{pool.size} "
-            f"on {spec.n_osds} OSDs: {out['placement']['ms']:.4f} ms (CUDA "
-            f"events), == its plain version; the card's table == the CPU's")
+        out["placement"] = pool_k5(cluster, pool_id, dev, "harness 11a")
 
     async def drive():
         lag.start().mark("boot")
@@ -3908,6 +3918,346 @@ def harness_paths(rows: list, harness: dict, mhz: float,
     row["max_abs_err"] = max(row["max_abs_err"], p["err"])
 
 
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def apps_crc(label: str, nrows: int, dev: torch.device, seed: int) -> dict:
+    """K4 over ``nrows`` seeded rows of a stripe unit, a shape of phase
+    12's fused CRCs, against its plain version and the host engine; CUDA
+    events, the plain version by the host clock."""
+    from ceph_tpu_torch.ops import crc32c_batch as crc
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randint(0, 256, (nrows, CLUSTER_STRIPE_UNIT),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    got = crc.to_uint32(crc.crc32c_chunks(rows))
+    t0 = time.perf_counter()
+    plain = crc.to_uint32(crc.crc32c_chunks_plain(rows))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    host = crc.crc32c_rows(rows.cpu().numpy())
+    if not (np.array_equal(got, plain) and np.array_equal(got, host)):
+        raise RuntimeError(f"apps {label}: K4 differs from its plain version "
+                           f"or the host engine at {tuple(rows.shape)}")
+    ms = time_ms(lambda: crc.crc32c_chunks(rows))
+    log(f"apps {label} K4 over {tuple(rows.shape)} CRC rows: {ms:.4f} ms "
+        f"(CUDA events), plain {plain_ms:.1f} ms (host clock), == its plain "
+        f"version and the host engine")
+    return {"shape": list(rows.shape), "ms": ms, "plain_ms": plain_ms,
+            "err": 0, "path": f"apps {label} CRC rows {tuple(rows.shape)}"}
+
+
+def pool_k5(cluster, pool_id: int, dev: torch.device, label: str) -> dict:
+    """K5 at a pool's table against its plain version, and the card's
+    table against the CPU's; CUDA events."""
+    from ceph_tpu_torch.mon import pg_mapping as pgm
+    omap = cluster.mon.osdmap
+    pool = omap.pools[pool_id]
+    weights = omap.osd_weights()
+    seeds = pgm.pool_seeds(pool, dev)
+    vc = pgm._vector_crush_for(omap.crush, pool.crush_rule, dev)
+    rows5 = vc.map_device(seeds, pool.size, weights)
+    plain5 = pgm._vector_crush_for(omap.crush, pool.crush_rule,
+                                   torch.device("cpu")).map_device(
+        seeds.cpu(), pool.size, weights)
+    err = int((rows5.cpu().long() - plain5.long()).abs().max())
+    cpu_map = type(omap).from_dict(omap.to_dict(), device="cpu")
+    card, host_tab = (omap.placement_cache().tables()[pool_id],
+                      cpu_map.placement_cache().tables()[pool_id])
+    if err or not all(np.array_equal(a, b) for a, b in zip(card, host_tab)):
+        raise RuntimeError(f"{label}: K5 differs from its plain version, or "
+                           f"the card's table from the CPU's, at {pool.name}")
+    ms = time_ms(lambda: vc.map_device(seeds, pool.size, weights))
+    log(f"{label} K5 at {pool.name}'s {pool.pg_num} lanes x{pool.size} on "
+        f"{len(omap.osds)} OSDs: {ms:.4f} ms (CUDA events), == its plain "
+        f"version; the card's table == the CPU's")
+    return {"pool": pool.name, "lanes": pool.pg_num, "numrep": pool.size,
+            "n_osds": len(omap.osds), "err": err, "ms": ms}
+
+
+def phase_apps(dev: torch.device) -> dict:
+    """Phase 12: ``AppsDrive`` at ``APPS`` through the applications' entry
+    points, every daemon on ``dev``; launch counts by stage, set to 0 at the
+    boot.  Checks: every read equals its oracle, no failed op, only the
+    victim marked down, the scrub clean, the host oracle on sampled image
+    objects, K2, K4 and K5 launched, the kernels at the path's launch
+    shapes against their plain versions."""
+    import asyncio
+    import importlib.util
+    from ceph_tpu_torch.tools.apps_drive import AppsDrive
+    from ceph_tpu_torch.tools.ec_osd_bench import (_delta, _sum_ec_batch,
+                                                   occupancy)
+    from ceph_tpu_torch.tools.loop_sampler import mark_downs
+    card = card_label()
+    crypto = importlib.util.find_spec("cryptography") is not None
+    drive = AppsDrive(**APPS, device=dev)
+    out: dict = {}
+    osds: list = []
+
+    async def run():
+        marks = StageMarks()
+        await drive.boot()
+        osds.extend(drive.cluster.osds)
+        marks.mark("boot")
+        await drive.rbd_create()
+        await drive.rbd_write_read()
+        marks.mark("12a write and read")
+        await drive.rbd_bench_seq()
+        marks.mark("12a sequential 4K")
+        before = _sum_ec_batch(drive.cluster.osds)
+        await drive.rbd_random()
+        after = _sum_ec_batch(drive.cluster.osds)
+        out["random_occupancy"] = occupancy(*(
+            _delta(a, b) for a, b in zip(after, before)))
+        marks.mark("12a random 4K")
+        await drive.rbd_cached()
+        marks.mark("12a cached 4K")
+        await drive.rgw_start()
+        await drive.rgw_put_get()
+        await drive.rgw_versioning()
+        await drive.rgw_swift()
+        marks.mark("12d put, get, multipart")
+        await drive.striper()
+        await drive.striper_takeover()
+        marks.mark("12c striper")
+        await drive.kill()
+        marks.mark("kill")
+        await drive.rbd_degraded_read()
+        marks.mark("12a degraded read")
+        await drive.rgw_degraded_get()
+        marks.mark("12d degraded get")
+        out["mark_downs"] = mark_downs(drive.cluster)
+        await drive.revive()
+        osds.append(next(o for o in drive.cluster.osds
+                         if o.whoami == drive.victim))
+        marks.mark("revive and recovery")
+        await drive.scrub()
+        marks.mark("scrub")
+        if crypto:
+            await drive.rbd_crypto()
+            marks.mark("12a crypto")
+        await drive.rbd_features()
+        await drive.rbd_lock_takeover()
+        await drive.rbd_migration()
+        await drive.rbd_mirror()
+        marks.mark("12b features")
+        await drive.rgw_delete()
+        marks.mark("12d delete")
+        out["occupancy"] = occupancy(*_sum_ec_batch(drive.cluster.osds))
+        return marks
+
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        marks = loop.run_until_complete(run())
+        secs = time.perf_counter() - t0
+        rep = drive.report
+        errors = []
+        if rep["mismatches"]:
+            errors.append(f"reads differ from their oracle: "
+                          f"{rep['mismatches']}")
+        if rep["failed_ops"]:
+            errors.append(f"{rep['failed_ops']} failed ops: "
+                          f"{rep['errors'][:5]}")
+        if rep["scrub_inconsistent"] or not rep["scrub_objects"]:
+            errors.append(f"scrub: {rep['scrub_objects']} objects, "
+                          f"inconsistent {rep['scrub_inconsistent']}")
+        downs = out["mark_downs"]
+        if not downs or any(not d.startswith(f"osd.{drive.victim} ")
+                            for d in downs):
+            errors.append(f"mark-downs beyond osd.{drive.victim}: {downs}")
+        by_sub: dict[str, dict] = {}
+        for stage, counts in marks.stages.items():
+            sub = by_sub.setdefault(APPS_SUBPHASE[stage], {})
+            for name, n in counts.items():
+                sub[name] = sub.get(name, 0) + n
+        launches: dict[str, int] = {}
+        for counts in by_sub.values():
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+        for name in ("gf2_matmul_mma", "crc32c_chunks", "crush_map_rule"):
+            if not launches.get(name):
+                errors.append(f"{name} never launched")
+        if errors:
+            raise RuntimeError(f"apps: {errors}")
+        rng = np.random.default_rng(SEED + 120)
+        objnos = sorted(int(i) for i in rng.choice(
+            APPS["image_bytes"] >> APPS["order"], APPS_ORACLE_SAMPLE,
+            replace=False))
+        oracle_shards = loop.run_until_complete(harness_oracle(
+            drive.cluster, drive.ec_pool_id,
+            [f"{drive.image_prefix}.{n:016x}" for n in objnos], APPS["k"],
+            APPS["m"], dev))
+        codec = pool_codec(drive.cluster, drive.ec_pool_id)
+        shapes = batcher_shapes(osds)
+        kernels = [harness_kernel("12", codec, key, n, dev, SEED + 121 + i,
+                                  "apps")
+                   for i, (key, n) in enumerate(top_launches(shapes))]
+        # K4 where the path launches it: the fused CRCs of the write's
+        # encode (data and parity rows); an RMW's shard CRCs are the host
+        # engine's
+        (enc_key, _), = [kn for kn in top_launches(shapes)
+                         if kn[0][0] == "encode"]
+        crcs = [apps_crc("12 encode", enc_key[1][0] * (APPS["k"] + APPS["m"]),
+                         dev, SEED + 130)]
+        placement = [pool_k5(drive.cluster, drive.ec_pool_id, dev, "apps"),
+                     pool_k5(drive.cluster, drive.cluster.mon.osdmap
+                             .pool_names["rbd"], dev, "apps")]
+    finally:
+        loop.run_until_complete(drive.stop())
+        loop.close()
+    occ = out["occupancy"]
+    gb = lambda key: f"{rep[key + '_GiBps']:.4f}"  # noqa: E731
+    log(f"[{card}] 12a RBD on ec83 ({APPS['n_osds']} OSDs, RS k={APPS['k']},"
+        f"m={APPS['m']} on cuda, pg_num {APPS['pg_num']}, a "
+        f"{APPS['image_bytes'] >> 20} MiB image of {1 << APPS['order'] >> 20}"
+        f" MiB objects, {APPS['io_depth']} in flight): write {gb('rbd_write')}"
+        f", read {gb('rbd_read')}, degraded read {gb('rbd_degraded_read')} "
+        f"GiB/s (host clock, 4 MiB I/O); boot {rep['boot_s']:.2f} s, mark "
+        f"down {rep['mark_down_s']:.2f} s, recovery {rep['recovery_s']:.2f} "
+        f"s, scrub {rep['scrub_s']:.2f} s ({rep['scrub_objects']} objects, "
+        f"clean)")
+    for key, what in (("rbd_seq_4k", "sequential 4 KiB writes, one at a "
+                       "time (rbd bench)"),
+                      ("rbd_random_4k", "random 4 KiB writes, 16 in flight"),
+                      ("rbd_cached_4k", "random 4 KiB writes through the "
+                       "ObjectCacher, 16 in flight")):
+        r = rep[key]
+        log(f"[{card}] 12a {what}: {r['ios']} IOs in {r['s']:.3f} s, "
+            f"{r['iops']:.1f} IOPS, p50 {r['p50_ms']:.3f} ms, p99 "
+            f"{r['p99_ms']:.3f} ms (host clock)")
+    log(f"[{card}] 12a cache flush {rep['rbd_flush_s']:.3f} s "
+        f"({rep['rbd_cache_stats']}); random 4K batching: "
+        f"{out['random_occupancy']['stripes_per_launch']} stripes a launch "
+        f"over {out['random_occupancy']['batches']} launches, flush reasons "
+        f"{out['random_occupancy']['flush_reasons']}; the whole phase: "
+        f"{occ['stripes_per_launch']} stripes a launch over "
+        f"{occ['batches']} launches, flush reasons {occ['flush_reasons']}")
+    log(f"[{card}] 12a crypto: " + (
+        f"write {gb('crypto_write')}, read {gb('crypto_read')} GiB/s "
+        f"({APPS['crypto_bytes'] >> 20} MiB, AES-XTS on the host), wrong "
+        f"passphrase refused" if crypto else
+        "not run (no cryptography module on this machine)"))
+    log(f"[{card}] 12b RBD features on rbd ({APPS['feature_bytes'] >> 20} "
+        f"MiB): snapshots, clone, copyup, flatten, rollback, resize, "
+        f"discard, export, object map and fast_diff in "
+        f"{rep['features_s']:.2f} s; exclusive lock broken, the deposed "
+        f"holder's write refused ({rep['lock_fence']}); migration "
+        f"{rep['migration_s']:.2f} s ({rep['migration_bytes']} B copied); "
+        f"mirroring to {APPS['mirror_osds']} OSDs {rep['mirror_s']:.2f} s "
+        f"(snapshot mode objects {rep['mirror_snapshot_objects']}, journal "
+        f"events {rep['mirror_journal_events']})")
+    log(f"[{card}] 12c radosstriper on ec83 ({APPS['file_bytes'] >> 20} MiB, "
+        f"Layout() 4 MiB units): write {gb('striper_write')}, read "
+        f"{gb('striper_read')}, two clients {gb('striper_two_clients_write')}"
+        f" GiB/s (host clock); takeover fenced the old holder "
+        f"({rep['striper_fence']})")
+    log(f"[{card}] 12d RGW on ec83 ({APPS['s3_objects']} objects of "
+        f"{APPS['s3_bytes'] >> 20} MiB, {APPS['s3_stripe'] >> 20} MiB "
+        f"stripes): PUT {gb('s3_put')}, GET {gb('s3_get')}, multipart "
+        f"{gb('s3_multipart')} (GET {gb('s3_multipart_get')}), degraded GET "
+        f"{gb('s3_degraded_get')} GiB/s (host clock, loopback HTTP)")
+    log(f"[{card}] phase 12 launches by sub-phase {by_sub}; by stage "
+        f"{marks.stages}; seconds by stage "
+        f"{ {k: round(v, 2) for k, v in marks.seconds.items()} }; the "
+        f"batchers' launches by (kind, shape, erasures) "
+        f"{dict(shapes.most_common(8))}; mark-downs {downs}; host oracle "
+        f"{oracle_shards} shards of image objects {objnos} == the host "
+        f"encode of the bytes read, tags == the host engine; {secs:.1f} s")
+    return {"launches": launches, "by_subphase": by_sub,
+            "kernels": [{**d, "sched": None} for d in kernels],
+            "crc": crcs, "placement": placement, "card": card,
+            "crypto": crypto, "seconds": secs,
+            "report": {k: v for k, v in rep.items()
+                       if k not in ("errors", "rbd_cache_stats")}}
+
+
+def phase_apps_process() -> dict:
+    """Phase 12 in a process of its own (``chip_smoke.py --apps``), as a
+    user starts an application: a fresh interpreter and heap.  The kernels
+    are already built.  Its log lines are passed through; its last line is
+    its summary as JSON.  The process is stopped on any way out."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), APPS_FLAG],
+        stdout=subprocess.PIPE, text=True, cwd=os.path.dirname(
+            os.path.abspath(__file__)))
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(APPS_TAG):
+                result = json.loads(line[len(APPS_TAG):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or result is None:
+        raise RuntimeError(f"phase 12's process exited {rc}")
+    return result
+
+
+def apps_main() -> int:
+    """``--apps``: phase 12 alone on the card, its summary last."""
+    from ceph_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke --apps: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
+    _build.build(_build.all_sources())       # built by phase 1: found
+    with xor_sched_env(None):                # the cluster keeps its routing
+        out = phase_apps(torch.device("cuda", 0))
+    print(APPS_TAG + json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def apps_paths(rows: list, apps: dict, mhz: float, b1_rate: float) -> None:
+    """Phase 12's launches on each kernel's row by sub-phase (the totals
+    included), and its launch shapes' times and bounds beside the kernel
+    that served them: the dense kernel, K4 at the fused CRC rows, K5 at
+    both pools' tables."""
+    by_name = {row["name"]: row for row in rows}
+    for name, row in by_name.items():
+        for sub in ("12a", "12b", "12c", "12d"):
+            n = apps["by_subphase"].get(sub, {}).get(name, 0)
+            row["launches"] += n
+            row.setdefault("launches_by_path", {})[
+                f"apps {sub} (phase 12)"] = n
+    for d in apps["kernels"]:
+        row = by_name[d["name"]]
+        row.setdefault("ms_by_path", {})[d["path"]] = round(d["ms"], 4)
+        row.setdefault("plain_ms_by_path", {})[d["path"]] = round(
+            d["plain_ms"], 4)
+        row.setdefault("bound_by_path", {})[d["path"]] = path_bound(
+            tuple(d["shape"]), mhz, b1_rate)
+        row["max_abs_err"] = max(row["max_abs_err"], d["err"])
+    row = by_name["crc32c_chunks"]
+    for c in apps["crc"]:
+        nrows, l = c["shape"]
+        row["ms_by_path"][c["path"]] = round(c["ms"], 4)
+        row.setdefault("plain_ms_by_path", {})[c["path"]] = round(
+            c["plain_ms"], 4)
+        t_bytes = (nrows * l + 4 * nrows) / HBM_BYTES_PER_S * 1e3
+        t_ops = nrows * l / (SMEM_LOOKUPS_PER_CLOCK * mhz * 1e6) * 1e3
+        row["bound_by_path"][c["path"]] = {
+            "bound_ms": round(max(t_bytes, t_ops), 4),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    row = by_name["crush_map_rule"]
+    for p in apps["placement"]:
+        path = (f"apps epoch table: {p['pool']} x{p['numrep']}, "
+                f"{p['lanes']} lanes")
+        row["ms_by_path"][path] = round(p["ms"], 4)
+        row["bound_by_path"][path] = placement_bound(
+            p["lanes"], p["numrep"], mhz, (p["n_osds"], 1))
+        row["max_abs_err"] = max(row["max_abs_err"], p["err"])
+
+
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
     """The SM clock nvidia-smi reads while ``fn``'s launches run."""
     for _ in range(launches):
@@ -4019,7 +4369,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       osd: dict, repair: dict, rates: dict,
                       built: dict, placement: dict, table: dict,
                       datapath: dict, k6: dict, sharded: dict,
-                      cluster: dict, harness: dict) -> dict:
+                      cluster: dict, harness: dict, apps: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2, K3, K5 and K6 also with their other paths' times and bounds, K1,
     K2, K4, K5 and K6 with their launch configuration, K3 its design per
@@ -4272,6 +4622,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     rows.append(k6_row(k6, table, mhz))
     cluster_paths(rows, cluster, mhz, b1_rate)
     harness_paths(rows, harness, mhz, b1_rate)
+    apps_paths(rows, apps, mhz, b1_rate)
     r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
     log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
         f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
@@ -4331,10 +4682,14 @@ def main() -> int:
     harness = phase_harness_process(dict(xs._SCHEDULES))
     log(f"phase 11, the traffic and failure harness: "
         f"{time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    apps = phase_apps_process()
+    log(f"phase 12, the client applications: "
+        f"{time.perf_counter() - t12:.1f} s")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
                              repair, rates, built, placement, table,
-                             datapath, k6, sharded, cluster, harness)
+                             datapath, k6, sharded, cluster, harness, apps)
     log(json.dumps(line))
     peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
     log(f"peak device memory {peak / GiB:.2f} "
@@ -4348,4 +4703,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) in (2, 3) and sys.argv[1] == HARNESS_FLAG:
         sys.exit(harness_main(sys.argv[2] if len(sys.argv) == 3 else None))
+    if sys.argv[1:] == [APPS_FLAG]:
+        sys.exit(apps_main())
     sys.exit(main())

@@ -53,3 +53,22 @@ def test_importing_the_port_loads_no_jax_or_ceph_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+CLIENT_APPS = ("client/striper.py", "client/object_cacher.py",
+               "client/radosstriper.py", "rbd/__init__.py", "rbd/crypto.py",
+               "rbd/features.py", "rbd/migration.py", "rbd/mirror.py",
+               "rbd/rbd.py", "rgw/__init__.py", "rgw/client.py",
+               "rgw/gateway.py", "rgw/notify.py", "rgw/store.py",
+               "rgw/swift.py")
+
+
+def test_the_client_applications_have_their_port():
+    """Each client-application module of ceph_tpu has its counterpart in
+    the port, whose imports the checks above cover; the client package
+    exports the striper as the reference's does."""
+    missing = [rel for rel in CLIENT_APPS if not (PORT / rel).is_file()
+               or not (ROOT / "ceph_tpu" / rel).is_file()]
+    assert not missing, missing
+    import ceph_tpu_torch.client as port_client
+    assert {"Layout", "RadosStriper"} <= set(port_client.__all__)

@@ -1,4 +1,4 @@
-"""Six faults the port repairs where ``ceph_tpu`` keeps them (deliberate
+"""Eight faults the port repairs where ``ceph_tpu`` keeps them (deliberate
 differences from the reference):
 
 1. the OSD's blocklist fence names the client instance by its connection
@@ -27,6 +27,12 @@ And two the traffic harness found at 64 OSDs under a kill:
    stamp it left the set with no longer reports it at once (at 64 OSDs a
    kill swaps ring neighbours, which reported live OSDs, whose epochs
    swapped more: the cascade of false mark-downs).
+
+And one the client applications' drive found:
+
+8. an RBD image's object map serializes its updates: writes in flight
+   together (the image's 16-deep I/O) no longer lose an object's EXISTS
+   mark to two racing first loads or two interleaved map saves.
 
 The map-change stall (the shared table, one upload of the weights, one
 copy back a build) has its own file, ``test_torch_map_change.py``.
@@ -351,4 +357,45 @@ def test_a_peer_entering_the_heartbeat_set_starts_a_fresh_clock():
         peers[:] = [1, 3]
         await osd._heartbeat_once()
         assert reports == [1]
+    run(scenario())
+
+
+# -- 8: the object map keeps every mark under concurrent writes -------------
+
+def test_object_map_marks_every_object_written_in_flight_together():
+    """16 writes to 16 objects at once on a fresh object-map image: every
+    object reads EXISTS and ``disk_usage`` counts all 16."""
+    from ceph_tpu_torch.rbd import RBD, Image
+    from ceph_tpu_torch.rbd.features import OBJ_EXISTS, disk_usage
+
+    async def scenario():
+        mon = Monitor(rank=0, config={"mon_osd_min_down_reporters": 1},
+                      device="cpu")
+        addr = await mon.start()
+        mon.peer_addrs = [addr]
+        osds = []
+        for i in range(2):
+            osds.append(OSD(host=f"h{i}", device="cpu"))
+            await osds[-1].start(addr)
+        r = await Rados(addr, device="cpu").connect()
+        try:
+            await r.pool_create("rbd", pg_num=8, size=2)
+            io = await r.open_ioctx("rbd")
+            order, n = 14, 16
+            await RBD().create(io, "img", n << order, order=order,
+                               features=["layering", "exclusive-lock",
+                                         "object-map"])
+            img = await Image.open(io, "img")
+            await asyncio.wait_for(asyncio.gather(*(
+                img.write(i << order, b"x" * 100) for i in range(n))), 30)
+            assert list(await img.object_map.states()) == [OBJ_EXISTS] * n
+            await img.close()
+            img = await Image.open(io, "img")
+            assert (await disk_usage(img))["used"] == n << order
+            await img.close()
+        finally:
+            await r.shutdown()
+            for o in osds:
+                await o.stop()
+            await mon.stop()
     run(scenario())
