@@ -1,10 +1,12 @@
 """Ceph's client applications over one cluster: RBD, radosstriper, RGW.
 
-``AppsDrive`` boots a monitor and ``n_osds`` OSDs (one a host, MemStore)
-through ``SimCluster`` on one device, an EC pool ``ec83`` on the ``cuda``
-plugin (RS k=8,m=3 by default, the pool's default 4 KiB stripe unit) and a
-replicated pool ``rbd`` (the reference refuses snapshots on EC pools), and
-drives what users run over them, one step a method:
+``AppsDrive`` is a ``ClusterDrive`` (``tools/ec_osd_bench.py``: a monitor
+and ``n_osds`` OSDs, one a host, MemStore, through ``SimCluster`` on one
+device; its EC pool, here ``ec83``, on the ``cuda`` plugin, RS k=8,m=3 by
+default at the pool's default 4 KiB stripe unit; its kill, revive and
+scrub) with a replicated pool ``rbd`` beside it (the reference refuses
+snapshots on EC pools).  It drives what users run over them, one step a
+method:
 
 - an RBD image on the EC pool at Ceph's defaults (order 22, 16 I/Os in
   flight): written whole in 4 MiB writes and read back, ``rbd bench``'s
@@ -38,10 +40,14 @@ import time
 
 import numpy as np
 
+from .ec_osd_bench import ClusterDrive, poll
+
 GiB = float(1 << 30)
 MiB = 1 << 20
 SEED = 18
 TIMEOUT = 120.0         # seconds any one step's wait may take
+IO_SIZE = 4096          # rbd bench's io-size
+MIRROR_OSDS = 3         # the mirror's second cluster
 LOCK_HOLDER = "client.holder"
 
 
@@ -51,58 +57,46 @@ def _pcts(lat: list[float]) -> dict:
             "p99_ms": float(np.percentile(a, 99) * 1e3)}
 
 
-async def _poll(cond, timeout: float, what: str) -> None:
-    deadline = time.monotonic() + timeout
-    while not cond():
-        if time.monotonic() > deadline:
-            raise RuntimeError(f"timed out waiting for {what}")
-        await asyncio.sleep(0.05)
+class AppsDrive(ClusterDrive):
+    """The client applications over one ``ClusterDrive`` cluster, one step
+    a method.  ``cluster`` takes ``ClusterDrive``'s arguments (12 OSDs,
+    RS k=8,m=3, pg_num 32, 16 I/Os in flight by default); the defaults of
+    the sizes are the card's.  The one cut: the image, 512 MiB (a VM disk
+    is typically 10 GiB or more), for the run's time."""
 
+    pool = "ec83"
 
-class AppsDrive:
-    """The client applications over one cluster, one step a method."""
-
-    def __init__(self, *, n_osds: int = 12, k: int = 8, m: int = 3,
-                 pg_num: int = 32, rep_pg_num: int = 32,
-                 image_bytes: int = 512 * MiB, order: int = 22,
-                 io_depth: int = 16, bench_ios: int = 1024,
-                 io_size: int = 4096, crypto_bytes: int = 64 * MiB,
-                 feature_bytes: int = 64 * MiB, mirror_osds: int = 3,
+    def __init__(self, *, rep_pg_num: int = 32, image_bytes: int = 512 * MiB,
+                 order: int = 22, bench_ios: int = 1024,
+                 crypto_bytes: int = 64 * MiB, feature_bytes: int = 64 * MiB,
                  file_bytes: int = 128 * MiB, s3_objects: int = 32,
                  s3_bytes: int = 8 * MiB, multipart_bytes: int = 64 * MiB,
                  part_bytes: int = 8 * MiB, s3_stripe: int = 4 * MiB,
-                 plugin: str = "cuda", device=None,
-                 osd_config: dict | None = None) -> None:
-        self.n_osds, self.k, self.m = n_osds, k, m
-        self.pg_num, self.rep_pg_num = pg_num, rep_pg_num
+                 **cluster) -> None:
+        super().__init__(n_objects=0, **cluster)
+        self.rep_pg_num = rep_pg_num
         self.image_bytes, self.order = image_bytes, order
-        self.io_depth, self.bench_ios, self.io_size = \
-            io_depth, bench_ios, io_size
+        self.bench_ios = bench_ios
         self.crypto_bytes, self.feature_bytes = crypto_bytes, feature_bytes
-        self.mirror_osds = mirror_osds
         self.file_bytes = file_bytes
         self.s3_objects, self.s3_bytes = s3_objects, s3_bytes
         self.multipart_bytes, self.part_bytes = multipart_bytes, part_bytes
         self.s3_stripe = s3_stripe
-        self.plugin, self.device = plugin, device
-        self.osd_config = osd_config
         self.rng = np.random.default_rng(SEED)
-        self.cluster = None
-        self.rados = None
-        self.ec = None                    # ioctx of the EC pool
         self.rep = None                   # ioctx of the replicated pool
-        self.ec_pool_id = None
         self.image_prefix = None          # rbd_data.<id> of the EC image
         self.oracle = bytearray()         # the EC image's bytes
-        self.victim = None
-        self._token = None
         self._gw = None
         self._s3 = None
         self.s3_src: dict[str, bytes] = {}
         self._clients: list = []          # the drive's other handles
-        self._sites: list = []            # the mirror's second cluster
-        self.report: dict = {"mismatches": [], "failed_ops": 0,
-                             "errors": []}
+        self.sites: list = []             # the mirror's second cluster
+        self.report.update(failed_ops=0, errors=[])
+
+    @property
+    def victim_oid(self) -> str:
+        """The image's object 0."""
+        return f"{self.image_prefix}.{0:016x}"
 
     # -- plumbing -------------------------------------------------------------
     def _check(self, label: str, ok: bool) -> None:
@@ -110,10 +104,10 @@ class AppsDrive:
             self.report["mismatches"].append(label)
 
     async def _ops(self, coros, depth: int | None = None) -> list:
-        """Run ``coros`` at most ``depth`` at a time (the drive's I/O
-        depth); each op's seconds.  A failed op is counted and its error
-        kept; the others run on."""
-        sem = asyncio.Semaphore(depth or self.io_depth)
+        """Run ``coros`` at most ``depth`` at a time (the drive's
+        concurrency by default); each op's seconds.  A failed op is counted
+        and its error kept; the others run on."""
+        sem = asyncio.Semaphore(depth or self.concurrency)
 
         async def one(co):
             async with sem:
@@ -137,25 +131,10 @@ class AppsDrive:
                               "iops": len(lat) / secs, **_pcts(done)}
 
     async def boot(self) -> None:
-        from ..client.rados import Rados
-        from ..loadgen.cluster import SimCluster
+        """``ClusterDrive``'s boot, then the replicated pool ``rbd``."""
         t0 = time.perf_counter()
-        self.cluster = await SimCluster.create(
-            self.n_osds, device=self.device,
-            mon_config={"mon_osd_down_out_interval": 3600.0},
-            osd_config=self.osd_config)
-        self.rados = await Rados(self.cluster.addr,
-                                 device=self.cluster.mon.device).connect()
-        await self.rados.mon_command(
-            "osd erasure-code-profile set",
-            {"name": "ec83", "profile": {
-                "plugin": self.plugin, "k": str(self.k), "m": str(self.m),
-                "technique": "reed_sol_van"}})
-        self.ec_pool_id = await self.rados.pool_create(
-            "ec83", pg_num=self.pg_num, pool_type="erasure",
-            erasure_code_profile="ec83")
+        await super().boot()
         await self.rados.pool_create("rbd", pg_num=self.rep_pg_num, size=3)
-        self.ec = await self.rados.open_ioctx("ec83")
         self.rep = await self.rados.open_ioctx("rbd")
         self.report["boot_s"] = time.perf_counter() - t0
 
@@ -171,27 +150,24 @@ class AppsDrive:
             await self._gw.stop()
         for r in self._clients:
             await r.shutdown()
-        for c in self._sites:
+        for c in self.sites:
             await c.stop()
-        if self.rados is not None:
-            await self.rados.shutdown()
-        if self.cluster is not None:
-            await self.cluster.stop()
+        await super().stop()
 
     # -- 12a: an RBD image on the EC pool -------------------------------------
     async def rbd_create(self) -> None:
         from ..rbd import RBD
-        await RBD().create(self.ec, "vm", self.image_bytes, order=self.order)
+        await RBD().create(self.io, "vm", self.image_bytes, order=self.order)
         self.oracle = bytearray(self.image_bytes)
 
     async def _open(self, name: str = "vm", **kw):
         from ..rbd import Image
-        return await asyncio.wait_for(Image.open(self.ec, name, **kw),
+        return await asyncio.wait_for(Image.open(self.io, name, **kw),
                                       TIMEOUT)
 
     async def _read_image(self, img, label: str) -> None:
-        """The whole image in object-size reads, ``io_depth`` in
-        flight, against the oracle."""
+        """The whole image in object-size reads, ``concurrency``
+        in flight, against the oracle."""
         obj = 1 << self.order
         got = {}
 
@@ -219,9 +195,9 @@ class AppsDrive:
 
     async def rbd_bench_seq(self) -> None:
         """``rbd bench``'s shape: ``bench_ios`` sequential writes of
-        ``io_size`` one after another, its repeating buffer."""
+        ``IO_SIZE`` one after another, its repeating buffer."""
         img = await self._open()
-        bs = self.io_size
+        bs = IO_SIZE
         buf = (bytes(range(256)) * (bs // 256 + 1))[:bs]
         slots = self.image_bytes // bs
         lat = []
@@ -234,13 +210,14 @@ class AppsDrive:
         await img.close()
 
     def _blocks(self, n: int) -> list[tuple[int, bytes]]:
-        bs = self.io_size
+        bs = IO_SIZE
         offs = self.rng.choice(self.image_bytes // bs, n, replace=False) * bs
         return [(int(o), self.rng.integers(0, 256, bs, np.uint8).tobytes())
                 for o in offs]
 
     async def rbd_random(self) -> None:
-        """``bench_ios`` random aligned writes, ``io_depth`` in flight."""
+        """``bench_ios`` random aligned writes, ``concurrency`` in
+        flight."""
         img = await self._open()
         blocks = self._blocks(self.bench_ios)
         t0 = time.perf_counter()
@@ -273,64 +250,10 @@ class AppsDrive:
                                            for o, d in blocks))
         await img.close()
 
-    def pick_victim(self) -> int:
-        """A shard holder of the image's object 0 that is not its
-        primary."""
-        omap = self.cluster.mon.osdmap
-        _, ps = omap.object_to_pg(self.ec_pool_id,
-                                  f"{self.image_prefix}.{0:016x}")
-        _, acting = omap.pg_to_up_acting(self.ec_pool_id, ps)
-        primary = omap.pg_primary(acting)
-        return next(o for o in acting if o != primary)
-
-    async def kill(self) -> None:
-        """Kill the victim and wait until the monitor marks it down; it
-        stays in, so its PGs run degraded and are not remapped."""
-        self.victim = self.pick_victim()
-        index = next(i for i, o in enumerate(self.cluster.osds)
-                     if o.whoami == self.victim)
-        t0 = time.perf_counter()
-        self._token = (index, await self.cluster.kill_osd(index))
-        if not await self.cluster.wait_down(self.victim, TIMEOUT):
-            raise RuntimeError(f"osd.{self.victim} never marked down")
-        self.report["mark_down_s"] = time.perf_counter() - t0
-
     async def rbd_degraded_read(self) -> None:
         img = await self._open(read_only=True)
         await self._read_image(img, "rbd_degraded_read")
         await img.close()
-
-    async def revive(self) -> None:
-        """Revive the victim on its store and wait for recovery."""
-        index, token = self._token
-        t0 = time.perf_counter()
-        await self.cluster.revive_osd(index, token)
-        if not await self.cluster.wait_up(self.victim, TIMEOUT):
-            raise RuntimeError(f"osd.{self.victim} never came back up")
-        epoch = self.cluster.mon.osdmap.epoch
-        await _poll(lambda: all(o.osdmap.epoch >= epoch
-                                for o in self.cluster.osds), TIMEOUT,
-                    "maps to settle after the revive")
-        if not await self.cluster.wait_clean(TIMEOUT):
-            raise RuntimeError("recovery never finished")
-        self.report["recovery_s"] = time.perf_counter() - t0
-
-    async def scrub(self) -> None:
-        """``scrub_ec`` of every PG of the EC pool on its primary."""
-        from ..osd.scrub import scrub_ec
-        n, bad = 0, []
-        t0 = time.perf_counter()
-        for osd in self.cluster.osds:
-            for pgid, pg in sorted(osd.pgs.items()):
-                if pgid.startswith(f"{self.ec_pool_id}.") \
-                        and pg.is_primary():
-                    res = await asyncio.wait_for(scrub_ec(pg), TIMEOUT)
-                    n += res.objects_scrubbed
-                    if res.inconsistent:
-                        bad.append((pgid, sorted(res.inconsistent)))
-        self.report["scrub_s"] = time.perf_counter() - t0
-        self.report["scrub_objects"] = n
-        self.report["scrub_inconsistent"] = bad
 
     async def rbd_crypto(self) -> None:
         """An encrypted image on the EC pool: formatted, written and read
@@ -338,7 +261,7 @@ class AppsDrive:
         from ..rbd import RBD, RbdError
         from ..rbd.crypto import WrongPassphrase
         n = self.crypto_bytes
-        await RBD().create(self.ec, "vault", n, order=self.order)
+        await RBD().create(self.io, "vault", n, order=self.order)
         img = await self._open("vault")
         await img.encryption_format("s3cr3t")
         data = self.rng.integers(0, 256, n, np.uint8).tobytes()
@@ -440,10 +363,10 @@ class AppsDrive:
         await Image.break_lock(other, "locked")
         new = await Image.open(other, "locked")
         await new.write(0, b"new-owner")
-        await _poll(lambda: all(o.osdmap.is_blocklisted(LOCK_HOLDER)
-                                for o in self.cluster.osds
-                                if not o.is_stopped()),
-                    TIMEOUT, "the blocklist to reach the OSDs")
+        await poll(lambda: all(o.osdmap.is_blocklisted(LOCK_HOLDER)
+                               for o in self.cluster.osds
+                               if not o.is_stopped()),
+                   TIMEOUT, "the blocklist to reach the OSDs")
         try:
             await old.write(0, b"stale-own")
         except RbdError as e:
@@ -485,7 +408,7 @@ class AppsDrive:
         await d.close()
 
     async def rbd_mirror(self) -> None:
-        """One image mirrored to a second cluster of ``mirror_osds`` OSDs
+        """One image mirrored to a second cluster of ``MIRROR_OSDS`` OSDs
         on the same device, in snapshot mode (an initial and an
         incremental sync) and in journal mode (bootstrap, replay)."""
         from ..loadgen.cluster import SimCluster
@@ -493,9 +416,9 @@ class AppsDrive:
         from ..rbd.mirror import (journal_bootstrap, journal_replay_once,
                                   mirror_enable, mirror_sync)
         t0 = time.perf_counter()
-        site_b = await SimCluster.create(self.mirror_osds,
+        site_b = await SimCluster.create(MIRROR_OSDS,
                                          device=self.cluster.mon.device)
-        self._sites.append(site_b)
+        self.sites.append(site_b)
         rb = await self._client("client.siteB", site_b)
         await rb.pool_create("rbd", pg_num=8, size=3)
         ib = await rb.open_ioctx("rbd")
@@ -553,7 +476,7 @@ class AppsDrive:
         once."""
         from ..client.radosstriper import RadosStriperCtx
         from ..client.striper import Layout
-        st = RadosStriperCtx(self.ec, Layout())
+        st = RadosStriperCtx(self.io, Layout())
         n = self.file_bytes
         data = bytearray(self.rng.integers(0, 256, n, np.uint8).tobytes())
         t0 = time.perf_counter()
@@ -610,10 +533,10 @@ class AppsDrive:
                 {"name": SRS_LOCK, "locker": lk["entity"],
                  "cookie": lk["cookie"]}).encode())
         new = await SimpleRADOSStriper(new_io, "db").open()
-        await _poll(lambda: all(o.osdmap.is_blocklisted("client.gone")
-                                for o in self.cluster.osds
-                                if not o.is_stopped()),
-                    TIMEOUT, "the blocklist to reach the OSDs")
+        await poll(lambda: all(o.osdmap.is_blocklisted("client.gone")
+                               for o in self.cluster.osds
+                               if not o.is_stopped()),
+                   TIMEOUT, "the blocklist to reach the OSDs")
         try:
             await old.write(b"late dirty write", 100)
         except Exception as e:                  # either fence will do
@@ -630,7 +553,7 @@ class AppsDrive:
     async def rgw_start(self) -> None:
         from ..rgw import Gateway, RgwStore
         from ..rgw.client import S3Client
-        store = RgwStore(self.ec, stripe_unit=self.s3_stripe)
+        store = RgwStore(self.io, stripe_unit=self.s3_stripe)
         user = await store.create_user("alice", "Alice")
         self._gw = Gateway(store)
         self._user = user
@@ -638,7 +561,7 @@ class AppsDrive:
         self._s3 = S3Client(self._gaddr, user["access_key"], user["secret"])
 
     async def rgw_put_get(self) -> None:
-        """``s3_objects`` PUTs and GETs of ``s3_bytes``, ``io_depth`` in
+        """``s3_objects`` PUTs and GETs of ``s3_bytes``, ``concurrency`` in
         flight; a multipart upload; list and HEAD."""
         import hashlib
         s3 = self._s3

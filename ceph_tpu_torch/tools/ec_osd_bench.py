@@ -103,6 +103,33 @@ def occupancy(batch: dict, flush: dict, pipeline: dict) -> dict:
     }
 
 
+async def poll(cond, timeout: float, what: str) -> None:
+    """Wait until ``cond()`` holds, checking every 50 ms; raise
+    RuntimeError naming ``what`` after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.05)
+
+
+async def scrub_pool(cluster, pool_id: int) -> tuple[int, list]:
+    """``scrub_ec`` of every PG of the pool on its live primary: (objects
+    scrubbed, [(pgid, inconsistent objects)])."""
+    from ..osd.scrub import scrub_ec
+    n, bad = 0, []
+    for osd in cluster.osds:
+        if osd.is_stopped():
+            continue
+        for pgid, pg in sorted(osd.pgs.items()):
+            if pgid.startswith(f"{pool_id}.") and pg.is_primary():
+                res = await scrub_ec(pg)
+                n += res.objects_scrubbed
+                if res.inconsistent:
+                    bad.append((pgid, sorted(res.inconsistent)))
+    return n, bad
+
+
 async def run_osd_path_bench(*, n_osds: int = 3, k: int = 2, m: int = 1,
                              n_objects: int = 48,
                              obj_bytes: int = 64 * 1024,
@@ -152,6 +179,9 @@ class ClusterDrive:
     held against its source, a mismatch recorded in
     ``report["mismatches"]``."""
 
+    pool = "ecdrive"            # the EC pool's name
+    victim_oid = "obj-0"        # the kill takes a shard holder of this object
+
     def __init__(self, *, n_osds: int = 12, k: int = 8, m: int = 3,
                  pg_num: int = 32, n_objects: int = 128,
                  obj_bytes: int = 4 << 20, concurrency: int = 16,
@@ -192,9 +222,9 @@ class ClusterDrive:
                 "plugin": self.plugin, "k": str(self.k), "m": str(self.m),
                 "technique": "reed_sol_van"}})
         self.pool_id = await self.rados.pool_create(
-            "ecdrive", pg_num=self.pg_num, pool_type="erasure",
+            self.pool, pg_num=self.pg_num, pool_type="erasure",
             erasure_code_profile="drive")
-        self.io = await self.rados.open_ioctx("ecdrive")
+        self.io = await self.rados.open_ioctx(self.pool)
         rng = np.random.default_rng(SEED)
         self.src = {oid: rng.integers(0, 256, self.obj_bytes,
                                       dtype=np.uint8).tobytes()
@@ -253,10 +283,10 @@ class ClusterDrive:
             self.n_objects * self.obj_bytes / dt / GiB
         return dt
 
-    def pick_victim(self) -> int:
-        """A shard holder of obj-0 that is not its primary."""
+    def pick_victim(self, oid: str) -> int:
+        """A shard holder of ``oid`` that is not its primary."""
         omap = self.cluster.mon.osdmap
-        _, ps = omap.object_to_pg(self.pool_id, "obj-0")
+        _, ps = omap.object_to_pg(self.pool_id, oid)
         up, acting = omap.pg_to_up_acting(self.pool_id, ps)
         primary = omap.pg_primary(acting)
         return next(o for o in acting if o != primary)
@@ -265,7 +295,7 @@ class ClusterDrive:
         """Kill one OSD and wait until the monitor marks it down; it
         stays in (``mon_osd_down_out_interval`` long), so its PGs run
         degraded and are not remapped."""
-        self.victim = self.pick_victim()
+        self.victim = self.pick_victim(self.victim_oid)
         index = next(i for i, o in enumerate(self.cluster.osds)
                      if o.whoami == self.victim)
         t0 = time.perf_counter()
@@ -297,11 +327,9 @@ class ClusterDrive:
         if not await self.cluster.wait_up(self.victim, timeout):
             raise RuntimeError(f"osd.{self.victim} never came back up")
         epoch = self.cluster.mon.osdmap.epoch
-        deadline = time.monotonic() + timeout
-        while any(o.osdmap.epoch < epoch for o in self.cluster.osds):
-            if time.monotonic() > deadline:
-                raise RuntimeError("maps never settled after the revive")
-            await asyncio.sleep(0.05)
+        await poll(lambda: all(o.osdmap.epoch >= epoch
+                               for o in self.cluster.osds), timeout,
+                   "maps to settle after the revive")
         if not await self.cluster.wait_clean(timeout):
             raise RuntimeError("recovery never finished")
         self.report["recovery_s"] = time.perf_counter() - t0
@@ -309,23 +337,15 @@ class ClusterDrive:
     def revived_osd(self):
         return next(o for o in self.cluster.osds if o.whoami == self.victim)
 
-    async def scrub(self) -> list:
-        """scrub_ec of every PG of the pool on its primary; the
-        (pgid, objects, inconsistent) of each PG."""
-        from ..osd.scrub import scrub_ec
-        out = []
+    async def scrub(self, timeout: float = 120.0) -> None:
+        """``scrub_pool`` of the pool: seconds, objects scrubbed and the
+        inconsistent PGs in ``report``."""
         t0 = time.perf_counter()
-        for osd in self.cluster.osds:
-            for pgid, pg in sorted(osd.pgs.items()):
-                if pgid.startswith(f"{self.pool_id}.") and pg.is_primary():
-                    res = await scrub_ec(pg)
-                    out.append((pgid, res.objects_scrubbed,
-                                sorted(res.inconsistent)))
+        n, bad = await asyncio.wait_for(
+            scrub_pool(self.cluster, self.pool_id), timeout)
         self.report["scrub_s"] = time.perf_counter() - t0
-        self.report["scrub_objects"] = sum(n for _, n, _ in out)
-        self.report["scrub_inconsistent"] = [
-            (pgid, bad) for pgid, _, bad in out if bad]
-        return out
+        self.report["scrub_objects"] = n
+        self.report["scrub_inconsistent"] = bad
 
     async def run(self) -> dict:
         """Every step in order: write rounds, read sweep, kill, degraded

@@ -206,7 +206,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     wedged, leaked or mismatched, one straggler schedule).  11d,
     ``tools/chaos.py --smoke`` (one kill-last round at seed 7);
 12. Ceph's client applications (``tools/apps_drive.py``'s ``AppsDrive`` at
-    ``APPS``) on phase 10's cluster shape plus a replicated pool ``rbd``,
+    its defaults) on phase 10's cluster shape plus a replicated pool ``rbd``,
     in a process of its own (``chip_smoke.py --apps``), launches counted
     by sub-phase.  12a, an RBD image of 512 MiB (order 22) on the EC pool,
     16 I/Os in flight: written whole in 4 MiB writes and read back, ``rbd
@@ -430,20 +430,8 @@ HARNESS_TAG = "phase 11 summary: "        # 11a objects whose every shard the ho
 # 11b: recovery_bench.code_configs(smoke=False) at bench.py --recovery's
 # sizes (16 objects of 128 KiB, pg_num 16); nothing cut
 HARNESS_RECOVERY = dict(n_objects=16, obj_size=128 << 10, pg_num=16, seed=7)
-# phase 12, the client applications (tools/apps_drive.py's AppsDrive): phase
-# 10's cluster (12 OSDs one a host, ec83 RS k=8,m=3 on cuda at the 4 KiB
-# stripe unit, pg_num 32) plus a replicated pool rbd (size 3: the reference
-# refuses snapshots on EC pools); RBD at Ceph's defaults, order 22 and 16
-# I/Os in flight (rbd bench's io-threads, the reference's _gather_bounded
-# limit); rbd bench's io-size 4K and io-total 4M (1,024 I/Os); radosstriper
-# at Layout()'s defaults; RGW at its default 4 MiB stripes.  Cut: the image,
-# 512 MiB (a VM disk is typically 10 GiB or more), for the run's time.
-APPS = dict(n_osds=12, k=8, m=3, pg_num=32, rep_pg_num=32,
-            image_bytes=512 << 20, order=22, io_depth=16, bench_ios=1024,
-            io_size=4096, crypto_bytes=64 << 20, feature_bytes=64 << 20,
-            mirror_osds=3, file_bytes=128 << 20, s3_objects=32,
-            s3_bytes=8 << 20, multipart_bytes=64 << 20, part_bytes=8 << 20,
-            s3_stripe=4 << 20)
+# phase 12, the client applications: tools/apps_drive.py's AppsDrive at its
+# defaults, which hold the sizes and the one cut (the 512 MiB image)
 APPS_ORACLE_SAMPLE = 8           # image objects whose every shard the host checks
 APPS_FLAG = "--apps"
 APPS_TAG = "phase 12 summary: "
@@ -3429,23 +3417,6 @@ def batcher_shapes(osds) -> collections.Counter:
                 if osd.codec_batcher is not None), collections.Counter())
 
 
-async def scrub_pool(cluster, pool_id: int) -> tuple[int, list]:
-    """``scrub_ec`` of every PG of the pool on its primary: (objects,
-    inconsistent (pgid, objects))."""
-    from ceph_tpu_torch.osd.scrub import scrub_ec
-    n, bad = 0, []
-    for osd in cluster.osds:
-        if osd.is_stopped():
-            continue
-        for pgid, pg in sorted(osd.pgs.items()):
-            if pgid.startswith(f"{pool_id}.") and pg.is_primary():
-                res = await scrub_ec(pg)
-                n += res.objects_scrubbed
-                if res.inconsistent:
-                    bad.append((pgid, sorted(res.inconsistent)))
-    return n, bad
-
-
 async def harness_oracle(cluster, pool_id: int, oids: list, k: int, m: int,
                          dev: torch.device) -> int:
     """Each of ``oids`` read back through librados; its stored shards on
@@ -3501,6 +3472,7 @@ def harness_loadgen(dev: torch.device) -> dict:
     from ceph_tpu_torch.common.config import ConfigProxy
     from ceph_tpu_torch.loadgen import (WorkloadSpec, cluster_gates,
                                         degradation_ratios, run_workload)
+    from ceph_tpu_torch.tools.ec_osd_bench import scrub_pool
     from ceph_tpu_torch.tools.loop_sampler import (GCClock, LoopLag,
                                                    StageCounts, mark_downs)
     spec = WorkloadSpec(**HARNESS_LOADGEN).validate()
@@ -3981,7 +3953,7 @@ def pool_k5(cluster, pool_id: int, dev: torch.device, label: str) -> dict:
 
 
 def phase_apps(dev: torch.device) -> dict:
-    """Phase 12: ``AppsDrive`` at ``APPS`` through the applications' entry
+    """Phase 12: ``AppsDrive`` at its defaults through the applications' entry
     points, every daemon on ``dev``; launch counts by stage, set to 0 at the
     boot.  Checks: every read equals its oracle, no failed op, only the
     victim marked down, the scrub clean, the host oracle on sampled image
@@ -3989,13 +3961,13 @@ def phase_apps(dev: torch.device) -> dict:
     shapes against their plain versions."""
     import asyncio
     import importlib.util
-    from ceph_tpu_torch.tools.apps_drive import AppsDrive
+    from ceph_tpu_torch.tools.apps_drive import MIRROR_OSDS, AppsDrive
     from ceph_tpu_torch.tools.ec_osd_bench import (_delta, _sum_ec_batch,
                                                    occupancy)
     from ceph_tpu_torch.tools.loop_sampler import mark_downs
     card = card_label()
     crypto = importlib.util.find_spec("cryptography") is not None
-    drive = AppsDrive(**APPS, device=dev)
+    drive = AppsDrive(device=dev)
     out: dict = {}
     osds: list = []
 
@@ -4031,10 +4003,8 @@ def phase_apps(dev: torch.device) -> dict:
         marks.mark("12a degraded read")
         await drive.rgw_degraded_get()
         marks.mark("12d degraded get")
-        out["mark_downs"] = mark_downs(drive.cluster)
         await drive.revive()
-        osds.append(next(o for o in drive.cluster.osds
-                         if o.whoami == drive.victim))
+        osds.append(drive.revived_osd())
         marks.mark("revive and recovery")
         await drive.scrub()
         marks.mark("scrub")
@@ -4048,6 +4018,10 @@ def phase_apps(dev: torch.device) -> dict:
         marks.mark("12b features")
         await drive.rgw_delete()
         marks.mark("12d delete")
+        # after the last stage: a mark-down anywhere in the phase counts
+        out["mark_downs"] = mark_downs(drive.cluster)
+        out["site_mark_downs"] = [d for c in drive.sites
+                                  for d in mark_downs(c)]
         out["occupancy"] = occupancy(*_sum_ec_batch(drive.cluster.osds))
         return marks
 
@@ -4068,9 +4042,12 @@ def phase_apps(dev: torch.device) -> dict:
             errors.append(f"scrub: {rep['scrub_objects']} objects, "
                           f"inconsistent {rep['scrub_inconsistent']}")
         downs = out["mark_downs"]
-        if not downs or any(not d.startswith(f"osd.{drive.victim} ")
-                            for d in downs):
-            errors.append(f"mark-downs beyond osd.{drive.victim}: {downs}")
+        if len(downs) != 1 or not downs[0].startswith(f"osd.{drive.victim} "):
+            errors.append(f"mark-downs other than osd.{drive.victim}'s one: "
+                          f"{downs}")
+        if out["site_mark_downs"]:
+            errors.append(f"mark-downs in the mirror's cluster: "
+                          f"{out['site_mark_downs']}")
         by_sub: dict[str, dict] = {}
         for stage, counts in marks.stages.items():
             sub = by_sub.setdefault(APPS_SUBPHASE[stage], {})
@@ -4087,13 +4064,13 @@ def phase_apps(dev: torch.device) -> dict:
             raise RuntimeError(f"apps: {errors}")
         rng = np.random.default_rng(SEED + 120)
         objnos = sorted(int(i) for i in rng.choice(
-            APPS["image_bytes"] >> APPS["order"], APPS_ORACLE_SAMPLE,
+            drive.image_bytes >> drive.order, APPS_ORACLE_SAMPLE,
             replace=False))
         oracle_shards = loop.run_until_complete(harness_oracle(
-            drive.cluster, drive.ec_pool_id,
-            [f"{drive.image_prefix}.{n:016x}" for n in objnos], APPS["k"],
-            APPS["m"], dev))
-        codec = pool_codec(drive.cluster, drive.ec_pool_id)
+            drive.cluster, drive.pool_id,
+            [f"{drive.image_prefix}.{n:016x}" for n in objnos], drive.k,
+            drive.m, dev))
+        codec = pool_codec(drive.cluster, drive.pool_id)
         shapes = batcher_shapes(osds)
         kernels = [harness_kernel("12", codec, key, n, dev, SEED + 121 + i,
                                   "apps")
@@ -4103,9 +4080,9 @@ def phase_apps(dev: torch.device) -> dict:
         # engine's
         (enc_key, _), = [kn for kn in top_launches(shapes)
                          if kn[0][0] == "encode"]
-        crcs = [apps_crc("12 encode", enc_key[1][0] * (APPS["k"] + APPS["m"]),
+        crcs = [apps_crc("12 encode", enc_key[1][0] * (drive.k + drive.m),
                          dev, SEED + 130)]
-        placement = [pool_k5(drive.cluster, drive.ec_pool_id, dev, "apps"),
+        placement = [pool_k5(drive.cluster, drive.pool_id, dev, "apps"),
                      pool_k5(drive.cluster, drive.cluster.mon.osdmap
                              .pool_names["rbd"], dev, "apps")]
     finally:
@@ -4113,10 +4090,11 @@ def phase_apps(dev: torch.device) -> dict:
         loop.close()
     occ = out["occupancy"]
     gb = lambda key: f"{rep[key + '_GiBps']:.4f}"  # noqa: E731
-    log(f"[{card}] 12a RBD on ec83 ({APPS['n_osds']} OSDs, RS k={APPS['k']},"
-        f"m={APPS['m']} on cuda, pg_num {APPS['pg_num']}, a "
-        f"{APPS['image_bytes'] >> 20} MiB image of {1 << APPS['order'] >> 20}"
-        f" MiB objects, {APPS['io_depth']} in flight): write {gb('rbd_write')}"
+    log(f"[{card}] 12a RBD on ec83 ({drive.n_osds} OSDs, RS k={drive.k},"
+        f"m={drive.m} on cuda, pg_num {drive.pg_num}, a "
+        f"{drive.image_bytes >> 20} MiB image of {1 << drive.order >> 20}"
+        f" MiB objects, {drive.concurrency} in flight): write "
+        f"{gb('rbd_write')}"
         f", read {gb('rbd_read')}, degraded read {gb('rbd_degraded_read')} "
         f"GiB/s (host clock, 4 MiB I/O); boot {rep['boot_s']:.2f} s, mark "
         f"down {rep['mark_down_s']:.2f} s, recovery {rep['recovery_s']:.2f} "
@@ -4124,9 +4102,10 @@ def phase_apps(dev: torch.device) -> dict:
         f"clean)")
     for key, what in (("rbd_seq_4k", "sequential 4 KiB writes, one at a "
                        "time (rbd bench)"),
-                      ("rbd_random_4k", "random 4 KiB writes, 16 in flight"),
-                      ("rbd_cached_4k", "random 4 KiB writes through the "
-                       "ObjectCacher, 16 in flight")):
+                      ("rbd_random_4k", f"random 4 KiB writes, "
+                       f"{drive.concurrency} in flight"),
+                      ("rbd_cached_4k", f"random 4 KiB writes through the "
+                       f"ObjectCacher, {drive.concurrency} in flight")):
         r = rep[key]
         log(f"[{card}] 12a {what}: {r['ios']} IOs in {r['s']:.3f} s, "
             f"{r['iops']:.1f} IOPS, p50 {r['p50_ms']:.3f} ms, p99 "
@@ -4140,25 +4119,25 @@ def phase_apps(dev: torch.device) -> dict:
         f"{occ['batches']} launches, flush reasons {occ['flush_reasons']}")
     log(f"[{card}] 12a crypto: " + (
         f"write {gb('crypto_write')}, read {gb('crypto_read')} GiB/s "
-        f"({APPS['crypto_bytes'] >> 20} MiB, AES-XTS on the host), wrong "
+        f"({drive.crypto_bytes >> 20} MiB, AES-XTS on the host), wrong "
         f"passphrase refused" if crypto else
         "not run (no cryptography module on this machine)"))
-    log(f"[{card}] 12b RBD features on rbd ({APPS['feature_bytes'] >> 20} "
+    log(f"[{card}] 12b RBD features on rbd ({drive.feature_bytes >> 20} "
         f"MiB): snapshots, clone, copyup, flatten, rollback, resize, "
         f"discard, export, object map and fast_diff in "
         f"{rep['features_s']:.2f} s; exclusive lock broken, the deposed "
         f"holder's write refused ({rep['lock_fence']}); migration "
         f"{rep['migration_s']:.2f} s ({rep['migration_bytes']} B copied); "
-        f"mirroring to {APPS['mirror_osds']} OSDs {rep['mirror_s']:.2f} s "
+        f"mirroring to {MIRROR_OSDS} OSDs {rep['mirror_s']:.2f} s "
         f"(snapshot mode objects {rep['mirror_snapshot_objects']}, journal "
         f"events {rep['mirror_journal_events']})")
-    log(f"[{card}] 12c radosstriper on ec83 ({APPS['file_bytes'] >> 20} MiB, "
+    log(f"[{card}] 12c radosstriper on ec83 ({drive.file_bytes >> 20} MiB, "
         f"Layout() 4 MiB units): write {gb('striper_write')}, read "
         f"{gb('striper_read')}, two clients {gb('striper_two_clients_write')}"
         f" GiB/s (host clock); takeover fenced the old holder "
         f"({rep['striper_fence']})")
-    log(f"[{card}] 12d RGW on ec83 ({APPS['s3_objects']} objects of "
-        f"{APPS['s3_bytes'] >> 20} MiB, {APPS['s3_stripe'] >> 20} MiB "
+    log(f"[{card}] 12d RGW on ec83 ({drive.s3_objects} objects of "
+        f"{drive.s3_bytes >> 20} MiB, {drive.s3_stripe >> 20} MiB "
         f"stripes): PUT {gb('s3_put')}, GET {gb('s3_get')}, multipart "
         f"{gb('s3_multipart')} (GET {gb('s3_multipart_get')}), degraded GET "
         f"{gb('s3_degraded_get')} GiB/s (host clock, loopback HTTP)")

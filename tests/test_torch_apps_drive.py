@@ -10,6 +10,7 @@ import importlib.util
 import torch
 
 from ceph_tpu_torch.tools.apps_drive import AppsDrive
+from ceph_tpu_torch.tools.loop_sampler import mark_downs
 
 torch.set_num_threads(1)
 
@@ -58,19 +59,25 @@ def test_apps_drive_on_the_cpu():
             await d.rbd_migration()
             await d.rbd_mirror()
             await d.rgw_delete()
-            return down
+            logged = (mark_downs(d.cluster),
+                      [m for c in d.sites for m in mark_downs(c)])
+            return down, logged
         finally:
             await d.stop()
 
     loop = asyncio.new_event_loop()
     try:
-        down = loop.run_until_complete(asyncio.wait_for(main(), 240))
+        down, (logged, site_logged) = loop.run_until_complete(
+            asyncio.wait_for(main(), 240))
     finally:
         loop.close()
     rep = d.report
     assert not rep["mismatches"], rep["mismatches"]
     assert rep["failed_ops"] == 0, rep["errors"]
     assert down == [d.victim]
+    # over the whole drive: the victim's one mark-down, none in the mirror
+    assert len(logged) == 1 and logged[0].startswith(f"osd.{d.victim} ")
+    assert site_logged == []
     assert rep["scrub_objects"] > 0 and not rep["scrub_inconsistent"]
     assert rep["rbd_seq_4k"]["ios"] == rep["rbd_random_4k"]["ios"] == 32
     assert "EBLOCKLISTED" in rep["lock_fence"]

@@ -78,5 +78,5 @@ def test_apps_on_ec21_match():
                     "rbd_recovered", "victim_is_first_down"):
             assert side[key], key
         assert side["scrub"][0] > 0 and not side["scrub"][1]
-        assert port["counters_rbd"]["rmw_delta_runs"] > 0
+        assert side["counters_rbd"]["rmw_delta_runs"] > 0
     assert port == ref
