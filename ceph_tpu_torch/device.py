@@ -25,3 +25,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def launch_counts() -> dict[str, int]:
+    """This process's launches of each hand-written kernel (K1-K6), as each
+    wrapper counts them where it launches its kernel."""
+    from .crush import rule_lanes, vectorized
+    from .ops import crc32c_batch, gf2kernels
+    return {**gf2kernels.LAUNCHES, **crc32c_batch.LAUNCHES,
+            **vectorized.LAUNCHES, **rule_lanes.LAUNCHES}

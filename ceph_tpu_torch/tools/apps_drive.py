@@ -9,8 +9,8 @@ snapshots on EC pools).  It drives what users run over them, one step a
 method:
 
 - an RBD image on the EC pool at Ceph's defaults (order 22, 16 I/Os in
-  flight): written whole in 4 MiB writes and read back, ``rbd bench``'s
-  1,024 sequential 4 KiB writes, 1,024 random 4 KiB writes, 1,024 more
+  flight): written whole in 4 MiB writes and read back, 256 sequential
+  4 KiB writes in ``rbd bench``'s shape, 256 random 4 KiB writes, 256 more
   through the ``ObjectCacher`` with a flush, a read of the whole image
   while one shard holder of its object 0 is down, recovery, ``scrub_ec``,
   and an encrypted image with a wrong passphrase refused;
@@ -40,34 +40,28 @@ import time
 
 import numpy as np
 
-from .ec_osd_bench import ClusterDrive, poll
+from .ec_osd_bench import TIMEOUT, ClusterDrive, poll
 
 GiB = float(1 << 30)
 MiB = 1 << 20
 SEED = 18
-TIMEOUT = 120.0         # seconds any one step's wait may take
 IO_SIZE = 4096          # rbd bench's io-size
 MIRROR_OSDS = 3         # the mirror's second cluster
 LOCK_HOLDER = "client.holder"
-
-
-def _pcts(lat: list[float]) -> dict:
-    a = np.asarray(lat, np.float64)
-    return {"p50_ms": float(np.percentile(a, 50) * 1e3),
-            "p99_ms": float(np.percentile(a, 99) * 1e3)}
 
 
 class AppsDrive(ClusterDrive):
     """The client applications over one ``ClusterDrive`` cluster, one step
     a method.  ``cluster`` takes ``ClusterDrive``'s arguments (12 OSDs,
     RS k=8,m=3, pg_num 32, 16 I/Os in flight by default); the defaults of
-    the sizes are the card's.  The one cut: the image, 512 MiB (a VM disk
-    is typically 10 GiB or more), for the run's time."""
+    the sizes are the card's.  The cuts, for the run's time: the image,
+    512 MiB (a VM disk is typically 10 GiB or more), and the 4 KiB rounds,
+    256 writes each (``rbd bench`` writes 1 GiB by default)."""
 
     pool = "ec83"
 
     def __init__(self, *, rep_pg_num: int = 32, image_bytes: int = 512 * MiB,
-                 order: int = 22, bench_ios: int = 1024,
+                 order: int = 22, bench_ios: int = 256,
                  crypto_bytes: int = 64 * MiB, feature_bytes: int = 64 * MiB,
                  file_bytes: int = 128 * MiB, s3_objects: int = 32,
                  s3_bytes: int = 8 * MiB, multipart_bytes: int = 64 * MiB,
@@ -91,44 +85,11 @@ class AppsDrive(ClusterDrive):
         self.s3_src: dict[str, bytes] = {}
         self._clients: list = []          # the drive's other handles
         self.sites: list = []             # the mirror's second cluster
-        self.report.update(failed_ops=0, errors=[])
 
     @property
     def victim_oid(self) -> str:
         """The image's object 0."""
         return f"{self.image_prefix}.{0:016x}"
-
-    # -- plumbing -------------------------------------------------------------
-    def _check(self, label: str, ok: bool) -> None:
-        if not ok:
-            self.report["mismatches"].append(label)
-
-    async def _ops(self, coros, depth: int | None = None) -> list:
-        """Run ``coros`` at most ``depth`` at a time (the drive's
-        concurrency by default); each op's seconds.  A failed op is counted
-        and its error kept; the others run on."""
-        sem = asyncio.Semaphore(depth or self.concurrency)
-
-        async def one(co):
-            async with sem:
-                t0 = time.perf_counter()
-                try:
-                    await asyncio.wait_for(co, TIMEOUT)
-                except Exception as e:          # counted, checked after
-                    self.report["failed_ops"] += 1
-                    self.report["errors"].append(repr(e)[:200])
-                    return None
-                return time.perf_counter() - t0
-        return await asyncio.gather(*(one(co) for co in coros))
-
-    def _rate(self, label: str, nbytes: int, secs: float) -> None:
-        self.report[f"{label}_s"] = secs
-        self.report[f"{label}_GiBps"] = nbytes / secs / GiB
-
-    def _iops(self, label: str, lat: list, secs: float) -> None:
-        done = [t for t in lat if t is not None]
-        self.report[label] = {"ios": len(lat), "s": secs,
-                              "iops": len(lat) / secs, **_pcts(done)}
 
     async def boot(self) -> None:
         """``ClusterDrive``'s boot, then the replicated pool ``rbd``."""
@@ -648,17 +609,18 @@ class AppsDrive(ClusterDrive):
     async def rgw_swift(self) -> None:
         """One Swift PUT and GET through TempAuth."""
         user = self._user
-        st, h, _ = await _http(self._gaddr, "GET", "/auth/v1.0", {
+        st, h, _ = await http_request(self._gaddr, "GET", "/auth/v1.0", {
             "x-auth-user": f"{user['access_key']}:u",
             "x-auth-key": user["secret"]})
         tok = {"x-auth-token": h.get("x-auth-token", "")}
         base = h.get("x-storage-url", "")
         body = self.rng.integers(0, 256, 1 * MiB, np.uint8).tobytes()
-        put_st, _, _ = await _http(self._gaddr, "PUT", f"{base}/swift", tok)
-        obj_st, _, _ = await _http(self._gaddr, "PUT",
-                                   f"{base}/swift/blob", tok, body)
-        get_st, _, got = await _http(self._gaddr, "GET",
-                                     f"{base}/swift/blob", tok)
+        put_st, _, _ = await http_request(self._gaddr, "PUT",
+                                          f"{base}/swift", tok)
+        obj_st, _, _ = await http_request(self._gaddr, "PUT",
+                                          f"{base}/swift/blob", tok, body)
+        get_st, _, got = await http_request(self._gaddr, "GET",
+                                            f"{base}/swift/blob", tok)
         self._check("swift", (st, put_st, obj_st, get_st) ==
                     (200, 201, 201, 200) and got == body)
 
@@ -678,8 +640,8 @@ class AppsDrive(ClusterDrive):
         await s3.delete_bucket("bkt")
 
 
-async def _http(addr, method: str, path: str, headers=None,
-                body: bytes = b""):
+async def http_request(addr, method: str, path: str, headers=None,
+                       body: bytes = b""):
     """One HTTP/1.1 exchange: (status, headers, body)."""
     reader, writer = await asyncio.open_connection(*addr)
     try:

@@ -37,6 +37,7 @@ import numpy as np
 
 GiB = float(1 << 30)
 SEED = 0            # the payloads' generator
+TIMEOUT = 120.0     # seconds any one step's op may take (the drives' ``_ops``)
 
 
 def _sum_ec_batch(osds) -> tuple[dict, dict, dict]:
@@ -200,11 +201,47 @@ class ClusterDrive:
         self.src: dict[str, bytes] = {}
         self.victim = None
         self._token = None
-        self.report: dict = {"mismatches": []}
+        self.report: dict = {"mismatches": [], "failed_ops": 0, "errors": []}
 
     @property
     def oids(self) -> list[str]:
         return [f"obj-{i}" for i in range(self.n_objects)]
+
+    # -- the drives' plumbing ---------------------------------------------
+    def _check(self, label: str, ok: bool) -> None:
+        if not ok:
+            self.report["mismatches"].append(label)
+
+    async def _ops(self, coros, depth: int | None = None) -> list:
+        """Run ``coros`` at most ``depth`` at a time (the drive's
+        concurrency by default); each op's seconds.  A failed op is counted
+        in ``report["failed_ops"]`` and its error kept; the others run on."""
+        sem = asyncio.Semaphore(depth or self.concurrency)
+
+        async def one(co):
+            async with sem:
+                t0 = time.perf_counter()
+                try:
+                    await asyncio.wait_for(co, TIMEOUT)
+                except Exception as e:          # counted, checked after
+                    self.report["failed_ops"] += 1
+                    self.report["errors"].append(repr(e)[:200])
+                    return None
+                return time.perf_counter() - t0
+        return await asyncio.gather(*(one(co) for co in coros))
+
+    def _rate(self, label: str, nbytes: int, secs: float) -> None:
+        self.report[f"{label}_s"] = secs
+        self.report[f"{label}_GiBps"] = nbytes / secs / GiB
+
+    def _iops(self, label: str, lat: list, secs: float) -> None:
+        """``lat``'s ops (None for a failed one) over ``secs``: count, rate
+        and the p50 / p99 of the ops that completed."""
+        done = np.asarray([t for t in lat if t is not None], np.float64)
+        self.report[label] = {
+            "ios": len(lat), "s": secs, "iops": len(lat) / secs,
+            "p50_ms": float(np.percentile(done, 50) * 1e3),
+            "p99_ms": float(np.percentile(done, 99) * 1e3)}
 
     async def boot(self) -> None:
         from ..client.rados import Rados

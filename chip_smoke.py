@@ -5,17 +5,19 @@ erasure-code stripe codec, bulk CRUSH placement, the epoch placement table
 spine, the sharded codec over ``torch.distributed``, the RADOS cluster
 (monitor, OSDs and a librados client over the messenger), the traffic
 and failure harness that drives it (loadgen, the recovery and straggler
-benches, chaos) and Ceph's client applications over it (RBD, the
-ObjectCacher, radosstriper, the RGW S3 and Swift gateway).
+benches, chaos), Ceph's client applications over it (RBD, the
+ObjectCacher, radosstriper, the RGW S3 and Swift gateway), and the
+deployment layer: CephFS with its MDS pair and the mgr, and a cluster that
+``vstart`` starts with one daemon a process, driven through the CLIs.
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure exits non-zero and prints no result:
 
  1. the card's name and power limit; compile the XOR schedules of every
-    matrix the run uses, then build every kernel with nvcc, one process per
-    source, all at once: ``ceph_tpu_torch/csrc/*.cu`` and one generated K3
-    source per schedule digest (K3's design, and ptxas's registers, shared
+    matrix the run uses, each in a worker process of its own, while nvcc
+    builds ``ceph_tpu_torch/csrc/*.cu`` (one process per source, all at
+    once), then one generated K3 source per schedule digest likewise (K3's design, and ptxas's registers, shared
     memory and spills per digest, from the kept log of a cached build too;
     nvcc seconds);
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
@@ -209,10 +211,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
     its defaults) on phase 10's cluster shape plus a replicated pool ``rbd``,
     in a process of its own (``chip_smoke.py --apps``), launches counted
     by sub-phase.  12a, an RBD image of 512 MiB (order 22) on the EC pool,
-    16 I/Os in flight: written whole in 4 MiB writes and read back, ``rbd
-    bench``'s 1,024 sequential 4 KiB writes one at a time, 1,024 random
-    4 KiB writes (each an EC read-modify-write: a K2 delta launch), 1,024
-    through the ObjectCacher and a flush, one shard holder of object 0
+    16 I/Os in flight: written whole in 4 MiB writes and read back, 256
+    sequential 4 KiB writes one at a time in ``rbd bench``'s shape, 256
+    random 4 KiB writes (each an EC read-modify-write: a K2 delta launch),
+    256 through the ObjectCacher and a flush, one shard holder of object 0
     killed (kept in), the image read degraded, the OSD revived and
     recovered, ``scrub_ec`` of every PG, and where the machine has
     ``cryptography`` an encrypted 64 MiB image written and read back and a
@@ -239,10 +241,42 @@ Phases, one line each; any failure exits non-zero and prints no result:
     the card's name and power limit: GiB/s of each sweep, IOPS and p50/p99
     of the 4 KiB writes, flush, recovery and scrub seconds, stripes a
     launch and flush reasons, launches by sub-phase;
-13. a ``kernels`` JSON line: per kernel its launches on its paths (phases
-    4, 8f, 9, 10, 11 and 12 for K1/K2, phases 6-7 and 11b for K3, phases
-    8c, 8f, 10, 11 and 12 for K4, phases 8d, 8e, 10, 11 and 12 for K5,
-    phase 8e for K6), its
+13. the deployment layer, in a process of its own (``chip_smoke.py
+    --fs``).  13a, CephFS (``tools/fs_drive.py``'s ``FsDrive`` at its
+    defaults) on phase 10's cluster shape: the data pool ``cephfs_data``
+    on RS k=8,m=3 (cuda), ``cephfs_metadata`` replicated x3, a mgr at
+    vstart's configuration (the balancer on, prometheus serving), MDS a
+    and b, two mounts; 32 small files in 8 directories (16 creates in
+    flight, lognormal around 16 KiB) read back, 8 files of 16 MiB at the
+    default 4 MiB layout written and read, 256 random 4 KiB overwrites
+    (EC read-modify-writes), both mounts appending to one file, a rename
+    and an unlink's purge, ``cephfs_cli`` put/get/ls in processes of their
+    own, fs_mirror of one directory to a second cluster of 3 OSDs, the
+    active MDS stopped and the standby's takeover, the mgr's prometheus
+    scrape.  Checked: every read equals its oracle, 0 failed ops, no
+    mark-down, the scrape against the map and the OSDs' counters, K2, K4
+    and K5 launched, the dense kernel at the path's launch shapes, K4 at
+    the encode's CRC rows and K5 at both pools against their plain
+    versions.  13b, ``python -m ceph_tpu_torch.tools.vstart`` with one
+    daemon a process: a monitor and 12 OSDs on BlockStores (``--hosts
+    12``), each process on the card; ``ceph_cli`` (an EC profile k=8 m=3
+    plugin=cuda, pool ec83 pg_num 32, status, osd tree, pool rbd),
+    ``rados_cli`` put/get and bench, ``rbd_cli`` create and bench of 128
+    4 KiB writes, ``rgw_cli`` user create and serve with a PUT and GET of
+    8 MiB, the exporter over the admin sockets, each a process; then this
+    process's client writes 64 objects of 4 MiB, SIGKILLs a shard holder
+    of object 0, writes 32 more, restarts it on its BlockStore and reads
+    all 96 back.  Checked: the CLIs' bytes, every OSD process up in the
+    exporter's scrape and K2 batches in every one that is primary of a PG
+    that took a write, every read equals its oracle, HEALTH_OK, only the
+    killed OSD marked down, every daemon exits 0 on SIGTERM, 8 sampled
+    objects' shards on the BlockStores == the host encode.  Printed: the
+    rates, IOPS and p50/p99 (host clock), the failover's seconds, the
+    launches by step and by OSD process;
+14. a ``kernels`` JSON line: per kernel its launches on its paths (phases
+    4, 8f, 9, 10, 11, 12 and 13 for K1/K2, phases 6-7 and 11b for K3,
+    phases 8c, 8f, 10, 11, 12 and 13 for K4, phases 8d, 8e, 10, 11, 12 and
+    13a for K5, phase 8e for K6), its
     time at its headline shape, its bound, its plain version's time and its
     largest difference from the plain version; K1, K2, K3 and K5 also their
     times and bounds on the other paths they serve (``ms_by_path`` /
@@ -255,7 +289,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     blocks per SM and spill or local bytes as the CUDA runtime reports
     them (K5 also ptxas's registers and spill bytes), and K3 per digest
     its design, shared memory, and ptxas's registers and spill bytes;
-14. the result line {"ok": true, "device": {...}}.
+15. the result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; a kernel of the path that did not launch fails the run.
@@ -436,6 +470,15 @@ APPS_ORACLE_SAMPLE = 8           # image objects whose every shard the host chec
 APPS_FLAG = "--apps"
 APPS_TAG = "phase 12 summary: "
 # the sub-phase each of the drive's stages belongs to
+FS_FLAG = "--fs"
+FS_TAG = "phase 13 summary: "
+# 13b: vstart's cluster, one daemon a process; the CLIs' and the client's
+# sizes (rbd bench: 128 writes of 4 KiB; rados bench: 10 s of 4 MiB)
+VSTART = dict(n_osds=12, k=8, m=3, pg_num=32, objects=64, more=32,
+              obj_bytes=4 << 20, cli_bytes=(3 << 20) + 12345, bench_s=10,
+              rbd_size="64M", rbd_total="512K", s3_bytes=8 << 20)
+VSTART_ORACLE_SAMPLE = 8         # objects whose every shard the host checks
+VSTART_TIMEOUT = 120.0           # seconds any one wait of 13b may take
 APPS_SUBPHASE = {"boot": "12a", "12a write and read": "12a",
                  "12a sequential 4K": "12a", "12a random 4K": "12a",
                  "12a cached 4K": "12a", "12d put, get, multipart": "12d",
@@ -546,24 +589,53 @@ def path_matrices() -> dict:
     }
 
 
-def phase_build() -> dict:
-    """Compile the schedules, build every kernel; returns label -> (matrix,
-    schedule, nvcc seconds, K3's design and ptxas counts)."""
-    from ceph_tpu_torch.ops import _build
+def compile_schedules(mats: dict, workers: int | None = None) -> dict:
+    """label -> the XOR schedule of each GF(2^8) matrix, each compiled in a
+    spawned worker process (the largest first) and registered in
+    ``xor_schedule``'s process-wide cache as ``schedule_for`` registers a
+    serial compile: the same schedules, a matrix's digest its key."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from ceph_tpu_torch.ops import gf2kernels as gk
+    from ceph_tpu_torch.ops import xor_schedule as xs
+    bits = {label: gk.bitmatrix_i8(mat) for label, mat in mats.items()}
+    order = sorted(bits, key=lambda label: -int(bits[label].sum()))
+    with ProcessPoolExecutor(
+            min(len(order), workers or os.cpu_count() or 1),
+            multiprocessing.get_context("spawn")) as pool:
+        futs = {label: pool.submit(xs.compile_schedule, bits[label])
+                for label in order}
+        done = {label: f.result() for label, f in futs.items()}
+    with xs._LOCK:
+        return {label: xs._SCHEDULES.setdefault(done[label].digest,
+                                                done[label])
+                for label in mats}
+
+
+def phase_build() -> tuple[dict, float]:
+    """Compile the schedules in worker processes while nvcc builds the
+    fixed sources, then build each schedule's K3 source; returns (label ->
+    (matrix, schedule, nvcc seconds, K3's design and ptxas counts), the
+    host CSE's seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.ops import _build
     from ceph_tpu_torch.ops import xor_sched_codegen as cg
     from ceph_tpu_torch.ops import xor_schedule as xs
     log(f"card: {card_label()}")
-    t0 = time.perf_counter()
-    mats = path_matrices()
-    scheds = {label: xs.schedule_for(gk.bitmatrix_i8(mat))
-              for label, mat in mats.items()}
-    log(f"schedules: {len(scheds)} compiled in "
-        f"{time.perf_counter() - t0:.2f} s (host CSE)")
     sources = _build.all_sources()
-    k3 = {label: xs.k3_source(sched) for label, sched in scheds.items()}
     t0 = time.perf_counter()
-    reports = _build.build(sources + sorted(set(k3.values())))
+    with ThreadPoolExecutor(1) as nvcc:
+        fixed = nvcc.submit(_build.build, sources)
+        with xor_sched_env("0"):        # the codecs build, not warm, them
+            mats = path_matrices()
+        scheds = compile_schedules(mats)
+        cse_s = time.perf_counter() - t0
+        log(f"schedules: {len(scheds)} compiled in {cse_s:.2f} s (host CSE, "
+            f"a worker process a schedule, nvcc building the fixed sources "
+            f"meanwhile)")
+        k3 = {label: xs.k3_source(sched) for label, sched in scheds.items()}
+        reports = _build.build(sorted(set(k3.values())))
+        reports.update(fixed.result())
     dt = time.perf_counter() - t0
     for name in sources:
         if name in reports:
@@ -585,7 +657,9 @@ def phase_build() -> dict:
             f"{ptxas_summary(report)}, "
             + (f"nvcc {secs:.2f} s" if built else "already built"))
     log(f"build: {len(sources)} sources + {len(set(k3.values()))} K3 digests "
-        f"in {dt:.2f} s ({len(reports)} compiled, sm_90a, all at once)")
+        f"in {dt:.2f} s with the host CSE ({len(reports)} compiled, sm_90a, "
+        f"one nvcc a source: the fixed sources all at once beside the CSE, "
+        f"then the K3 digests all at once)")
     # the host codecs the daemons' messages and stores run (g++)
     from ceph_tpu_torch import native
     from ceph_tpu_torch.common import denc_native
@@ -594,7 +668,7 @@ def phase_build() -> dict:
     denc_native.load()
     log(f"host build: the CRC32C engine and the denc value codec in "
         f"{time.perf_counter() - t0:.2f} s")
-    return out
+    return out, cse_s
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -751,10 +825,8 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    from ceph_tpu_torch.crush import rule_lanes, vectorized
-    from ceph_tpu_torch.ops import crc32c_batch, gf2kernels
-    return {**gf2kernels.LAUNCHES, **crc32c_batch.LAUNCHES,
-            **vectorized.LAUNCHES, **rule_lanes.LAUNCHES}
+    from ceph_tpu_torch.device import launch_counts as counts
+    return counts()
 
 
 def phase_k4_small(dev: torch.device) -> int:
@@ -3899,10 +3971,11 @@ def card_label() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def apps_crc(label: str, nrows: int, dev: torch.device, seed: int) -> dict:
+def apps_crc(label: str, nrows: int, dev: torch.device, seed: int,
+             phase: str = "apps") -> dict:
     """K4 over ``nrows`` seeded rows of a stripe unit, a shape of phase
-    12's fused CRCs, against its plain version and the host engine; CUDA
-    events, the plain version by the host clock."""
+    12's or 13's fused CRCs, against its plain version and the host engine;
+    CUDA events, the plain version by the host clock."""
     from ceph_tpu_torch.ops import crc32c_batch as crc
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = torch.randint(0, 256, (nrows, CLUSTER_STRIPE_UNIT),
@@ -3914,14 +3987,15 @@ def apps_crc(label: str, nrows: int, dev: torch.device, seed: int) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     host = crc.crc32c_rows(rows.cpu().numpy())
     if not (np.array_equal(got, plain) and np.array_equal(got, host)):
-        raise RuntimeError(f"apps {label}: K4 differs from its plain version "
-                           f"or the host engine at {tuple(rows.shape)}")
+        raise RuntimeError(f"{phase} {label}: K4 differs from its plain "
+                           f"version or the host engine at "
+                           f"{tuple(rows.shape)}")
     ms = time_ms(lambda: crc.crc32c_chunks(rows))
-    log(f"apps {label} K4 over {tuple(rows.shape)} CRC rows: {ms:.4f} ms "
+    log(f"{phase} {label} K4 over {tuple(rows.shape)} CRC rows: {ms:.4f} ms "
         f"(CUDA events), plain {plain_ms:.1f} ms (host clock), == its plain "
         f"version and the host engine")
     return {"shape": list(rows.shape), "ms": ms, "plain_ms": plain_ms,
-            "err": 0, "path": f"apps {label} CRC rows {tuple(rows.shape)}"}
+            "err": 0, "path": f"{phase} {label} CRC rows {tuple(rows.shape)}"}
 
 
 def pool_k5(cluster, pool_id: int, dev: torch.device, label: str) -> dict:
@@ -4156,32 +4230,6 @@ def phase_apps(dev: torch.device) -> dict:
                        if k not in ("errors", "rbd_cache_stats")}}
 
 
-def phase_apps_process() -> dict:
-    """Phase 12 in a process of its own (``chip_smoke.py --apps``), as a
-    user starts an application: a fresh interpreter and heap.  The kernels
-    are already built.  Its log lines are passed through; its last line is
-    its summary as JSON.  The process is stopped on any way out."""
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), APPS_FLAG],
-        stdout=subprocess.PIPE, text=True, cwd=os.path.dirname(
-            os.path.abspath(__file__)))
-    result = None
-    try:
-        for line in proc.stdout:
-            if line.startswith(APPS_TAG):
-                result = json.loads(line[len(APPS_TAG):])
-            else:
-                print(line, end="", flush=True)
-        rc = proc.wait(timeout=60)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if rc != 0 or result is None:
-        raise RuntimeError(f"phase 12's process exited {rc}")
-    return result
-
-
 def apps_main() -> int:
     """``--apps``: phase 12 alone on the card, its summary last."""
     from ceph_tpu_torch.ops import _build
@@ -4208,7 +4256,15 @@ def apps_paths(rows: list, apps: dict, mhz: float, b1_rate: float) -> None:
             row["launches"] += n
             row.setdefault("launches_by_path", {})[
                 f"apps {sub} (phase 12)"] = n
-    for d in apps["kernels"]:
+    add_paths(by_name, apps, mhz, b1_rate, "apps")
+
+
+def add_paths(by_name: dict, summary: dict, mhz: float, b1_rate: float,
+              phase: str) -> None:
+    """A phase's launch shapes (``kernels``, ``crc``, ``placement`` of its
+    ``summary``) on the rows of the kernels that served them: times, plain
+    versions' times, bounds and differences."""
+    for d in summary["kernels"]:
         row = by_name[d["name"]]
         row.setdefault("ms_by_path", {})[d["path"]] = round(d["ms"], 4)
         row.setdefault("plain_ms_by_path", {})[d["path"]] = round(
@@ -4217,7 +4273,7 @@ def apps_paths(rows: list, apps: dict, mhz: float, b1_rate: float) -> None:
             tuple(d["shape"]), mhz, b1_rate)
         row["max_abs_err"] = max(row["max_abs_err"], d["err"])
     row = by_name["crc32c_chunks"]
-    for c in apps["crc"]:
+    for c in summary["crc"]:
         nrows, l = c["shape"]
         row["ms_by_path"][c["path"]] = round(c["ms"], 4)
         row.setdefault("plain_ms_by_path", {})[c["path"]] = round(
@@ -4228,13 +4284,708 @@ def apps_paths(rows: list, apps: dict, mhz: float, b1_rate: float) -> None:
             "bound_ms": round(max(t_bytes, t_ops), 4),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     row = by_name["crush_map_rule"]
-    for p in apps["placement"]:
-        path = (f"apps epoch table: {p['pool']} x{p['numrep']}, "
+    for p in summary["placement"]:
+        path = (f"{phase} epoch table: {p['pool']} x{p['numrep']}, "
                 f"{p['lanes']} lanes")
         row["ms_by_path"][path] = round(p["ms"], 4)
         row["bound_by_path"][path] = placement_bound(
             p["lanes"], p["numrep"], mhz, (p["n_osds"], 1))
         row["max_abs_err"] = max(row["max_abs_err"], p["err"])
+
+
+def phase_fs(dev: torch.device, loop, beside) -> dict:
+    """13a: ``FsDrive`` at its defaults, every daemon on ``dev``: CephFS on
+    the RS k=8,m=3 data pool, MDS a and b, two mounts, the mgr; launch
+    counts by step, set to 0 at the boot.  The timed steps (the files, the
+    overwrites, the failover) run first; then ``beside()`` starts 13b's
+    boot, which runs beside the untimed-rate steps (``cephfs_cli``,
+    fs_mirror).  Checks: every read equals its oracle, no failed op, no
+    mark-down, K2, K4 and K5 launched, the kernels at the path's launch
+    shapes against their plain versions."""
+    from ceph_tpu_torch.tools.fs_drive import MIRROR_OSDS, FsDrive
+    from ceph_tpu_torch.tools.loop_sampler import mark_downs
+    card = card_label()
+    drive = FsDrive(device=dev)
+    out: dict = {}
+
+    async def run():
+        marks = StageMarks()
+        for stage, step in (("boot", drive.boot),
+                            ("small files", drive.small_files),
+                            ("large files", drive.big_write_read),
+                            ("4 KiB overwrites", drive.overwrite),
+                            ("caps", drive.caps),
+                            ("MDS failover", drive.failover),
+                            ("mgr", drive.mgr_check)):
+            await step()
+            marks.mark(stage)
+        beside()
+        for stage, step in (("cephfs_cli", drive.cli),
+                            ("fs_mirror", drive.mirror)):
+            await step()
+            marks.mark(stage)
+        out["mark_downs"] = mark_downs(drive.cluster)
+        out["site_mark_downs"] = [d for c in drive.sites
+                                  for d in mark_downs(c)]
+        return marks
+
+    t0 = time.perf_counter()
+    try:
+        marks = loop.run_until_complete(run())
+        secs = time.perf_counter() - t0
+        rep = drive.report
+        errors = []
+        if rep["mismatches"]:
+            errors.append(f"checks failed: {rep['mismatches']}")
+        if rep["failed_ops"]:
+            errors.append(f"{rep['failed_ops']} failed ops: "
+                          f"{rep['errors'][:5]}")
+        if out["mark_downs"] or out["site_mark_downs"]:
+            errors.append(f"mark-downs: {out['mark_downs']} "
+                          f"{out['site_mark_downs']}")
+        launches: dict[str, int] = {}
+        for counts in marks.stages.values():
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+        for name in ("gf2_matmul_mma", "crc32c_chunks", "crush_map_rule"):
+            if not launches.get(name):
+                errors.append(f"{name} never launched")
+        if errors:
+            raise RuntimeError(f"fs: {errors}")
+        codec = pool_codec(drive.cluster, drive.pool_id)
+        shapes = batcher_shapes(drive.cluster.osds)
+        kernels = [harness_kernel("13a", codec, key, n, dev, SEED + 141 + i,
+                                  "fs")
+                   for i, (key, n) in enumerate(top_launches(shapes))]
+        (enc_key, _), = [kn for kn in top_launches(shapes)
+                         if kn[0][0] == "encode"]
+        crcs = [apps_crc("13a encode", enc_key[1][0] * (drive.k + drive.m),
+                         dev, SEED + 150, phase="fs")]
+        omap = drive.cluster.mon.osdmap
+        placement = [pool_k5(drive.cluster, omap.pool_names[p], dev, "fs")
+                     for p in (drive.pool, "cephfs_metadata")]
+    finally:
+        loop.run_until_complete(drive.stop())
+    lat = lambda r: (f"p50 {r['p50_ms']:.3f} ms, p99 "  # noqa: E731
+                     f"{r['p99_ms']:.3f} ms")
+    gb = lambda key: f"{rep[key + '_GiBps']:.4f}"  # noqa: E731
+    c, o = rep["creates"], rep["overwrite_4k"]
+    log(f"[{card}] 13a CephFS on {drive.pool} ({drive.n_osds} OSDs, RS "
+        f"k={drive.k},m={drive.m} on cuda, pg_num {drive.pg_num}; "
+        f"cephfs_metadata x3 pg_num {drive.rep_pg_num}; MDS a and b, two "
+        f"mounts, the mgr with the balancer on; {drive.concurrency} in "
+        f"flight): boot {rep['boot_s']:.2f} s; {drive.n_files} small files "
+        f"in {drive.n_dirs} directories ({rep['small_bytes_total']} B, "
+        f"lognormal around {drive.small_bytes >> 10} KiB): {c['iops']:.1f}"
+        f" creates/s over {c['s']:.3f} s, {lat(c)}, read back "
+        f"{rep['small_read_s']:.3f} s (host clock)")
+    held = sum(v["s"] for k, v in rep["mds_spans"].items()
+               if k.startswith("hold_"))
+    log(f"[{card}] 13a the active MDS over the small files: its one "
+        f"mutation lock held {held:.3f} s of {c['s']:.3f} s; spans (n, s, "
+        f"mean ms) " + ", ".join(
+            f"{k} {v['n']} {v['s']:.3f} {v['s'] / v['n'] * 1e3:.1f}"
+            for k, v in rep["mds_spans"].items()) + " (host clock)")
+    log(f"[{card}] 13a {drive.big_files} files of {drive.big_bytes >> 20} "
+        f"MiB (4 MiB objects): write {gb('big_write')}, read "
+        f"{gb('big_read')} GiB/s; {drive.overwrites} random 4 KiB "
+        f"overwrites: {o['iops']:.1f} IOPS over {o['s']:.3f} s, {lat(o)}; "
+        f"read after {gb('overwrite_read')} GiB/s (host clock)")
+    log(f"[{card}] 13a caps: two mounts' appends coherent, rename, unlink "
+        f"purged {rep['purged_objects']} objects, {rep['caps_s']:.2f} s; "
+        f"MDS failover {rep['failover_from_to'][0]} -> "
+        f"{rep['failover_from_to'][1]} in {rep['failover_s']:.2f} s, then "
+        f"every file == its oracle at {gb('after_failover_read')} GiB/s "
+        f"and a new mutation; beside 13b's boot: cephfs_cli put/get/ls in "
+        f"processes of their own {rep['cli_s']:.2f} s, bytes == the "
+        f"oracle's; fs_mirror of {rep['mirror_files']} files to "
+        f"{MIRROR_OSDS} OSDs {rep['mirror_s']:.2f} s; mgr: "
+        f"{rep['mgr']['osds_up']} OSDs up and in in the "
+        f"scrape, epoch {rep['mgr']['epoch']}, op_w == the mgr's reports "
+        f"<= the OSDs' counters, balancer upmap items "
+        f"{rep['mgr']['balancer_upmap_items']} "
+        f"({rep['mgr']['balancer_log'][-1:]})")
+    log(f"[{card}] 13a launches by step {marks.stages}; seconds by step "
+        f"{ {k: round(v, 2) for k, v in marks.seconds.items()} }; the "
+        f"batchers' launches by (kind, shape, erasures) "
+        f"{dict(shapes.most_common(8))}; {secs:.1f} s")
+    return {"launches": launches, "stages": marks.stages,
+            "seconds_by_step": marks.seconds,
+            "kernels": [{**d, "sched": None} for d in kernels],
+            "crc": crcs, "placement": placement, "card": card,
+            "seconds": secs,
+            "report": {k: v for k, v in rep.items() if k != "errors"}}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Daemon:
+    """A daemon process of the port (``python -m ceph_tpu_torch.tools.X``)
+    whose standard output is read line by line: ``banner`` waits for a line
+    with a word in it; the lines after it are kept, the last few shown
+    when the daemon fails."""
+
+    def __init__(self, proc, name: str) -> None:
+        self.proc, self.name = proc, name
+        self.lines: collections.deque = collections.deque(maxlen=40)
+        self._drain = None
+
+    @classmethod
+    async def spawn(cls, name: str, tool: str, *argv: str) -> "Daemon":
+        from ceph_tpu_torch.tools.fs_drive import spawn_tool
+        return cls(await spawn_tool(tool, *argv, merge_errors=True), name)
+
+    async def banner(self, word: str, timeout: float = VSTART_TIMEOUT) -> str:
+        import asyncio
+
+        async def find():
+            while True:
+                line = (await self.proc.stdout.readline()).decode()
+                if not line:
+                    raise RuntimeError(
+                        f"vstart: {self.name} exited {await self.proc.wait()}"
+                        f": {''.join(self.lines)[-2000:]}")
+                self.lines.append(line)
+                if word in line:
+                    return line
+        line = await asyncio.wait_for(find(), timeout)
+        self._drain = asyncio.ensure_future(self._keep())
+        return line
+
+    async def _keep(self) -> None:
+        while line := await self.proc.stdout.readline():
+            self.lines.append(line.decode())
+
+    async def end(self, sig=None) -> int:
+        """Send ``sig`` (if given) once; the exit code."""
+        import asyncio
+        if sig is not None and self.proc.returncode is None:
+            self.proc.send_signal(sig)
+        rc = await asyncio.wait_for(self.proc.wait(), VSTART_TIMEOUT)
+        if self._drain is not None:
+            await self._drain
+        return rc
+
+
+def scrape_samples(text: str) -> dict:
+    """A prometheus exposition's samples: {name{labels}: value}."""
+    import re
+    return {k: float(v) for k, v in re.findall(r"^(\S+) (\S+)$", text, re.M)
+            if not k.startswith("#")}
+
+
+class VstartCluster:
+    """13b's daemons, as ``vstart`` starts them with one daemon a process: a
+    monitor and ``VSTART["n_osds"]`` OSDs on BlockStores (``--hosts`` one a
+    host), each process on ``dev``, and the exporter over their admin
+    sockets, in a new directory under the temporary directory.  ``boot``
+    runs on 13a's loop once 13a's timed steps are done, beside its
+    ``cephfs_cli`` and fs_mirror steps."""
+
+    def __init__(self, dev: torch.device) -> None:
+        import tempfile
+        self.tmp = tempfile.mkdtemp(prefix="vstart-")
+        self.store = os.path.join(self.tmp, "store")
+        self.asok = os.path.join(self.tmp, "asok")
+        self.port = free_port()
+        self.mon_addr = f"127.0.0.1:{self.port}"
+        self.devarg = ("--device", dev.type)
+        self.daemons: dict = {}
+        self.rep: dict = {}
+
+    async def start_osd(self, i: int) -> int:
+        """OSD index ``i``'s process, up: its id."""
+        d = await Daemon.spawn(
+            f"osd index {i}", "vstart", "--role", "osd", "--mon-addr",
+            self.mon_addr, "--osd-index", str(i), "--store", "block",
+            "--hosts", str(VSTART["n_osds"]), "--store-dir", self.store,
+            "--asok-dir", self.asok, *self.devarg)
+        self.daemons[i] = d
+        line = await d.banner("up (block store)")
+        return int(line.split()[0].split(".")[1])
+
+    async def boot(self) -> None:
+        import asyncio
+        t0 = time.perf_counter()
+        mon = await Daemon.spawn("mon", "vstart", "--role", "mon",
+                                 "--mon-port", str(self.port), "--store-dir",
+                                 self.store, "--asok-dir", self.asok,
+                                 *self.devarg)
+        self.daemons["mon"] = mon
+        await mon.banner("mon.0 at")
+        # the exporter reads the admin sockets at each scrape: started
+        # beside the OSDs, scraped after the writes
+        self.daemons["exporter"] = await Daemon.spawn(
+            "exporter", "exporter", "--asok-dir", self.asok, "--port", "0")
+        ids = await asyncio.gather(*(self.start_osd(i)
+                                     for i in range(VSTART["n_osds"])))
+        self.rep["exporter_url"] = (await self.daemons["exporter"].banner(
+            "exporter listening")).split()[-1]
+        self.rep["whoami_by_index"] = dict(enumerate(ids))
+        self.rep["boot_s"] = time.perf_counter() - t0
+
+    async def stop_all(self) -> dict:
+        """SIGTERM to every daemon still running, once: the exit codes."""
+        import asyncio
+        import signal
+        rcs = {}
+        for d in self.daemons.values():
+            if d.proc.returncode is None:
+                d.proc.send_signal(signal.SIGTERM)
+        for name, d in list(self.daemons.items()):
+            try:
+                rcs[name] = await d.end()
+            except asyncio.TimeoutError:
+                d.proc.kill()
+                rcs[name] = await d.proc.wait()
+        return rcs
+
+    def close(self) -> None:
+        import shutil
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_vstart(vc: VstartCluster, booting, loop) -> dict:
+    """13b, on ``vc``'s daemons once ``booting`` (``vc.boot()``, a task on
+    ``loop``) is done: the CLIs in processes of their own; this process's
+    client writes with a host oracle through an OSD process's SIGKILL and
+    restart.  Checks: every CLI exits 0 and what it reads equals what was
+    written, the exporter sees every OSD process up and ``ec_batch``
+    batches in every process that is primary of a PG that took a write,
+    every read equals its oracle, ``health`` reaches HEALTH_OK, only the
+    killed OSD marked down, every daemon exits 0 on SIGTERM, sampled
+    objects' shards on the BlockStores == the host encode.  The launches:
+    each daemon process's own counts (``kernel launches`` on its admin
+    socket) after the last step, the killed OSD's also just before its
+    SIGKILL, and this process's client's; K2, K4 and K5 must each have
+    launched in the daemons."""
+    import asyncio
+    import signal
+    from ceph_tpu_torch.client import Rados
+    from ceph_tpu_torch.common.admin_socket import admin_command
+    from ceph_tpu_torch.rgw.client import S3Client
+    from ceph_tpu_torch.tools.fs_drive import run_tool
+    v = VSTART
+    card = card_label()
+    tmp, store, port = vc.tmp, vc.store, vc.port
+    mon_addr, devarg = vc.mon_addr, vc.devarg
+    rep, daemons, start_osd = vc.rep, vc.daemons, vc.start_osd
+    dev = torch.device(devarg[1])
+    rng = np.random.default_rng(SEED + 160)
+
+    async def ceph(*words: str) -> str:
+        return await run_tool("ceph_cli", "-m", mon_addr, *devarg, *words)
+
+    async def launches_of(name: str) -> dict:
+        return await admin_command(os.path.join(vc.asok, f"{name}.asok"),
+                                   "kernel launches")
+
+    async def run() -> None:
+        await booting
+        before = launch_counts()
+        rados = await Rados(("127.0.0.1", port), name="client.phase",
+                            device=dev).connect()
+        try:
+            await vstart_client(rados,
+                                list(rep["whoami_by_index"].values()))
+        finally:
+            await rados.shutdown()
+        rep["client_launches"] = {k: n - before[k]
+                                  for k, n in launch_counts().items()}
+
+    async def vstart_client(rados, ids: list) -> None:
+        omap = lambda: rados.objecter.osdmap  # noqa: E731
+        await poll_until(lambda: sum(omap().is_up(o) for o in ids)
+                         == v["n_osds"], "every OSD up in the map")
+        t1 = time.perf_counter()
+        payload = rng.integers(0, 256, v["cli_bytes"], np.uint8).tobytes()
+        src, dst = os.path.join(tmp, "put.bin"), os.path.join(tmp, "got.bin")
+        with open(src, "wb") as f:
+            f.write(payload)
+
+        async def status() -> None:
+            rep["status"], rep["osd_tree"] = await asyncio.gather(
+                ceph("status"), ceph("osd", "tree"))
+            if f"{v['n_osds']} up" not in rep["status"] or \
+                    rep["osd_tree"].count(" up ") != v["n_osds"]:
+                raise RuntimeError(f"vstart: status / osd tree: "
+                                   f"{rep['status']}{rep['osd_tree']}")
+
+        async def ec83() -> None:
+            await ceph("osd", "erasure-code-profile", "set", "ec83",
+                       f"k={v['k']}", f"m={v['m']}", "plugin=cuda")
+            await ceph("osd", "pool", "create", "ec83", str(v["pg_num"]),
+                       "erasure", "ec83")
+            await asyncio.gather(rados_put_get(), rados_bench())
+
+        async def rados_put_get() -> None:
+            rargs = ("-m", mon_addr, *devarg)
+            await run_tool("rados_cli", *rargs, "put", "ec83", "cli-obj",
+                             src)
+            await run_tool("rados_cli", *rargs, "get", "ec83", "cli-obj",
+                             dst)
+            with open(dst, "rb") as f:
+                if f.read() != payload:
+                    raise RuntimeError("vstart: rados_cli get differs from "
+                                       "what rados_cli put wrote")
+
+        async def rados_bench() -> None:
+            rep["rados_bench"] = (await run_tool(
+                "rados_cli", "-m", mon_addr, *devarg, "bench", "ec83",
+                str(v["bench_s"]), "--obj-size", str(v["obj_bytes"]))).strip()
+
+        async def rbd() -> None:
+            await ceph("osd", "pool", "create", "rbd", str(v["pg_num"]),
+                       "replicated")
+            rargs = ("--mon", mon_addr, *devarg, "-p", "rbd")
+            await run_tool("rbd_cli", *rargs, "create", "img", "--size",
+                             v["rbd_size"])
+            rep["rbd_bench"] = (await run_tool(
+                "rbd_cli", *rargs, "bench", "img", "--io-size", "4K",
+                "--io-total", v["rbd_total"])).strip()
+
+        async def rgw() -> None:
+            gargs = ("--mon", mon_addr, *devarg)
+            user = json.loads(await run_tool(
+                "rgw_cli", *gargs, "user", "create", "--uid", "phase",
+                "--display-name", "Phase 13b"))
+            gport = free_port()
+            gw = await Daemon.spawn("rgw", "rgw_cli", *gargs, "serve",
+                                    "--port", str(gport))
+            daemons["rgw"] = gw
+            await gw.banner("rgw listening")
+            s3 = S3Client(("127.0.0.1", gport), user["access_key"],
+                          user["secret"])
+            body = rng.integers(0, 256, v["s3_bytes"], np.uint8).tobytes()
+            await s3.create_bucket("b")
+            t = time.perf_counter()
+            await s3.put_object("b", "k", body)
+            rep["s3_put_GiBps"] = len(body) / (time.perf_counter() - t) / GiB
+            t = time.perf_counter()
+            got = await s3.get_object("b", "k")
+            rep["s3_get_GiBps"] = len(body) / (time.perf_counter() - t) / GiB
+            if got != body:
+                raise RuntimeError("vstart: the S3 GET differs from the PUT")
+
+        # the chains of CLI processes that do not wait for each other, at
+        # once
+        await asyncio.gather(status(), ec83(), rbd(), rgw())
+        rep["clis_s"] = time.perf_counter() - t1
+
+        # the phase's own client: objects with a host oracle
+        io = await rados.open_ioctx("ec83")
+        src_objs: dict[str, bytes] = {}
+
+        async def write(names) -> float:
+            sem = asyncio.Semaphore(16)
+            items = {n: rng.integers(0, 256, v["obj_bytes"], np.uint8)
+                     .tobytes() for n in names}
+
+            async def one(n, d):
+                async with sem:
+                    await asyncio.wait_for(io.write_full(n, d),
+                                           VSTART_TIMEOUT)
+            t = time.perf_counter()
+            await asyncio.gather(*(one(n, d) for n, d in items.items()))
+            dt = time.perf_counter() - t
+            src_objs.update(items)
+            return len(items) * v["obj_bytes"] / dt / GiB
+
+        first = [f"obj-{i}" for i in range(v["objects"])]
+        rep["write_GiBps"] = await write(first)
+        # the exporter's scrape, before any daemon restarts
+        host, eport = rep.pop("exporter_url").split("//")[1].split(
+            "/")[0].split(":")
+        from ceph_tpu_torch.tools.apps_drive import http_request
+        status, _, body = await http_request((host, int(eport)), "GET",
+                                             "/metrics")
+        samples = scrape_samples(body.decode())
+        names = [f"osd.{i}" for i in range(v["n_osds"])]
+        up = [n for n in names
+              if samples.get(f'ceph_daemon_up{{ceph_daemon="{n}"}}') == 1]
+        pool_id = omap().pool_names["ec83"]
+        bench_n = int(rep["rados_bench"].split()[1])
+        written = first + ["cli-obj"] + [f"bench_{i}" for i in range(bench_n)]
+        primaries = sorted({omap().pg_primary(omap().pg_to_up_acting(
+            pool_id, omap().object_to_pg(pool_id, o)[1])[1])
+            for o in written})
+        index_of = {w: i for i, w in rep["whoami_by_index"].items()}
+        batches = {w: int(samples.get(
+            f'ceph_ec_batch_batches{{ceph_daemon="osd.{i}"}}', 0.0))
+            for i, w in rep["whoami_by_index"].items()}
+        rep["exporter"] = {"status": status, "up": len(up),
+                           "batches_by_osd": batches, "primaries": primaries}
+        idle = [p for p in primaries if not batches[p]]
+        if status != 200 or len(up) != v["n_osds"] or idle:
+            raise RuntimeError(f"vstart: the exporter's scrape: HTTP "
+                               f"{status}, {len(up)} of {v['n_osds']} up, "
+                               f"primaries without an ec_batch batch "
+                               f"{idle}")
+
+        # SIGKILL a shard holder of obj-0 that is not its primary
+        _, ps = omap().object_to_pg(pool_id, "obj-0")
+        _, acting = omap().pg_to_up_acting(pool_id, ps)
+        primary = omap().pg_primary(acting)
+        victim = next(o for o in acting if o != primary)
+        rep["victim"] = victim
+        vd = daemons[index_of[victim]]
+        by_process = {f"osd.{victim} until its SIGKILL":
+                      await launches_of(f"osd.{index_of[victim]}")}
+        t = time.perf_counter()
+        await vd.end(signal.SIGKILL)
+        await poll_until(lambda: not omap().is_up(victim),
+                         f"osd.{victim} marked down")
+        rep["mark_down_s"] = time.perf_counter() - t
+        rep["degraded_write_GiBps"] = await write(
+            [f"obj-{i}" for i in range(v["objects"],
+                                       v["objects"] + v["more"])])
+        t = time.perf_counter()
+        await start_osd(index_of[victim])
+        for _ in range(int(VSTART_TIMEOUT / 0.5)):
+            health = await rados.mon_command("health", {})
+            if health["status"] == "HEALTH_OK":
+                break
+            await asyncio.sleep(0.5)
+        else:
+            raise RuntimeError(f"vstart: health never reached HEALTH_OK: "
+                               f"{health}")
+        rep["recovery_s"] = time.perf_counter() - t
+        health_cli = asyncio.ensure_future(ceph("health"))
+        sem = asyncio.Semaphore(16)
+        bad = []
+
+        async def check(n):
+            async with sem:
+                if await asyncio.wait_for(io.read(n), VSTART_TIMEOUT) \
+                        != src_objs[n]:
+                    bad.append(n)
+        t = time.perf_counter()
+        await asyncio.gather(*(check(n) for n in src_objs))
+        rep["read_GiBps"] = len(src_objs) * v["obj_bytes"] / (
+            time.perf_counter() - t) / GiB
+        if bad:
+            raise RuntimeError(f"vstart: reads differ from the oracle: {bad}")
+        rep["health"] = (await health_cli).strip()
+        if "HEALTH_OK" not in rep["health"]:
+            raise RuntimeError(f"vstart: ceph_cli health: {rep['health']}")
+        log_tail = await rados.mon_command("log last", {"n": 10000})
+        rep["mark_downs"] = [e["message"] for e in log_tail
+                             if "marked down" in e.get("message", "")]
+        if len(rep["mark_downs"]) != 1 or \
+                not rep["mark_downs"][0].startswith(f"osd.{victim} "):
+            raise RuntimeError(f"vstart: mark-downs other than "
+                               f"osd.{victim}'s one: {rep['mark_downs']}")
+        # every daemon's launches, after the last step (the OSDs' admin
+        # sockets are named by index)
+        by_process["mon.0"] = await launches_of("mon.0")
+        for i, whoami in rep["whoami_by_index"].items():
+            by_process[f"osd.{whoami}"] = await launches_of(f"osd.{i}")
+        rep["launches_by_process"] = by_process
+        rep["oracle"] = {"pool_id": pool_id, "objects": src_objs,
+                         "pgs": {n: omap().pg_name(
+                             pool_id, omap().object_to_pg(pool_id, n)[1])
+                             for n in src_objs}}
+
+    async def poll_until(cond, what: str) -> None:
+        deadline = time.monotonic() + VSTART_TIMEOUT
+        while not cond():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"vstart: timed out waiting for {what}")
+            await asyncio.sleep(0.1)
+
+    t0 = time.perf_counter()
+    try:
+        loop.run_until_complete(run())
+    finally:
+        rcs = loop.run_until_complete(vc.stop_all())
+    if any(rc != 0 for rc in rcs.values()):
+        raise RuntimeError(f"vstart: daemons' exit codes on SIGTERM {rcs}")
+    checked = vstart_shards(rep, store)
+    secs = time.perf_counter() - t0
+    daemons_sum: dict[str, int] = {}
+    for counts in rep["launches_by_process"].values():
+        for name, n in counts.items():
+            daemons_sum[name] = daemons_sum.get(name, 0) + n
+    idle = [name for name in ("gf2_matmul_mma", "crc32c_chunks",
+                              "crush_map_rule") if not daemons_sum.get(name)]
+    if idle:
+        raise RuntimeError(f"vstart: never launched in the daemons' "
+                           f"processes: {idle}")
+    launches = {name: n + rep["client_launches"].get(name, 0)
+                for name, n in daemons_sum.items()}
+    log(f"[{card}] 13b vstart, one daemon a process: a monitor and "
+        f"{v['n_osds']} OSDs on BlockStores (--hosts {v['n_osds']}), each "
+        f"on {dev.type}, up in {rep['boot_s']:.2f} s (beside 13a's "
+        f"cephfs_cli and fs_mirror); then in "
+        f"{secs:.1f} s: ceph_cli (EC profile "
+        f"k={v['k']},m={v['m']} plugin=cuda, pool ec83 pg_num {v['pg_num']},"
+        f" status, osd tree, pool rbd), rados_cli put/get and bench "
+        f"({rep['rados_bench']}), rbd_cli create and bench "
+        f"({rep['rbd_bench']}), rgw_cli user create and serve (PUT "
+        f"{rep['s3_put_GiBps']:.4f}, GET {rep['s3_get_GiBps']:.4f} GiB/s of "
+        f"{v['s3_bytes'] >> 20} MiB over loopback HTTP) in "
+        f"{rep['clis_s']:.2f} s")
+    nonzero = lambda d: {k: n for k, n in d.items() if n}  # noqa: E731
+    log(f"[{card}] 13b exporter after the first {v['objects']} writes: "
+        f"{rep['exporter']['up']} OSD processes up; ec_batch batches by OSD "
+        f"{rep['exporter']['batches_by_osd']}; primaries that took a write "
+        f"{rep['exporter']['primaries']}")
+    log(f"[{card}] 13b kernel launches, each process's wrappers' counts "
+        f"read from its admin socket after the last step: "
+        f"{ {p: nonzero(c) for p, c in rep['launches_by_process'].items()} }"
+        f"; this process's client {nonzero(rep['client_launches'])}; in "
+        f"all {nonzero(launches)} (the CLIs' processes' are not read: "
+        f"they exit first)")
+    log(f"[{card}] 13b client: {v['objects']} objects of "
+        f"{v['obj_bytes'] >> 20} MiB written at {rep['write_GiBps']:.4f} "
+        f"GiB/s (phase 10, one process: 0.0246), osd.{rep['victim']}'s "
+        f"process SIGKILLed, marked down in {rep['mark_down_s']:.2f} s, "
+        f"{v['more']} more written at {rep['degraded_write_GiBps']:.4f} "
+        f"GiB/s, restarted on its BlockStore and HEALTH_OK in "
+        f"{rep['recovery_s']:.2f} s, all {v['objects'] + v['more']} read at "
+        f"{rep['read_GiBps']:.4f} GiB/s == the oracle (host clock); "
+        f"mark-downs {rep['mark_downs']}; every daemon exited 0 on SIGTERM;"
+        f" {checked} shards of {VSTART_ORACLE_SAMPLE} sampled objects on "
+        f"the BlockStores == the host encode, tags == the host engine")
+    rep.pop("oracle")
+    return {"launches": launches, "seconds": secs, "card": card,
+            "shards_checked": checked, "report": rep}
+
+
+def vstart_shards(rep: dict, store: str) -> int:
+    """``VSTART_ORACLE_SAMPLE`` of 13b's objects: their shards on every
+    OSD's BlockStore, opened here after the daemons exited, against the
+    port's host encode (the ``isa`` plugin, ``StripeInfo.encode``) and each
+    CRC tag against the host engine's.  Returns the shards checked."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.ec import registry
+    from ceph_tpu_torch.os.blockstore import BlockStore
+    from ceph_tpu_torch.osd.backend import CRC_XATTR, SHARD_XATTR
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    v, oracle = VSTART, rep["oracle"]
+    isa = registry().factory("isa", {"k": str(v["k"]), "m": str(v["m"]),
+                                     "technique": "reed_sol_van"})
+    sinfo = StripeInfo.for_codec(isa, stripe_unit=CLUSTER_STRIPE_UNIT)
+    rng = np.random.default_rng(SEED + 161)
+    sample = sorted(rng.choice(sorted(oracle["objects"]),
+                               VSTART_ORACLE_SAMPLE, replace=False))
+    stores = []
+    for i in range(v["n_osds"]):
+        bs = BlockStore(os.path.join(store, f"osd{i}"))
+        bs.mount()
+        stores.append((rep["whoami_by_index"][i], bs))
+    checked = 0
+    try:
+        for oid in sample:
+            coll = f"pg_{oracle['pgs'][oid]}"
+            data = oracle["objects"][oid]
+            pad = sinfo.logical_to_next_stripe_offset(len(data)) - len(data)
+            want = sinfo.encode(isa, data + b"\0" * pad)
+            labels = []
+            for whoami, bs in stores:
+                if not bs.exists(coll, oid):
+                    continue
+                label = int(bs.getattr(coll, oid, SHARD_XATTR))
+                raw = bytes(bs.read(coll, oid, 0, None))
+                tag = bs.getattr(coll, oid, CRC_XATTR)
+                if raw != want[label].tobytes() or \
+                        int(tag) != native.crc32c(raw):
+                    raise RuntimeError(
+                        f"vstart: osd.{whoami}'s shard {label} of {oid} "
+                        f"differs from the host encode, or its tag from "
+                        f"the host engine's")
+                labels.append(label)
+                checked += 1
+            if sorted(labels) != list(range(v["k"] + v["m"])):
+                raise RuntimeError(f"vstart: {oid} has shards "
+                                   f"{sorted(labels)} on the BlockStores")
+    finally:
+        for _, bs in stores:
+            bs.umount()
+    return checked
+
+
+def phase_subprocess(flag: str, tag: str, number: int) -> dict:
+    """Phase ``number`` in a process of its own (``chip_smoke.py FLAG``), as
+    a user starts it: a fresh interpreter and heap.  The kernels are
+    already built.  Its log lines are passed through; its last line is its
+    summary as JSON (after ``tag``).  The process is stopped on any way
+    out."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag],
+        stdout=subprocess.PIPE, text=True, cwd=os.path.dirname(
+            os.path.abspath(__file__)))
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(tag):
+                result = json.loads(line[len(tag):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or result is None:
+        raise RuntimeError(f"phase {number}'s process exited {rc}")
+    return result
+
+
+def fs_main() -> int:
+    """``--fs``: phase 13 alone on the card, its summary last."""
+    import asyncio
+    from ceph_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke --fs: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
+    _build.build(_build.all_sources())       # built by phase 1: found
+    dev = torch.device("cuda", 0)
+    loop = asyncio.new_event_loop()
+    vc = VstartCluster(dev)
+    booting = []                             # 13b's boot, once begun
+
+    def begin() -> None:
+        booting.append(loop.create_task(vc.boot()))
+    try:
+        with xor_sched_env(None):            # the clusters keep their routing
+            fs = phase_fs(dev, loop, begin)
+            vstart = phase_vstart(vc, booting[0], loop)
+    finally:
+        for task in booting:
+            if not task.done():
+                task.cancel()
+        loop.run_until_complete(asyncio.gather(*booting, vc.stop_all(),
+                                               return_exceptions=True))
+        vc.close()
+        loop.close()
+    print(FS_TAG + json.dumps({"fs": fs, "vstart": vstart}, default=str),
+          flush=True)
+    return 0
+
+
+def fs_paths(rows: list, fs: dict, mhz: float, b1_rate: float) -> None:
+    """Phase 13's launches on each kernel's row by sub-phase (the totals
+    included; 13b's are the daemon processes' own counts, read from their
+    admin sockets, and its client's), and 13a's launch shapes' times and
+    bounds beside the
+    kernel that served them: the dense kernel, K4 at the fused CRC rows, K5
+    at both pools' tables."""
+    by_name = {row["name"]: row for row in rows}
+    for sub, counts in (("13a", fs["fs"]["launches"]),
+                        ("13b", fs["vstart"]["launches"])):
+        for name, row in by_name.items():
+            n = counts.get(name, 0)
+            row["launches"] += n
+            row.setdefault("launches_by_path", {})[
+                f"fs {sub} (phase 13)"] = n
+    add_paths(by_name, fs["fs"], mhz, b1_rate, "fs")
 
 
 def sm_clock_mhz_under(fn, launches: int = 1500) -> tuple[float, str]:
@@ -4348,7 +5099,8 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
                       osd: dict, repair: dict, rates: dict,
                       built: dict, placement: dict, table: dict,
                       datapath: dict, k6: dict, sharded: dict,
-                      cluster: dict, harness: dict, apps: dict) -> dict:
+                      cluster: dict, harness: dict, apps: dict,
+                      fs: dict) -> dict:
     """Each kernel at its headline shape: time, bound, plain time, error;
     K1, K2, K3, K5 and K6 also with their other paths' times and bounds, K1,
     K2, K4, K5 and K6 with their launch configuration, K3 its design per
@@ -4602,6 +5354,7 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     cluster_paths(rows, cluster, mhz, b1_rate)
     harness_paths(rows, harness, mhz, b1_rate)
     apps_paths(rows, apps, mhz, b1_rate)
+    fs_paths(rows, fs, mhz, b1_rate)
     r1 = f"rule 1 indep x11, {PLACEMENT[1]} lanes"
     log(f"K5 crush_map_rule at config 5, a {PLACEMENT[1]}-lane launch: rule 0 "
         f"x3 {k5['ms']:.4f} ms vs bound {k5['bound_ms']:.4f} ms, rule 1 x11 "
@@ -4623,7 +5376,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    built = phase_build()
+    built, cse_s = phase_build()
     small_err = phase_kernels(dev)
     rates = phase_mma_rate(dev)
     k3_small_err = phase_k3_small(dev, built)
@@ -4662,13 +5415,20 @@ def main() -> int:
     log(f"phase 11, the traffic and failure harness: "
         f"{time.perf_counter() - t11:.1f} s")
     t12 = time.perf_counter()
-    apps = phase_apps_process()
+    apps = phase_subprocess(APPS_FLAG, APPS_TAG, 12)
     log(f"phase 12, the client applications: "
         f"{time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    fs = phase_subprocess(FS_FLAG, FS_TAG, 13)
+    log(f"phase 13, CephFS, the mgr, vstart and the CLIs: "
+        f"{time.perf_counter() - t13:.1f} s (13a {fs['fs']['seconds']:.1f} "
+        f"s, 13b {fs['vstart']['seconds']:.1f} s; phase 1's host CSE "
+        f"{cse_s:.1f} s)")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
                              repair, rates, built, placement, table,
-                             datapath, k6, sharded, cluster, harness, apps)
+                             datapath, k6, sharded, cluster, harness, apps,
+                             fs)
     log(json.dumps(line))
     peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
     log(f"peak device memory {peak / GiB:.2f} "
@@ -4684,4 +5444,6 @@ if __name__ == "__main__":
         sys.exit(harness_main(sys.argv[2] if len(sys.argv) == 3 else None))
     if sys.argv[1:] == [APPS_FLAG]:
         sys.exit(apps_main())
+    if sys.argv[1:] == [FS_FLAG]:
+        sys.exit(fs_main())
     sys.exit(main())

@@ -72,3 +72,30 @@ def test_the_client_applications_have_their_port():
     assert not missing, missing
     import ceph_tpu_torch.client as port_client
     assert {"Layout", "RadosStriper"} <= set(port_client.__all__)
+
+
+DEPLOYMENT = ("mgr/__init__.py", "mgr/mgr.py", "mgr/prometheus.py",
+              "mds/__init__.py", "mds/client.py", "mds/fs_mirror.py",
+              "mds/journal.py", "mds/server.py", "tools/__init__.py",
+              "tools/vstart.py", "tools/ceph_cli.py", "tools/rados_cli.py",
+              "tools/cephfs_cli.py", "tools/cephfs_mirror.py",
+              "tools/exporter.py", "tools/rbd_cli.py", "tools/rgw_cli.py",
+              "tools/rbd_mirror.py")
+
+
+def test_the_deployment_layer_has_its_port():
+    """Each module of ceph_tpu's deployment layer (the mgr, the MDS and
+    CephFS, vstart and the CLIs) has its counterpart in the port, whose
+    imports the checks above cover, beside the port's own CephFS drive;
+    the packages export what the reference's do."""
+    missing = [rel for rel in DEPLOYMENT if not (PORT / rel).is_file()
+               or not (ROOT / "ceph_tpu" / rel).is_file()]
+    assert not missing, missing
+    assert (PORT / "tools" / "fs_drive.py").is_file()
+    import ceph_tpu_torch.mds as port_mds
+    import ceph_tpu_torch.mgr as port_mgr
+    from ceph_tpu_torch.tools import parse_addr
+    assert set(port_mds.__all__) == {"MDS", "CephFS", "FsError"}
+    assert {"Mgr", "MgrModule"} <= set(dir(port_mgr))
+    assert parse_addr("10.0.0.1:6790") == ("10.0.0.1", 6790)
+    assert parse_addr("") == ("127.0.0.1", 6789)

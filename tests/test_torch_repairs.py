@@ -1,4 +1,4 @@
-"""Eight faults the port repairs where ``ceph_tpu`` keeps them (deliberate
+"""Nine faults the port repairs where ``ceph_tpu`` keeps them (deliberate
 differences from the reference):
 
 1. the OSD's blocklist fence names the client instance by its connection
@@ -33,6 +33,13 @@ And one the client applications' drive found:
 8. an RBD image's object map serializes its updates: writes in flight
    together (the image's 16-deep I/O) no longer lose an object's EXISTS
    mark to two racing first loads or two interleaved map saves.
+
+And one CephFS's drive found on the card:
+
+9. the MDS re-journals its write-cap custody (after every journal trim,
+   and at activation) from a copy: a cap granted or released while an
+   append awaits no longer kills the mutation that trimmed (its reply
+   lost, the client resending) with "Set changed size during iteration".
 
 The map-change stall (the shared table, one upload of the weights, one
 copy back a build) has its own file, ``test_torch_map_change.py``.
@@ -399,3 +406,40 @@ def test_object_map_marks_every_object_written_in_flight_together():
                 await o.stop()
             await mon.stop()
     run(scenario())
+
+
+@pytest.mark.parametrize("when", ["trim", "activation"])
+def test_write_caps_granted_while_the_mds_rejournals_them(when):
+    """A write cap granted, and another released, while the MDS journals
+    its custody: the trimming mutation (or the activation) completes, the
+    released cap is not journaled again, and the grant journals itself."""
+    from ceph_tpu_torch.mds import server
+
+    mds = server.MDS(name="a", device="cpu")
+    journaled = []
+
+    class Journal:
+        async def append(self, ev):
+            journaled.append(ev)
+            if len(journaled) == 2:       # while the re-journal awaits
+                mds._apply_wcap("cap_grant_w", "client.x", 7, "x:1")
+                mds._apply_wcap("cap_release_w", "client.x", 3, "x:1")
+            await asyncio.sleep(0)
+
+        async def trim(self):
+            pass
+
+    async def applied(ev, replay=False):
+        pass
+
+    mds.journal = Journal()
+    mds._apply_event = applied
+    mds._wcap_log = {"client.x": {"iid": "x:1", "inos": {1, 2, 3}}}
+    if when == "trim":
+        mds._events_since_trim = server.TRIM_EVERY - 1
+        run(mds._journal_and_apply({"op": "noop"}))
+        journaled.pop(0)                  # the event itself
+    else:
+        run(mds._rejournal_wcaps())
+    assert [ev["ino"] for ev in journaled] == [1, 2]
+    assert mds._wcap_log["client.x"]["inos"] == {1, 2, 7}
