@@ -15,6 +15,7 @@ CPU, resolved at construction).
 from __future__ import annotations
 
 import asyncio
+import collections
 import itertools
 
 from ..device import resolve_device
@@ -23,6 +24,17 @@ from ..msg import Message, Messenger
 from ..osd.backend import pack_mutations
 
 RETRYABLE = {"ENOTPRIMARY", "EAGAIN", "ENXIO no such pg"}
+
+# process-wide resend counters, by cause: ``retryable`` (a RETRYABLE
+# error reply), ``conn_error`` (the send raised), ``conn_reset`` (the
+# connection the attempt went out on was reset or replaced while it
+# waited) and ``map_change`` (a newer map moved the op's target while it
+# waited).  An attempt that merely waits long is never resent, so no cause
+# counts a timer
+RESENDS: collections.Counter = collections.Counter()
+RESEND_CAUSES = ("retryable", "conn_error", "conn_reset", "map_change")
+# seconds between a waiting op's checks of its target and connection
+RECHECK_INTERVAL = 5.0
 
 
 class ObjecterError(Exception):
@@ -43,6 +55,9 @@ class Objecter:
         self._cmd_waiters: dict[int, asyncio.Future] = {}
         self._refresh_tasks: set[asyncio.Task] = set()
         self._watches: dict[tuple, object] = {}
+        # the attempts of ops abandoned by their caller (cancelled, as a
+        # client's op deadline does), newest last: what a wedged op tried
+        self.abandoned: collections.deque = collections.deque(maxlen=64)
         self.msgr.add_dispatcher(self._dispatch)
 
     # -- lifecycle ----------------------------------------------------------
@@ -243,9 +258,9 @@ class Objecter:
             if fut is not None and not fut.done():
                 fut.set_result(msg.data)
 
-    async def _guarded_refresh(self) -> None:
+    async def _guarded_refresh(self, force: bool = True) -> None:
         try:
-            await self._refresh_map(timeout=5)
+            await self._refresh_map(timeout=5, force=force)
             if self._watches:
                 await self._rewatch_all()
         except (asyncio.TimeoutError, ConnectionError, OSError):
@@ -273,7 +288,6 @@ class Objecter:
     # -- op submission ------------------------------------------------------
     async def op_submit(self, pool_id: int, oid: str, ops: list[dict],
                         nspace: str = "", timeout: float = 30,
-                        attempt_timeout: float = 5,
                         ps: int | None = None,
                         extra: dict | None = None) -> Message:
         """Run ops on the object's primary, retrying through map churn."""
@@ -290,52 +304,118 @@ class Objecter:
             "client.osd_op", oid=oid, pool=pool_id)
         try:
             return await self._op_attempts(
-                span, pool_id, oid, ops, nspace, deadline, timeout,
-                attempt_timeout, ps, extra, reqid, loop)
+                span, pool_id, oid, ops, nspace, deadline, timeout, ps,
+                extra, reqid, loop)
         finally:
             span.finish()
 
     async def _op_attempts(self, span, pool_id, oid, ops, nspace,
-                           deadline, timeout, attempt_timeout, ps,
-                           extra, reqid, loop):
+                           deadline, timeout, ps, extra, reqid, loop):
+        """Send the op to its primary and wait, resending only when the
+        attempt cannot be answered (Objecter.cc's resend rules): a
+        RETRYABLE reply, a failed send or a reset connection, or a newer
+        map that moves the op's target.  An attempt that merely waits is
+        not resent: the op keeps one tid and one waiter for its whole
+        life, so any attempt's reply completes it, and every
+        ``RECHECK_INTERVAL`` seconds the wait re-checks the target and the
+        connection (and asks for a newer map) instead."""
         last_err = None
-        while loop.time() < deadline:
-            pgid, primary = self.calc_target(pool_id, oid, nspace, ps=ps)
-            if primary is None:
-                await self._pause_and_refresh()
-                continue
-            info = self.osdmap.osds.get(primary)
-            if info is None or info.addr is None:
-                await self._pause_and_refresh()
-                continue
-            tid = next(self._tid)
-            fut = loop.create_future()
-            self._waiters[tid] = fut
-            meta, segs = pack_mutations(ops)
-            try:
-                await self.msgr.send(
-                    tuple(info.addr), f"osd.{primary}",
-                    Message("osd_op", {"pgid": pgid, "oid": oid,
-                                       "ops": meta, "tid": tid,
-                                       "reqid": reqid,
-                                       "trace": span.ctx(),
-                                       **(extra or {})},
-                            segments=segs))
-                reply = await asyncio.wait_for(
-                    fut, min(attempt_timeout, deadline - loop.time()))
-            except (ConnectionError, OSError, asyncio.TimeoutError) as e:
-                self._waiters.pop(tid, None)
-                last_err = e
-                await self._pause_and_refresh()
-                continue
-            err = reply.data.get("err")
-            if err in RETRYABLE:
-                last_err = ObjecterError(err)
-                await self._pause_and_refresh()
-                continue
-            return reply
+        attempts: list[dict] = []
+        tid = next(self._tid)
+        fut = None
+        try:
+            while loop.time() < deadline:
+                pgid, primary = self.calc_target(pool_id, oid, nspace,
+                                                 ps=ps)
+                if primary is None:
+                    await self._pause_and_refresh()
+                    continue
+                info = self.osdmap.osds.get(primary)
+                if info is None or info.addr is None:
+                    await self._pause_and_refresh()
+                    continue
+                attempts.append({"pgid": pgid, "primary": primary,
+                                 "epoch": self.osdmap.epoch,
+                                 "t": round(loop.time(), 3)})
+                if fut is None or fut.done():
+                    fut = loop.create_future()
+                    self._waiters[tid] = fut
+                meta, segs = pack_mutations(ops)
+                addr, peer = tuple(info.addr), f"osd.{primary}"
+                try:
+                    conn = await self.msgr.connect(addr, peer)
+                    gen = conn.generation
+                    await conn.send(
+                        Message("osd_op", {"pgid": pgid, "oid": oid,
+                                           "ops": meta, "tid": tid,
+                                           "reqid": reqid,
+                                           "trace": span.ctx(),
+                                           **(extra or {})},
+                                segments=segs))
+                except (ConnectionError, OSError) as e:
+                    last_err = e
+                    RESENDS["conn_error"] += 1
+                    attempts[-1]["end"] = "conn_error"
+                    await self._pause_and_refresh()
+                    continue
+                cause = await self._await_reply(
+                    fut, conn, gen, (pgid, primary, addr), pool_id, oid,
+                    nspace, ps, deadline, loop)
+                if cause is not None:
+                    last_err = ObjecterError(cause)
+                    attempts[-1]["end"] = cause
+                    if cause != "deadline":
+                        RESENDS[cause] += 1
+                    continue
+                reply = fut.result()
+                err = reply.data.get("err")
+                if err in RETRYABLE:
+                    last_err = ObjecterError(err)
+                    RESENDS["retryable"] += 1
+                    attempts[-1]["end"] = err
+                    await self._pause_and_refresh()
+                    continue
+                return reply
+        except asyncio.CancelledError:
+            self.abandoned.append({"pool": pool_id, "oid": oid,
+                                   "reqid": list(reqid), "tid": tid,
+                                   "attempts": attempts})
+            raise
+        finally:
+            self._waiters.pop(tid, None)
         raise ObjecterError(
             f"op on {oid} timed out after {timeout}s: {last_err!r}")
+
+    async def _await_reply(self, fut, conn, gen, target, pool_id, oid,
+                           nspace, ps, deadline, loop) -> str | None:
+        """Wait for ``fut``: None once it holds a reply, else why the op
+        must be sent again (``conn_reset``, ``map_change``) or
+        ``deadline``.  While the target stands and its connection lives,
+        the wait goes on across checks."""
+        while True:
+            left = deadline - loop.time()
+            if left <= 0:
+                return "deadline"
+            await asyncio.wait({fut}, timeout=min(RECHECK_INTERVAL, left))
+            if fut.done():
+                return None
+            if conn.closed or conn.generation != gen \
+                    or self.msgr.conns.get(conn.peer_name) is not conn:
+                return "conn_reset"
+            pgid, primary = self.calc_target(pool_id, oid, nspace, ps=ps)
+            info = self.osdmap.osds.get(primary) \
+                if primary is not None else None
+            addr = tuple(info.addr) if info and info.addr else None
+            if (pgid, primary, addr) != target:
+                return "map_change"
+            self._refresh_soon()
+
+    def _refresh_soon(self) -> None:
+        """A rate-limited map fetch in the background: an op that waits
+        learns of a map it missed without leaving its wait."""
+        t = asyncio.ensure_future(self._guarded_refresh(force=False))
+        self._refresh_tasks.add(t)
+        t.add_done_callback(self._refresh_tasks.discard)
 
     async def _pause_and_refresh(self) -> None:
         await asyncio.sleep(0.25)

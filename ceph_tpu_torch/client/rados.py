@@ -146,8 +146,7 @@ class IoCtx:
             extra = {**(extra or {}), "snapc": snapc}
         kwargs = {}
         if timeout is not None:
-            kwargs = {"timeout": timeout + 5,
-                      "attempt_timeout": timeout + 3}
+            kwargs = {"timeout": timeout + 5}
         try:
             reply = await self.objecter.op_submit(self.pool_id, oid, ops,
                                                   nspace=self.nspace,

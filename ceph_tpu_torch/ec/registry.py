@@ -6,7 +6,8 @@ profile-echo check is kept.  The device a codec runs on travels beside
 the profile (``factory(name, profile, device=...)``), never inside it: a
 profile is what the OSDMap carries to every daemon and client.  The
 plugins that run on a device (``cuda``, ``lrc``, ``pmsr``) take it; the
-host plugin ``isa`` ignores it.
+host plugins (``isa``, ``jerasure``, ``shec``, ``clay``, ``example``)
+ignore it.
 """
 
 from __future__ import annotations

@@ -95,10 +95,15 @@ class RSMatrixCodec(ErasureCode):
         signature = self.decode_signature(erasures)
         entry = self.tcache.get(signature)
         if entry is None:
-            entry = build_decode_matrix(self.encode_matrix, self.k,
-                                        list(erasures))
+            entry = self._build_decode_matrix(list(erasures))
             self.tcache.put(signature, *entry)
         return entry
+
+    def _build_decode_matrix(self, erasures: list[int]):
+        """Decode-matrix construction hook: wider-field codecs (the
+        jerasure w=16/32 word techniques) override the field while the
+        driver above stays shared."""
+        return build_decode_matrix(self.encode_matrix, self.k, erasures)
 
     def decode_chunks(
         self, want_to_read: set[int], chunks: Mapping[int, np.ndarray],

@@ -19,6 +19,7 @@ from .gf8 import (  # noqa: F401
 from .matrices import (  # noqa: F401
     gen_rs_matrix,
     gen_cauchy1_matrix,
+    gen_jerasure_rs_vandermonde,
     build_decode_matrix,
     decode_index_for,
     erasure_signature,

@@ -77,14 +77,15 @@ def _numeric(d: dict) -> dict:
 async def run_workload(spec: WorkloadSpec, *,
                        conf: ConfigProxy | None = None,
                        log=_noop_log, device=None,
-                       on_stage=None) -> dict:
+                       on_stage=None, on_wedged=None) -> dict:
     """Boot, load, steady, (kill, degraded, revive, backfill); the
     report.  ``on_stage``, when given, is awaited as ``on_stage(stage,
     cluster, report)`` on the live cluster at the end of each stage, with
     the report so far: ``"boot"``, ``"load"``, ``"steady"``, then
     ``"degraded"`` (the kill and the wait for its mark-down included) and
     ``"backfill"``; last as ``"report"`` once the report is complete and
-    before the cluster stops."""
+    before the cluster stops.  ``on_wedged``, when given, is called as
+    ``on_wedged(op, ioctx)`` when a client op passes its deadline."""
     spec.validate()
     conf = conf or ConfigProxy()
     t_start = time.perf_counter()
@@ -106,6 +107,7 @@ async def run_workload(spec: WorkloadSpec, *,
         await stage("boot")
 
         swarm = ClientSwarm(spec, cluster.addr, conf=conf, device=device)
+        swarm.on_wedged = on_wedged
         await swarm.start()
         workload_before = WORKLOAD_PERF.dump()
         integrity_before = INTEGRITY_PERF.dump()

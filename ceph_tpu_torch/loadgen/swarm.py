@@ -89,6 +89,8 @@ class ClientSwarm:
         self.handles: list[Rados] = []
         self.ioctxs: list[IoCtx] = []
         self.op_timeout = float(self.conf.get("loadgen_op_timeout"))
+        # called as on_wedged(op, io) when an op passes the deadline
+        self.on_wedged = None
 
     # -- lifecycle ----------------------------------------------------------
     async def start(self) -> None:
@@ -137,6 +139,8 @@ class ClientSwarm:
                 res.bytes_written += op.size
                 PERF.inc("bytes_written", op.size)
         except asyncio.TimeoutError:
+            if self.on_wedged is not None:
+                self.on_wedged(op, io)
             res.wedged += 1
             res.errors.append({"op": op.kind, "oid": op.oid,
                                "err": "WEDGED"})

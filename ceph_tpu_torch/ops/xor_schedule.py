@@ -6,11 +6,12 @@ subexpression elimination over those equations plus a good evaluation order
 cuts the XOR count severalfold for the sparse matrices of the recovery codes
 (LRC local parities, PMSR repair matrices).
 
-The host half is a copy of ``ceph_tpu/ops/xor_schedule.py`` and must stay
-one: ``compile_schedule`` gives the identical op stream for the same matrix
-bytes (greedy pairwise CSE, then just-in-time topological lowering into SSA
-XOR ops with a proven register bound), schedules are cached process-wide by
-matrix digest, and ``apply_host`` runs one on numpy rows.
+The host half is ``ceph_tpu/ops/xor_schedule.py``'s and must give what it
+gives: ``compile_schedule`` yields the identical op stream for the same
+matrix bytes (greedy pairwise CSE, its picks taken from a heap here, then
+just-in-time topological lowering into SSA XOR ops with a proven register
+bound), schedules are cached process-wide by matrix digest, and
+``apply_host`` runs one on numpy rows.
 
 The device half:
 
@@ -35,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import heapq
 import os
 import threading
 from collections import Counter
@@ -159,6 +161,11 @@ def _greedy_cse(rows: list[set[int]], n_in: int,
     pair is shared by two equations (or the temp budget is spent).
     Deterministic: ties break to the smallest (a, b) pair.  Returns the
     temp definitions; ``rows`` is rewritten in place to reference them.
+
+    The reference scans every pair count for each pick; here a heap
+    keyed (-count, pair) holds an entry for each pair's current count
+    (entries whose count has since moved are dropped as they surface),
+    which picks the same pair at every step.
     """
     counts: Counter[tuple[int, int]] = Counter()
     for row in rows:
@@ -166,13 +173,19 @@ def _greedy_cse(rows: list[set[int]], n_in: int,
         for i, a in enumerate(ordered):
             for b in ordered[i + 1:]:
                 counts[(a, b)] += 1
+    heap = [(-n, pair) for pair, n in counts.items()]
+    heapq.heapify(heap)
     temps: list[tuple[int, int]] = []
-    while len(temps) < max_temps and counts:
-        (a, b), n = min(counts.items(), key=lambda kv: (-kv[1], kv[0]))
+    while len(temps) < max_temps and heap:
+        neg, (a, b) = heapq.heappop(heap)
+        n = counts.get((a, b), 0)
+        if n != -neg:
+            continue                    # a stale count: a newer entry holds it
         if n < 2:
             break
         t = n_in + len(temps)
         temps.append((a, b))
+        touched: set[tuple[int, int]] = set()
         for row in rows:
             if a in row and b in row:
                 # incremental pair-count maintenance: pairs that lose a
@@ -187,10 +200,28 @@ def _greedy_cse(rows: list[set[int]], n_in: int,
                     counts[pair] -= 1
                     if not counts[pair]:
                         del counts[pair]
+                touched.update(dropped)
                 for x in row:
-                    counts[(x, t) if x < t else (t, x)] += 1
+                    pair = (x, t) if x < t else (t, x)
+                    counts[pair] += 1
+                    touched.add(pair)
                 row.add(t)
+        for pair in touched:
+            if pair in counts:
+                heapq.heappush(heap, (-counts[pair], pair))
     return temps
+
+
+def _substitute(rows: list[set[int]], n_in: int,
+                temps: list[tuple[int, int]]) -> None:
+    """Rewrite ``rows`` in place as ``_greedy_cse`` does when it defines
+    ``temps`` in order: the rows of a run whose budget stopped it there."""
+    for i, (a, b) in enumerate(temps):
+        for row in rows:
+            if a in row and b in row:
+                row.discard(a)
+                row.discard(b)
+                row.add(n_in + i)
 
 
 def _lower(n_in: int, temps: list[tuple[int, int]],
@@ -264,9 +295,16 @@ def compile_schedule(matrix: np.ndarray, *,
     digest = matrix_digest(m)
     naive = naive_xor_terms(m)
     budget = max_temps if max_temps is not None else m.size
+    # a pick never depends on the budget, so a smaller budget's run is the
+    # first picks of the largest: run the greedy once, then replay a prefix
+    first = [set(np.flatnonzero(r).tolist()) for r in m]
+    rows = [set(r) for r in first]
+    picks = _greedy_cse(rows, n_in, budget)
     while True:
-        rows = [set(np.flatnonzero(r).tolist()) for r in m]
-        temps = _greedy_cse(rows, n_in, budget)
+        temps = picks[:budget]
+        if len(temps) < len(picks):
+            rows = [set(r) for r in first]
+            _substitute(rows, n_in, temps)
         ops, outputs = _lower(n_in, temps, rows)
         peak = _peak_registers(n_in, ops, outputs)
         if peak <= max_registers or budget == 0:
@@ -373,6 +411,32 @@ def apply_host(sched: XorSchedule, planes: np.ndarray) -> np.ndarray:
         for x in (a, b):
             if x >= n_in and last[x - n_in] == i:
                 vals.pop(x - n_in, None)
+    return out
+
+
+def scheduled_xor_matmul(matrix: np.ndarray, planes: np.ndarray, *,
+                         allow_compile: bool = True) -> np.ndarray:
+    """Drop-in ``gf.gf2w.xor_matmul`` with the scheduled engine: uses
+    the cached (or, when allowed and profitable, freshly compiled)
+    schedule, else the naive row-by-row XOR.  The BitMatrixCodec
+    encode path compiles (the matrix is hot for the codec's lifetime);
+    the repair path passes ``allow_compile=False`` and rides a
+    schedule only when one is already cached (warmed at decode-matrix
+    build time)."""
+    env = os.environ.get("CEPH_TPU_XOR_SCHED")
+    sched = cached_schedule(matrix)
+    if sched is None and allow_compile \
+            and matrix.size <= MAX_COMPILE_CELLS \
+            and env != "0":
+        sched = schedule_for(matrix)
+    if sched is None or env == "0" \
+            or sched.n_terms >= sched.naive_terms \
+            or (env != "1" and planes.shape[1] < HOST_MIN_LANE):
+        from ..gf.gf2w import xor_matmul
+        return xor_matmul(np.ascontiguousarray(matrix, np.uint8),
+                          planes)
+    out = apply_host(sched, planes)
+    STATS.note_launch(sched)
     return out
 
 

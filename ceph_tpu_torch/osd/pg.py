@@ -11,6 +11,7 @@ PrimaryLogPG.cc:13446,13719).
 from __future__ import annotations
 
 import asyncio
+import collections
 import json
 
 from ..msg import Message
@@ -25,6 +26,11 @@ from .types import (
     DELETE, EVersion, LogEntry, MissingSet, MODIFY, PGInfo, PastIntervals,
     ZERO,
 )
+
+# process-wide counts of client ops whose reqid the PG had seen:
+# ``completed`` (a write already applied, acknowledged again) and
+# ``inflight`` (a copy of an op still queued or running on the PG)
+DUP_REQIDS: collections.Counter = collections.Counter()
 
 LOG_CAP = 512           # entries kept in the in-memory/persisted log
 SCAN_BATCH = 128        # objects per pg_scan page / backfill batch
@@ -111,6 +117,9 @@ class PG:
         self._recovery_task: asyncio.Task | None = None
         self._peering_task: asyncio.Task | None = None
         self._completed_reqids: dict[tuple[str, int], EVersion] = {}
+        # reqid -> the result of the copy of that op now queued or
+        # running here: a resent copy waits for it instead of running
+        self._inflight_reqids: dict[tuple[str, int], asyncio.Future] = {}
         # watch/notify (Watch.cc): oid -> {(client, cookie):
         # {"conn", "addr"}}.  Registrations PERSIST in a replicated
         # registry object (the reference keeps them in object_info),
@@ -742,6 +751,42 @@ class PG:
     # -- client op execution (primary) --------------------------------------
     async def do_op(self, msg, conn=None,
                     top=None) -> tuple[dict, list[bytes]]:
+        """Run a client op once per reqid: a copy that arrives while an
+        earlier copy of the same op is queued or running here (a resend)
+        waits for that copy and answers with its result, and runs itself
+        only if that copy failed or was cancelled."""
+        rq = msg.data.get("reqid")
+        reqid = (rq[0], rq[1]) if rq else None
+        if reqid is None:
+            return await self._execute_op(msg, conn, top)
+        while (first := self._inflight_reqids.get(reqid)) is not None:
+            DUP_REQIDS["inflight"] += 1
+            if top is not None:
+                top.event("waiting_for_first_copy")
+            await asyncio.wait({first})
+            if not first.cancelled() and first.exception() is None:
+                data, segments = first.result()
+                return dict(data), list(segments)
+        mine = asyncio.get_running_loop().create_future()
+        self._inflight_reqids[reqid] = mine
+        try:
+            result = await self._execute_op(msg, conn, top)
+        except asyncio.CancelledError:
+            mine.cancel()
+            raise
+        except BaseException as e:
+            mine.set_exception(e)
+            mine.exception()          # retrieved: a waiter may not come
+            raise
+        else:
+            mine.set_result(result)
+            return result
+        finally:
+            if self._inflight_reqids.get(reqid) is mine:
+                del self._inflight_reqids[reqid]
+
+    async def _execute_op(self, msg, conn=None,
+                          top=None) -> tuple[dict, list[bytes]]:
         ops = unpack_mutations(msg.data["ops"], msg.segments)
         oid = msg.data["oid"]
         rq = msg.data.get("reqid")
@@ -765,6 +810,7 @@ class PG:
             if reqid is not None and reqid in self._completed_reqids:
                 # the client resent a write we already applied (its
                 # reply was lost): acknowledge without re-applying
+                DUP_REQIDS["completed"] += 1
                 v = self._completed_reqids[reqid]
                 return ({"results": [{"ok": True} for _ in ops],
                          "version": v.to_list(), "dup": True}, [])

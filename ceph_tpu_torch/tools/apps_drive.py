@@ -55,16 +55,18 @@ class AppsDrive(ClusterDrive):
     a method.  ``cluster`` takes ``ClusterDrive``'s arguments (12 OSDs,
     RS k=8,m=3, pg_num 32, 16 I/Os in flight by default); the defaults of
     the sizes are the card's.  The cuts, for the run's time: the image,
-    512 MiB (a VM disk is typically 10 GiB or more), and the 4 KiB rounds,
-    256 writes each (``rbd bench`` writes 1 GiB by default)."""
+    128 MiB (a VM disk is typically 10 GiB or more), the 4 KiB rounds, 64
+    writes each (``rbd bench`` writes 1 GiB by default), the encrypted and
+    the features' images, 32 MiB each, the striper's file, 32 MiB, RGW's
+    objects, 8 of 8 MiB, and its multipart upload, 32 MiB."""
 
     pool = "ec83"
 
-    def __init__(self, *, rep_pg_num: int = 32, image_bytes: int = 512 * MiB,
-                 order: int = 22, bench_ios: int = 256,
-                 crypto_bytes: int = 64 * MiB, feature_bytes: int = 64 * MiB,
-                 file_bytes: int = 128 * MiB, s3_objects: int = 32,
-                 s3_bytes: int = 8 * MiB, multipart_bytes: int = 64 * MiB,
+    def __init__(self, *, rep_pg_num: int = 32, image_bytes: int = 128 * MiB,
+                 order: int = 22, bench_ios: int = 64,
+                 crypto_bytes: int = 32 * MiB, feature_bytes: int = 32 * MiB,
+                 file_bytes: int = 32 * MiB, s3_objects: int = 8,
+                 s3_bytes: int = 8 * MiB, multipart_bytes: int = 32 * MiB,
                  part_bytes: int = 8 * MiB, s3_stripe: int = 4 * MiB,
                  **cluster) -> None:
         super().__init__(n_objects=0, **cluster)

@@ -107,15 +107,15 @@ class FsDrive(ClusterDrive):
     pg_num 32, 16 I/Os in flight by default); the defaults of the sizes are
     the card's.  The cuts, for the run's time: 32 small files in 8
     directories (an untar of a source tree makes thousands; a create costs
-    two MDS mutations, which the MDS runs one at a time) and 8 files of
-    16 MiB."""
+    two MDS mutations, which the MDS runs one at a time), 2 files of 16 MiB
+    and 64 random 4 KiB overwrites."""
 
     pool = "cephfs_data"
 
     def __init__(self, *, rep_pg_num: int = 32, n_files: int = 32,
                  n_dirs: int = 8, small_bytes: int = 16 * KiB,
-                 big_files: int = 8, big_bytes: int = 16 * MiB,
-                 overwrites: int = 256, **cluster) -> None:
+                 big_files: int = 2, big_bytes: int = 16 * MiB,
+                 overwrites: int = 64, **cluster) -> None:
         super().__init__(n_objects=0, **cluster)
         self.rep_pg_num = rep_pg_num
         self.n_files, self.n_dirs = n_files, n_dirs

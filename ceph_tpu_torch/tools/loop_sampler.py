@@ -218,8 +218,9 @@ class GCClock:
 
 
 class StageCounts:
-    """K5's launches, the placement tables built and the monitor's map epoch
-    at the end of each stage (``mark(stage, cluster)``), as differences from
+    """K5's launches, the placement tables built, the monitor's map epoch,
+    the clients' resends by cause and the duplicate reqids the PGs saw at
+    the end of each stage (``mark(stage, cluster)``), as differences from
     the previous mark."""
 
     def __init__(self) -> None:
@@ -228,10 +229,15 @@ class StageCounts:
 
     @staticmethod
     def _now(cluster) -> dict:
+        from ..client.objecter import RESEND_CAUSES, RESENDS
         from ..crush.vectorized import LAUNCHES
         from ..mon.pg_mapping import BUILDS
+        from ..osd.pg import DUP_REQIDS
         return {"k5": LAUNCHES["crush_map_rule"], "tables": BUILDS["tables"],
-                "epochs": cluster.mon.osdmap.epoch if cluster else 0}
+                "epochs": cluster.mon.osdmap.epoch if cluster else 0,
+                **{f"resend_{k}": RESENDS[k] for k in RESEND_CAUSES},
+                **{f"dup_{k}": DUP_REQIDS[k]
+                   for k in ("completed", "inflight")}}
 
     def mark(self, stage: str, cluster) -> None:
         now = self._now(cluster)

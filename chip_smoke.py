@@ -11,15 +11,20 @@ deployment layer: CephFS with its MDS pair and the mgr, and a cluster that
 ``vstart`` starts with one daemon a process, driven through the CLIs.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --harness       # phase 11 alone
+    python3 chip_smoke.py --cut-seconds   # phases 8d-8f with and without
+                                          # each cut of the run's time
 
 Phases, one line each; any failure exits non-zero and prints no result:
 
  1. the card's name and power limit; compile the XOR schedules of every
     matrix the run uses, each in a worker process of its own, while nvcc
     builds ``ceph_tpu_torch/csrc/*.cu`` (one process per source, all at
-    once), then one generated K3 source per schedule digest likewise (K3's design, and ptxas's registers, shared
-    memory and spills per digest, from the kept log of a cached build too;
-    nvcc seconds);
+    once), then one generated K3 source per schedule digest likewise (K3's
+    design, and ptxas's registers, shared memory and spills per digest, from
+    the kept log of a cached build too; nvcc seconds); once the fixed
+    sources are built, phases 2 and 2b and phase 3's K4 checks (none needs
+    a schedule) run on the card while nvcc builds the K3 digests;
  2. K1/K2 against their plain PyTorch versions and the host GF(2^8) oracle
     on seeded inputs at small shapes, byte-exact (for K2: one step, a whole
     block plus a ragged tail at g=2 and g=1, RS decode, Cauchy at k=10, the
@@ -74,8 +79,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
     the GF(2^8) launch and K4;
  8d. bulk placement (``BASELINE.md`` config 5, the 1000-OSD depth-4 map of
     ``tools/crush_bench.py``): K5 against its plain version on the card,
-    exactly, on 262,144 seeds (values >= 2^31 included) and against the
-    scalar ``crush_do_rule`` on 512, for rule 0 (chooseleaf firstn, 3
+    exactly, on 65,536 seeds (values >= 2^31 included) and against the
+    scalar ``crush_do_rule`` on 128, for rule 0 (chooseleaf firstn, 3
     replicas) and rule 1 (chooseleaf indep, 11 slots) on the config-5 map,
     the same map degraded (2% of the OSDs at weight 0, 5% at 0x8000, one
     host out), a small map with a choose_args weight-set and hash-id
@@ -98,7 +103,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     incrementals: a host down, a reweight of 20 OSDs, a placement-neutral
     up_thru (no rebuild).  Then ``BASELINE.md`` config 5's 10,485,760 PGs:
     one build and one host-down epoch.  Every build is held against the
-    scalar pipeline on its overridden PGs and 512 random raw ps a pool and
+    scalar pipeline on its overridden PGs and 128 random raw ps a pool and
     against the same table on the CPU (a CPU build from ``to_dict()``; at
     10M, and for the epochs, a CPU ingest of K5's raw rows); every delta
     against a brute-force diff.  The realistic cluster also holds Ceph's
@@ -111,7 +116,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
     on the card; recompute_pgs_per_s; each epoch's rebuild + delta and
     delta_pgs; lookups a second.  Then two maps that the reference's bulk
     mapper refuses, config 5's OSDs in straw buckets and config 5's map
-    with chooseleaf_vary_r = 0 (pg_num 1024, 256, 1): the card's table maps
+    with chooseleaf_vary_r = 0 (pg_num 256, 64, 1): the card's table maps
     each pool with K5 (one launch a pool, every pool fused, K5 == its plain
     version) and must equal the scalar pipeline on every PG and the CPU's
     build.  Then the shapes K5 does not express (ROADMAP queue 3): a host
@@ -125,8 +130,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
     on its tree and list variants, 2M lanes, rules 0 x3 and 1 x11: == K5
     on every lane (straw2), == the scalar engine on a sample, CUDA events;
  8f. the OSD shard data spine (``tools/datapath_bench.py``): RS k=8,m=3 at a
-    4 KiB stripe unit over 128 objects of 4 MiB (704 MiB stored in 11
-    BlockStores), write -> read-verify -> scrub -> degraded read (10
+    4 KiB stripe unit over 64 objects of 4 MiB (352 MiB stored in 11
+    BlockStores), write -> read-verify -> scrub -> degraded read (5
     objects, shard 0 down), a warm-up drive, then the host round-trip
     baseline and the drive through the device-resident shard cache, whose
     scrub checks every shard's device view with one K4 launch; writes
@@ -156,8 +161,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
 10. the RADOS cluster (``tools/ec_osd_bench.py``'s ``ClusterDrive``): a
     monitor, 12 OSDs (one a host, MemStore, the shard cache at 64 MiB) and a
     librados client in one process on the card, an EC pool on plugin=cuda RS
-    k=8,m=3 at a 4 KiB stripe unit and pg_num 32, 128 objects of 4 MiB:
-    write_full at concurrency 16 (a warm round, 2 timed rounds, one round of
+    k=8,m=3 at a 4 KiB stripe unit and pg_num 32, 64 objects of 4 MiB:
+    write_full at concurrency 16 (a warm round, a timed round, one round of
     16 objects under ``torch.profiler``, one of 16 under cProfile), a read
     sweep, one OSD killed and marked down (kept in), a degraded read sweep,
     a degraded write of half the objects, the OSD revived and recovered from
@@ -195,14 +200,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
     built, map epochs and K5 launches by stage, the loop's longest stall
     and p99 and the collector's pauses by stage.  11b,
     ``recovery_bench`` at ``code_configs(smoke=False)`` (RS k=8,m=4 on cuda,
-    LRC k=8,m=4,l=3, PMSR k=5,m=4; 16 objects of 128 KiB, pg_num 16), a
+    LRC k=8,m=4,l=3, PMSR k=5,m=4; 8 objects of 128 KiB, pg_num 16), a
     cluster a code on the default routes (K1 serves PMSR, K2 RS and LRC),
     then LRC and PMSR again under ``CEPH_TPU_XOR_SCHED=1`` (K3, its digests
     built in phase 1): the bench's gates, equal repair counters on both
     routes, K1 in the PMSR drive and K3 in both scheduled drives, the
     kernels at each drive's launch shapes against their plain versions.
     11c, ``straggler_bench`` at bench.py's non-smoke sizes (6 OSDs, EC 2+1,
-    pg_num 64, 48 objects of 16 KiB, 240 reads from 8 clients, lognormal
+    pg_num 64, 48 objects of 16 KiB, 120 reads from 8 clients, lognormal
     stragglers mu=ln 0.5, sigma=0.35, capped at 2 s): its gates (hedged
     p99 at least 2x better, extra sub-reads at most 1.5x, nothing failed,
     wedged, leaked or mismatched, one straggler schedule).  11d,
@@ -210,26 +215,26 @@ Phases, one line each; any failure exits non-zero and prints no result:
 12. Ceph's client applications (``tools/apps_drive.py``'s ``AppsDrive`` at
     its defaults) on phase 10's cluster shape plus a replicated pool ``rbd``,
     in a process of its own (``chip_smoke.py --apps``), launches counted
-    by sub-phase.  12a, an RBD image of 512 MiB (order 22) on the EC pool,
-    16 I/Os in flight: written whole in 4 MiB writes and read back, 256
-    sequential 4 KiB writes one at a time in ``rbd bench``'s shape, 256
+    by sub-phase.  12a, an RBD image of 128 MiB (order 22) on the EC pool,
+    16 I/Os in flight: written whole in 4 MiB writes and read back, 64
+    sequential 4 KiB writes one at a time in ``rbd bench``'s shape, 64
     random 4 KiB writes (each an EC read-modify-write: a K2 delta launch),
-    256 through the ObjectCacher and a flush, one shard holder of object 0
+    64 through the ObjectCacher and a flush, one shard holder of object 0
     killed (kept in), the image read degraded, the OSD revived and
     recovered, ``scrub_ec`` of every PG, and where the machine has
-    ``cryptography`` an encrypted 64 MiB image written and read back and a
+    ``cryptography`` an encrypted 32 MiB image written and read back and a
     wrong passphrase refused (else a line says it did not run).  12b,
-    RBD's features on a 64 MiB image of the replicated pool (snapshots,
+    RBD's features on a 32 MiB image of the replicated pool (snapshots,
     protect, clone, copyup, flatten, rollback, resize, discard, export,
     the object map and ``fast_diff``), an exclusive lock broken by a second
     client whose blocklist refuses the deposed holder's next write at the
     OSDs, a live migration, and snapshot- and journal-mode mirroring to a
     second cluster of 3 OSDs on the card.  12c, radosstriper at
-    ``Layout()``'s defaults: a 128 MiB file written, read, overwritten,
+    ``Layout()``'s defaults: a 32 MiB file written, read, overwritten,
     truncated and removed, two clients writing one file at once,
     ``SimpleRADOSStriper`` taking over a lapsed holder's lock.  12d, RGW
     (4 MiB stripes) through ``Gateway`` and ``S3Client`` over loopback
-    HTTP: 32 PUTs and GETs of 8 MiB, a 64 MiB multipart upload in 8 MiB
+    HTTP: 8 PUTs and GETs of 8 MiB, a 32 MiB multipart upload in 8 MiB
     parts, list, HEAD, a versioned bucket, a Swift PUT and GET, every
     object read again while the OSD is down, DELETE.  Checked: every read
     equals its host oracle, 0 failed ops, only the victim marked down, a
@@ -247,8 +252,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
     on RS k=8,m=3 (cuda), ``cephfs_metadata`` replicated x3, a mgr at
     vstart's configuration (the balancer on, prometheus serving), MDS a
     and b, two mounts; 32 small files in 8 directories (16 creates in
-    flight, lognormal around 16 KiB) read back, 8 files of 16 MiB at the
-    default 4 MiB layout written and read, 256 random 4 KiB overwrites
+    flight, lognormal around 16 KiB) read back, 2 files of 16 MiB at the
+    default 4 MiB layout written and read, 64 random 4 KiB overwrites
     (EC read-modify-writes), both mounts appending to one file, a rename
     and an unlink's purge, ``cephfs_cli`` put/get/ls in processes of their
     own, fs_mirror of one directory to a second cluster of 3 OSDs, the
@@ -261,12 +266,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
     daemon a process: a monitor and 12 OSDs on BlockStores (``--hosts
     12``), each process on the card; ``ceph_cli`` (an EC profile k=8 m=3
     plugin=cuda, pool ec83 pg_num 32, status, osd tree, pool rbd),
-    ``rados_cli`` put/get and bench, ``rbd_cli`` create and bench of 128
+    ``rados_cli`` put/get and bench, ``rbd_cli`` create and bench of 64
     4 KiB writes, ``rgw_cli`` user create and serve with a PUT and GET of
     8 MiB, the exporter over the admin sockets, each a process; then this
-    process's client writes 64 objects of 4 MiB, SIGKILLs a shard holder
-    of object 0, writes 32 more, restarts it on its BlockStore and reads
-    all 96 back.  Checked: the CLIs' bytes, every OSD process up in the
+    process's client writes 16 objects of 4 MiB, SIGKILLs a shard holder
+    of object 0, writes 8 more, restarts it on its BlockStore and reads
+    all 24 back.  Checked: the CLIs' bytes, every OSD process up in the
     exporter's scrape and K2 batches in every one that is primary of a PG
     that took a write, every read equals its oracle, HEALTH_OK, only the
     killed OSD marked down, every daemon exits 0 on SIGTERM, 8 sampled
@@ -347,8 +352,10 @@ RESIDENT_BYTES = (64 << 20) + 12345
 # chooseleaf indep) at 11, an RS k=8,m=3 PG
 PLACEMENT = (10_000_000, 2_000_000, (5, 5, 4, 10))
 PLACEMENT_RULES = ((0, 3), (1, 11))
-PLACEMENT_SAMPLE = 262144        # lanes K5 is held against its plain version
-PLACEMENT_SCALAR = 512           # lanes held against the scalar engine
+# the checks' samples, cut for the run's time (the values before the cuts
+# are CUTS_BEFORE's)
+PLACEMENT_SAMPLE = 65536         # lanes K5 is held against its plain version
+PLACEMENT_SCALAR = 128           # lanes held against the scalar engine
 PLACEMENT_BULK_SCALAR = 256      # bulk_crush rows held against it
 # a 16,000-OSD map: its tables (70,868 words) pass the 8,192 K5 stages in
 # shared memory, so its launches read them from global memory
@@ -377,12 +384,13 @@ TABLE_DOWN, TABLE_REWEIGHTED = 0.02, 0.05   # shares of the OSDs
 TABLE_TEMP = 0.005               # share of the realistic cluster's PGs
 TABLE_TEMP_10M = 512             # pg_temps at 10M (each is held scalar)
 TABLE_UPMAP_MOVES = 100          # compute_upmaps(max_moves=...)
-TABLE_SAMPLE = 512               # random raw ps a pool held scalar
+TABLE_SAMPLE = 128               # random raw ps a pool held scalar
 TABLE_LOOKUPS = 100_000
 # map shapes the reference's bulk mapper refuses and K5 expresses (straw
 # buckets; jewel's tunables with chooseleaf_vary_r = 0) on config 5's OSDs;
-# pg_num cut so that the scalar pipeline can check every PG
-TABLE_EXPRESSED_PG_NUMS = (1024, 256, 1)
+# pg_num cut so that the scalar pipeline can check every PG, and cut again
+# for the run's time
+TABLE_EXPRESSED_PG_NUMS = (256, 64, 1)
 # phase 8e, K6: the map shapes K5 does not express (ROADMAP queue 3), each on
 # config 5's OSDs at TABLE_EXPRESSED_PG_NUMS, built on the card with one K6
 # launch a pool
@@ -394,7 +402,7 @@ K6_SHAPES = ("a host holding an osd and a bucket", "uniform buckets",
 # variants, rules 0 x3 and 1 x11, a launch of K6_LANES; its plain version,
 # the scalar engine, on the first lanes of each rule's seeds
 K6_LANES = 2_000_000
-K6_PLAIN_SAMPLE = {0: 1024, 1: 256}
+K6_PLAIN_SAMPLE = {0: 256, 1: 64}
 K6_BULK_SCALAR = 128             # bulk_crush rows a shape held scalar
 # phase 9, the sharded codec: LRC k=12,m=4,l=4 at full width on four ranks
 # (B, groups, kg, L), beside the dry run's checks
@@ -403,32 +411,45 @@ SHARDED_RANKS = 4
 # phase 8f, the OSD shard data spine (tools/datapath_bench.py): RS k=8,m=3
 # (BASELINE.json's code) at Ceph's stripe unit (osd_pool_erasure_code_
 # stripe_unit 4 KiB, src/common/options/global.yaml.in: 32 KiB stripes) over
-# 128 objects of RBD's default 4 MiB (rbd_default_order 22,
-# src/common/options/rbd.yaml.in): 512 MiB logical, 704 MiB stored, 64 MiB a
-# shard store (osd_datapath_cache_bytes' default); each store's cache keeps
-# the rig's 256 MiB budget, the reference's.  The batcher takes 8192 stripes
-# a launch, so 64 objects' writes coalesce into one (8192, 8, 4096) launch.
-# Cut for the run's time limit: passes 2 (reference 10) and read-verify
-# sweeps a pass 2 (reference 5).  Degraded reads: 128 // 12 = 10 objects
-# with shard 0 down (the reference rig's share).
-DATAPATH = dict(k=8, m=3, n_objects=128, obj_bytes=4 << 20, passes=2,
+# 64 objects of RBD's default 4 MiB (rbd_default_order 22,
+# src/common/options/rbd.yaml.in): 256 MiB logical, 352 MiB stored, 32 MiB
+# a shard store, under osd_datapath_cache_bytes' 64 MiB default; each
+# store's cache keeps the rig's 256 MiB budget, the reference's.  The
+# batcher takes 8192 stripes a launch, so the 64 objects' writes coalesce
+# into one (8192, 8, 4096) launch.  Cut for the run's time limit: passes 2
+# (reference 10), read-verify sweeps a pass 2 (reference 5), the objects
+# 128 -> 64.  Degraded reads: 64 // 12 = 5 objects with shard 0 down (the
+# reference rig's share).
+DATAPATH = dict(k=8, m=3, n_objects=64, obj_bytes=4 << 20, passes=2,
                 reads_per_pass=2, stripe_unit=4096, max_batch=8192)
 DATAPATH_PLAIN_SAMPLE = 8        # device views held against K4's plain version
+# ``--cut-seconds``: phases 8d-8f's cuts for the run's time, each with the
+# constants it changed at their values before it, and the phase it times
+CUT_FLAG = "--cut-seconds"
+CUTS_BEFORE = {
+    "8d samples": ("phase_placement", {"PLACEMENT_SAMPLE": 262144,
+                                       "PLACEMENT_SCALAR": 512}),
+    "8e pg_nums": ("phase_table", {"TABLE_EXPRESSED_PG_NUMS": (1024, 256, 1)}),
+    "8e sample": ("phase_table", {"TABLE_SAMPLE": 512}),
+    "8e K6 sample": ("phase_k6", {"K6_PLAIN_SAMPLE": {0: 1024, 1: 256}}),
+    "8f objects": ("phase_datapath", {"DATAPATH": dict(DATAPATH,
+                                                       n_objects=128)}),
+}
 # phase 10, the RADOS cluster (tools/ec_osd_bench.py's ClusterDrive): one
 # monitor and 12 OSDs, one a host (RS k=8,m=3 needs 11 hosts for failure
 # domain host; the 12th is where recovery can go), MemStore (the reference
 # cluster's default store), the shard cache at its default 64 MiB an OSD; an
 # EC pool on plugin=cuda k=8 m=3 reed_sol_van (BASELINE.json's code) at
 # the pool's default stripe unit, Ceph's 4 KiB, and osd_pool_default_pg_num
-# 32; 128 objects of RBD's default 4 MiB (512 MiB logical, 704 MiB stored).
-# write_full at concurrency 16, a warm round and 2 timed rounds; a read
+# 32; 64 objects of RBD's default 4 MiB (256 MiB logical, 352 MiB stored).
+# write_full at concurrency 16, a warm round and a timed round; a read
 # sweep; one OSD killed and marked down (kept in: mon_osd_down_out_interval
 # long); a degraded read sweep; a degraded write round over half of the
-# objects; the OSD
-# revived and recovered from the PG logs; a read sweep; scrub_ec of every PG
-# on its primary.  Nothing is cut.
-CLUSTER = dict(n_osds=12, k=8, m=3, pg_num=32, n_objects=128,
-               obj_bytes=4 << 20, concurrency=16, rounds=2)
+# objects; the OSD revived and recovered from the PG logs; a read sweep;
+# scrub_ec of every PG on its primary.  Cut for the run's time: the timed
+# rounds, 2 -> 1, and the objects, 128 -> 64.
+CLUSTER = dict(n_osds=12, k=8, m=3, pg_num=32, n_objects=64,
+               obj_bytes=4 << 20, concurrency=16, rounds=1)
 CLUSTER_STRIPE_UNIT = 4096       # the pool's default; the host oracle's
 CLUSTER_ORACLE_SAMPLE = 8        # objects whose every shard the host checks
 CLUSTER_PROFILED_OBJECTS = 16    # objects of the torch.profiler write round
@@ -462,10 +483,14 @@ HARNESS_ORACLE_SAMPLE = 8
 HARNESS_FLAG = "--harness"
 HARNESS_TAG = "phase 11 summary: "        # 11a objects whose every shard the host checks
 # 11b: recovery_bench.code_configs(smoke=False) at bench.py --recovery's
-# sizes (16 objects of 128 KiB, pg_num 16); nothing cut
-HARNESS_RECOVERY = dict(n_objects=16, obj_size=128 << 10, pg_num=16, seed=7)
+# sizes (objects of 128 KiB, pg_num 16); cut for the run's time: 16 objects
+# -> 8
+HARNESS_RECOVERY = dict(n_objects=8, obj_size=128 << 10, pg_num=16, seed=7)
+# 11c: straggler_bench.FULL, its reads cut for the run's time (240 -> 120)
+HARNESS_STRAGGLER_READS = 120
 # phase 12, the client applications: tools/apps_drive.py's AppsDrive at its
-# defaults, which hold the sizes and the one cut (the 512 MiB image)
+# defaults, which hold the sizes and the cuts (the image, the 4 KiB rounds,
+# the striper's file, RGW's objects)
 APPS_ORACLE_SAMPLE = 8           # image objects whose every shard the host checks
 APPS_FLAG = "--apps"
 APPS_TAG = "phase 12 summary: "
@@ -473,10 +498,12 @@ APPS_TAG = "phase 12 summary: "
 FS_FLAG = "--fs"
 FS_TAG = "phase 13 summary: "
 # 13b: vstart's cluster, one daemon a process; the CLIs' and the client's
-# sizes (rbd bench: 128 writes of 4 KiB; rados bench: 10 s of 4 MiB)
-VSTART = dict(n_osds=12, k=8, m=3, pg_num=32, objects=64, more=32,
-              obj_bytes=4 << 20, cli_bytes=(3 << 20) + 12345, bench_s=10,
-              rbd_size="64M", rbd_total="512K", s3_bytes=8 << 20)
+# sizes (rbd bench: 64 writes of 4 KiB; rados bench: 5 s of 4 MiB); cut for
+# the run's time: the client's objects 64 + 32 -> 16 + 8, rados bench's
+# seconds 10 -> 5, rbd bench's writes 128 -> 64
+VSTART = dict(n_osds=12, k=8, m=3, pg_num=32, objects=16, more=8,
+              obj_bytes=4 << 20, cli_bytes=(3 << 20) + 12345, bench_s=5,
+              rbd_size="64M", rbd_total="256K", s3_bytes=8 << 20)
 VSTART_ORACLE_SAMPLE = 8         # objects whose every shard the host checks
 VSTART_TIMEOUT = 120.0           # seconds any one wait of 13b may take
 APPS_SUBPHASE = {"boot": "12a", "12a write and read": "12a",
@@ -505,6 +532,19 @@ def time_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_once_ms(fn) -> float:
+    """Device time of one call of ``fn``, without a warm-up (for a plain
+    version whose one call takes seconds)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def host_ms(fn, iters: int = 10) -> float:
@@ -612,11 +652,12 @@ def compile_schedules(mats: dict, workers: int | None = None) -> dict:
                 for label in mats}
 
 
-def phase_build() -> tuple[dict, float]:
+def phase_build(beside) -> tuple[dict, float]:
     """Compile the schedules in worker processes while nvcc builds the
-    fixed sources, then build each schedule's K3 source; returns (label ->
-    (matrix, schedule, nvcc seconds, K3's design and ptxas counts), the
-    host CSE's seconds)."""
+    fixed sources, then build each schedule's K3 source while ``beside``
+    runs in this process once the fixed sources are built (the phases that
+    need no schedule and no K3); returns (label -> (matrix, schedule, nvcc
+    seconds, K3's design and ptxas counts), the host CSE's seconds)."""
     from concurrent.futures import ThreadPoolExecutor
     from ceph_tpu_torch.ops import _build
     from ceph_tpu_torch.ops import xor_sched_codegen as cg
@@ -624,7 +665,17 @@ def phase_build() -> tuple[dict, float]:
     log(f"card: {card_label()}")
     sources = _build.all_sources()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as nvcc:
+
+    def build_host() -> float:
+        # the host codecs the daemons' messages and stores run (g++)
+        from ceph_tpu_torch import native
+        from ceph_tpu_torch.common import denc_native
+        native.load()
+        denc_native.load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(3) as nvcc:
+        host = nvcc.submit(build_host)
         fixed = nvcc.submit(_build.build, sources)
         with xor_sched_env("0"):        # the codecs build, not warm, them
             mats = path_matrices()
@@ -634,8 +685,19 @@ def phase_build() -> tuple[dict, float]:
             f"a worker process a schedule, nvcc building the fixed sources "
             f"meanwhile)")
         k3 = {label: xs.k3_source(sched) for label, sched in scheds.items()}
-        reports = _build.build(sorted(set(k3.values())))
-        reports.update(fixed.result())
+
+        def build_k3() -> tuple[dict, float]:
+            built = _build.build(sorted(set(k3.values())))
+            return built, time.perf_counter() - t0
+        digests = nvcc.submit(build_k3)
+        reports = fixed.result()
+        fixed_s = time.perf_counter() - t0
+        with xor_sched_env("0"):
+            beside()
+        beside_s = time.perf_counter() - t0 - fixed_s
+        built_k3, k3_s = digests.result()
+        reports.update(built_k3)
+        host_s = host.result()
     dt = time.perf_counter() - t0
     for name in sources:
         if name in reports:
@@ -657,17 +719,14 @@ def phase_build() -> tuple[dict, float]:
             f"{ptxas_summary(report)}, "
             + (f"nvcc {secs:.2f} s" if built else "already built"))
     log(f"build: {len(sources)} sources + {len(set(k3.values()))} K3 digests "
-        f"in {dt:.2f} s with the host CSE ({len(reports)} compiled, sm_90a, "
-        f"one nvcc a source: the fixed sources all at once beside the CSE, "
-        f"then the K3 digests all at once)")
-    # the host codecs the daemons' messages and stores run (g++)
-    from ceph_tpu_torch import native
-    from ceph_tpu_torch.common import denc_native
-    t0 = time.perf_counter()
-    native.load()
-    denc_native.load()
-    log(f"host build: the CRC32C engine and the denc value codec in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"and phases 2, 2b and phase 3's K4 checks in {dt:.2f} s "
+        f"({len(reports)} compiled, sm_90a, one nvcc a source): the fixed "
+        f"sources built at {fixed_s:.2f} s beside the host CSE ({cse_s:.2f} "
+        f"s), the K3 digests from {cse_s:.2f} s to {k3_s:.2f} s beside those "
+        f"phases ({beside_s:.2f} s on the card); in turns, as before, "
+        f"{max(cse_s, fixed_s) + k3_s - cse_s + beside_s:.2f} s")
+    log(f"host build: the CRC32C engine and the denc value codec, done at "
+        f"{host_s:.2f} s beside the rest")
     return out, cse_s
 
 
@@ -1497,8 +1556,8 @@ def scalar_mismatch(cm, rule: int, xs, rows: np.ndarray, numrep: int,
 
 def phase_placement(dev: torch.device) -> dict:
     """Bulk placement (BASELINE.md config 5): K5 against its plain version
-    on the card, exactly, on 262,144 seeds (values >= 2^31 included) and
-    against the scalar engine on 512 of them, for both rules on the
+    on the card, exactly, on 65,536 seeds (values >= 2^31 included) and
+    against the scalar engine on 128 of them, for both rules on the
     config-5, degraded, choose_args and global-memory maps; then the path
     at full width, its counts set to 0 just before: 10M seeds resident on
     the card, 5 launches of 2M lanes a rule (CUDA events), the first
@@ -1578,7 +1637,7 @@ def phase_placement(dev: torch.device) -> dict:
             held["plain"] = plain(seeds[0], numrep, w)
 
         ms = time_ms(k5_batches, iters=1)            # after a warm pass
-        plain_ms[rule] = time_ms(plain_batch, iters=1)
+        plain_ms[rule] = time_once_ms(plain_batch)
         diff = int((held["k5"][0].long() - held["plain"].long()).abs().max())
         err = max(err, diff)
         if diff:
@@ -3344,7 +3403,9 @@ def phase_cluster(dev: torch.device) -> dict:
     log(f"cluster ({CLUSTER['n_osds']} OSDs, RS k={CLUSTER['k']},"
         f"m={CLUSTER['m']} on cuda, pg_num {CLUSTER['pg_num']}, "
         f"{CLUSTER['n_objects']} objects of {CLUSTER['obj_bytes'] >> 10} KiB, "
-        f"MemStore; nothing cut): write {rep['write_GiBps']:.4f} GiB/s over "
+        f"MemStore; cut: the objects 128 -> {CLUSTER['n_objects']}, the "
+        f"timed rounds 2 -> {CLUSTER['rounds']}): write "
+        f"{rep['write_GiBps']:.4f} GiB/s over "
         f"{CLUSTER['rounds']} timed rounds ({rep['write_s']:.3f} s; warm "
         f"round {rep['warm_write_s']:.3f} s), read {rep['read_GiBps']:.4f}, "
         f"degraded read {rep['degraded_read_GiBps']:.4f}, degraded write "
@@ -3555,7 +3616,34 @@ def harness_loadgen(dev: torch.device) -> dict:
     collector = GCClock()
     out: dict = {}
 
+    live: dict = {}
+    wedged: list[dict] = []
+
+    def on_wedged(op, io) -> None:
+        """Log a wedged op at once, while its primary still holds it: the
+        op's class, object, PG and primary, the client's attempts, the
+        primary's OpTracker dump and the map epochs."""
+        cluster = live["cluster"]
+        pgid, primary = io.objecter.calc_target(io.pool_id, op.oid)
+        tried = [a["attempts"] for a in reversed(io.objecter.abandoned)
+                 if a["oid"] == op.oid][:1]
+        osd = next((o for o in cluster.osds if o.whoami == primary
+                    and not o.is_stopped()), None)
+        dump = osd.op_tracker.dump_ops_in_flight() if osd else None
+        ops = (dump or {}).get("ops", [])
+        mine = [o for o in ops if o.get("oid") == op.oid]
+        info = {"class": op.kind, "oid": op.oid, "pgid": pgid,
+                "primary": primary, "attempts": tried[0] if tried else None,
+                "client_epoch": io.objecter.osdmap.epoch,
+                "mon_epoch": cluster.mon.osdmap.epoch,
+                "primary_ops_in_flight": (dump or {}).get("num_ops"),
+                "on_its_pg": sum(o.get("pgid") == pgid for o in ops),
+                "its_ops_on_primary": mine, "oldest_on_primary": ops[:3]}
+        wedged.append(info)
+        log(f"harness 11a wedged op: {json.dumps(info, default=str)}")
+
     async def on_stage(stage, cluster, report):
+        live["cluster"] = cluster
         by_stage.mark(stage, cluster)
         lag.mark(HARNESS_NEXT_STAGE[stage])
         collector.mark(HARNESS_NEXT_STAGE[stage])
@@ -3591,7 +3679,7 @@ def harness_loadgen(dev: torch.device) -> dict:
         try:
             return await run_workload(
                 spec, conf=conf, log=lambda msg: log(f"  {msg}"), device=dev,
-                on_stage=on_stage)
+                on_stage=on_stage, on_wedged=on_wedged)
         finally:
             lag.stop()
 
@@ -3674,9 +3762,18 @@ def harness_loadgen(dev: torch.device) -> dict:
         f"{ {k: round(v, 2) for k, v in marks.seconds.items()} }; the "
         f"batchers' launches by (kind, shape, erasures) "
         f"{dict(out['launched'].most_common(8))}; {secs:.1f} s")
+    resends = {stage: {k: v for k, v in counts.items()
+                       if k.startswith(("resend_", "dup_"))}
+               for stage, counts in by_stage.stages.items()}
+    steady_ops_s = phases["steady"]["timing"]["ops_per_s"]
+    log(f"harness 11a resends by cause and duplicate reqids the PGs saw, by "
+        f"stage {resends}; steady {steady_ops_s} ops/s; wedged ops "
+        f"{len(wedged)}")
     if errors:
         raise RuntimeError(f"harness 11a: {errors}")
     return {"report": report, "launches": launches, "stages": stages,
+            "resends": resends, "steady_ops_s": steady_ops_s,
+            "wedged": wedged,
             "stage_s": marks.seconds, "degradation": degr,
             "stripes_a_launch": stripes_a_launch, "rmw_runs": rmw_runs,
             "kernels": out["kernels"], "placement": out["placement"],
@@ -3778,7 +3875,8 @@ def harness_straggler(dev: torch.device) -> dict:
     ``dev``, unhedged then hedged under one straggler schedule; its gates."""
     import asyncio
     from ceph_tpu_torch.tools import straggler_bench as sb
-    n_osds, pg_num, n_objects, obj_bytes, n_reads, n_clients = sb.FULL
+    n_osds, pg_num, n_objects, obj_bytes, _, n_clients = sb.FULL
+    n_reads = HARNESS_STRAGGLER_READS
     reset_launches()
     t0 = time.perf_counter()
     loop = asyncio.new_event_loop()
@@ -3856,6 +3954,8 @@ def harness_summary(out: dict) -> dict:
         "loadgen": {"launches": out["loadgen"]["launches"],
                     "kernels": kernels(out["loadgen"]["kernels"]),
                     "placement": out["loadgen"]["placement"],
+                    "resends": out["loadgen"]["resends"],
+                    "steady_ops_s": out["loadgen"]["steady_ops_s"],
                     "seconds": out["loadgen"]["seconds"]},
         "recovery": {"drives": {tag: {"launches": d["launches"],
                                       "kernels": kernels(d["kernels"])}
@@ -5368,6 +5468,46 @@ def phase_kernel_line(main: dict, launches: dict, small_err: dict,
     return {"kernels": rows}
 
 
+@contextlib.contextmanager
+def constants(values: dict):
+    """This module's constants set to ``values`` for the block."""
+    kept = {name: globals()[name] for name in values}
+    globals().update(values)
+    try:
+        yield
+    finally:
+        globals().update(kept)
+
+
+def cut_seconds_main() -> int:
+    """``--cut-seconds``: each cut of ``CUTS_BEFORE`` timed on the card, its
+    phase run with the cut and then without it (the second run pays no
+    first use, so a saving it shows is no effect of the order), on the
+    fixed sources phase 1 builds."""
+    from ceph_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke --cut-seconds: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
+    log(f"card: {card_label()}")
+    _build.build(_build.all_sources())
+    dev = torch.device("cuda", 0)
+    out = {}
+    for cut, (phase, before) in CUTS_BEFORE.items():
+        secs = {}
+        for when, values in (("after", {}), ("before", before)):
+            with constants(values), xor_sched_env(None):
+                t0 = time.perf_counter()
+                globals()[phase](dev)
+                secs[when] = round(time.perf_counter() - t0, 2)
+        out[cut] = secs
+        log(f"cut {cut} ({phase}, {before} before): {secs['after']} s with "
+            f"it, {secs['before']} s without")
+    print(json.dumps({"cut_seconds": out, "card": card_label()}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5376,11 +5516,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    built, cse_s = phase_build()
-    small_err = phase_kernels(dev)
-    rates = phase_mma_rate(dev)
+    early: dict = {}
+
+    def beside_cse():
+        """Phases 2 and 2b and phase 3's K4 checks (K1, K2, the MMA rates,
+        K4) need no XOR schedule: they run while the workers compile."""
+        early["small_err"] = phase_kernels(dev)
+        early["rates"] = phase_mma_rate(dev)
+        early["k4_small_err"] = phase_k4_small(dev)
+
+    secs: dict[str, float] = {}
+    mark = [t0]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        secs[name] = now - mark[0]
+        mark[0] = now
+
+    built, cse_s = phase_build(beside_cse)
+    lap("1-2b")
+    small_err, rates, k4_small_err = (
+        early[key] for key in ("small_err", "rates", "k4_small_err"))
     k3_small_err = phase_k3_small(dev, built)
-    k4_small_err = phase_k4_small(dev)
     repair = phase_repair(dev)
     with xor_sched_env(None):          # the RS main path keeps its routing
         launches, main_inputs = phase_main_path(dev)
@@ -5392,38 +5549,38 @@ def main() -> int:
     with xor_sched_env(None):          # the OSD path keeps its routing
         k4 = phase_k4_full(dev, main_inputs)
         osd = phase_osd(dev)
+    lap("3-8c")
     placement = phase_placement(dev)
-    t8e = time.perf_counter()
+    lap("8d")
     table = phase_table(dev)
     k6 = phase_k6(dev)
-    log(f"phase 8e, the epoch table and K6: {time.perf_counter() - t8e:.1f} "
-        f"s")
+    lap("8e")
+    log(f"phase 8e, the epoch table and K6: {secs['8e']:.1f} s")
     os.environ.pop("CEPH_TPU_NO_FUSED_CRC", None)   # the fused write CRCs
     with xor_sched_env(None):          # the data spine keeps its routing
         datapath = phase_datapath(dev)
+    lap("8f")
     log(f"phase 8f, the data spine: {datapath['seconds']:.1f} s")
-    t9 = time.perf_counter()
     with xor_sched_env(None):          # the sharded codec keeps its routing
         sharded = phase_sharded(dev, main_inputs)
-    log(f"phase 9, the sharded codec: {time.perf_counter() - t9:.1f} s")
+    lap("9")
+    log(f"phase 9, the sharded codec: {secs['9']:.1f} s")
     with xor_sched_env(None):          # the cluster keeps its routing
         cluster = phase_cluster(dev)
+    lap("10")
     log(f"phase 10, the RADOS cluster: {cluster['seconds']:.1f} s")
-    t11 = time.perf_counter()
     from ceph_tpu_torch.ops import xor_schedule as xs
     harness = phase_harness_process(dict(xs._SCHEDULES))
-    log(f"phase 11, the traffic and failure harness: "
-        f"{time.perf_counter() - t11:.1f} s")
-    t12 = time.perf_counter()
+    lap("11")
+    log(f"phase 11, the traffic and failure harness: {secs['11']:.1f} s")
     apps = phase_subprocess(APPS_FLAG, APPS_TAG, 12)
-    log(f"phase 12, the client applications: "
-        f"{time.perf_counter() - t12:.1f} s")
-    t13 = time.perf_counter()
+    lap("12")
+    log(f"phase 12, the client applications: {secs['12']:.1f} s")
     fs = phase_subprocess(FS_FLAG, FS_TAG, 13)
-    log(f"phase 13, CephFS, the mgr, vstart and the CLIs: "
-        f"{time.perf_counter() - t13:.1f} s (13a {fs['fs']['seconds']:.1f} "
-        f"s, 13b {fs['vstart']['seconds']:.1f} s; phase 1's host CSE "
-        f"{cse_s:.1f} s)")
+    lap("13")
+    log(f"phase 13, CephFS, the mgr, vstart and the CLIs: {secs['13']:.1f} s "
+        f"(13a {fs['fs']['seconds']:.1f} s, 13b {fs['vstart']['seconds']:.1f} "
+        f"s; phase 1's host CSE {cse_s:.1f} s)")
     line = phase_kernel_line(main_inputs, launches, small_err, lrc, pmsr,
                              k3_small_err, cauchy_ms, k4, k4_small_err, osd,
                              repair, rates, built, placement, table,
@@ -5431,8 +5588,14 @@ def main() -> int:
                              fs)
     log(json.dumps(line))
     peak = max(torch.cuda.max_memory_allocated(), datapath["run_peak_bytes"])
-    log(f"peak device memory {peak / GiB:.2f} "
-        f"GiB, total {time.perf_counter() - t0:.1f} s")
+    log(f"peak device memory {peak / GiB:.2f} GiB")
+    loadgen = harness["loadgen"]
+    log(f"seconds by phase "
+        f"{ {name: round(v, 1) for name, v in secs.items()} }; phase 1's "
+        f"host CSE {cse_s:.1f} s; 11a steady "
+        f"{loadgen['steady_ops_s']} ops/s, its resends "
+        f"{loadgen['resends'].get('steady')}; card {card_label()}; total "
+        f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5446,4 +5609,6 @@ if __name__ == "__main__":
         sys.exit(apps_main())
     if sys.argv[1:] == [FS_FLAG]:
         sys.exit(fs_main())
+    if sys.argv[1:] == [CUT_FLAG]:
+        sys.exit(cut_seconds_main())
     sys.exit(main())

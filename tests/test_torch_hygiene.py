@@ -99,3 +99,22 @@ def test_the_deployment_layer_has_its_port():
     assert {"Mgr", "MgrModule"} <= set(dir(port_mgr))
     assert parse_addr("10.0.0.1:6790") == ("10.0.0.1", 6790)
     assert parse_addr("") == ("127.0.0.1", 6789)
+
+
+HOST_EC_PLUGINS = ("gf/gf2w.py", "ec/gf2w_region.py", "ec/bitmatrix_codec.py",
+                   "ec/plugins/jerasure.py", "ec/plugins/shec.py",
+                   "ec/plugins/clay.py", "ec/plugins/example.py")
+
+
+def test_the_host_ec_plugins_have_their_port():
+    """Each module of ceph_tpu's host EC plugins has its counterpart in the
+    port, whose imports the checks above cover, and the port's registry
+    serves all eight plugins, the four host ones beside the others."""
+    missing = [rel for rel in HOST_EC_PLUGINS if not (PORT / rel).is_file()
+               or not (ROOT / "ceph_tpu" / rel).is_file()]
+    assert not missing, missing
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    reg = ErasureCodePluginRegistry()
+    for name in ("cuda", "isa", "lrc", "pmsr", "jerasure", "shec", "clay",
+                 "example"):
+        assert reg.load(name) is reg.get(name)

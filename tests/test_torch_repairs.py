@@ -1,4 +1,4 @@
-"""Nine faults the port repairs where ``ceph_tpu`` keeps them (deliberate
+"""Ten faults the port repairs where ``ceph_tpu`` keeps them (deliberate
 differences from the reference):
 
 1. the OSD's blocklist fence names the client instance by its connection
@@ -41,6 +41,17 @@ And one CephFS's drive found on the card:
    append awaits no longer kills the mutation that trimmed (its reply
    lost, the client resending) with "Set changed size during iteration".
 
+And one the traffic harness's slow hosts showed:
+
+10. a client op that waits long on a busy PG is not resent on a timer: the
+    Objecter keeps one tid and one waiter for the op's life (any
+    attempt's reply completes it) and resends only on a RETRYABLE reply, a
+    failed send, a reset connection or a map that moves the target; and
+    the PG runs a copy of an op whose first copy is still queued or
+    running only by waiting for that copy's result.  The reference
+    resends every 5 s and queues each copy behind the same PG lock, the
+    resend storm that wedged 11a's ops on slow hosts.
+
 The map-change stall (the shared table, one upload of the weights, one
 copy back a build) has its own file, ``test_torch_map_change.py``.
 """
@@ -57,6 +68,7 @@ from ceph_tpu_torch.mon.osdmap import Incremental, OSDMap
 from ceph_tpu_torch.msg import Message, Messenger
 from ceph_tpu_torch.msg import messenger as msgr_mod
 from ceph_tpu_torch.osd import OSD
+from ceph_tpu_torch.osd.backend import pack_mutations
 from ceph_tpu_torch.osd.pg import PG
 
 
@@ -443,3 +455,141 @@ def test_write_caps_granted_while_the_mds_rejournals_them(when):
         run(mds._rejournal_wcaps())
     assert [ev["ino"] for ev in journaled] == [1, 2]
     assert mds._wcap_log["client.x"]["inos"] == {1, 2, 7}
+
+
+# -- 10: a busy PG's ops are neither resent on a timer nor run twice -----------
+
+def _same_pg_oids(omap, pool_id: int, n: int) -> list[str]:
+    """``n`` object names of pool ``pool_id`` that map to one PG."""
+    by_pg: dict[str, list[str]] = {}
+    for i in range(1000):
+        oid = f"o{i}"
+        pg = omap.pg_name(pool_id, omap.object_to_pg(pool_id, oid)[1])
+        same = by_pg.setdefault(pg, [])
+        same.append(oid)
+        if len(same) == n:
+            return same
+    raise AssertionError("no PG holds enough names")
+
+
+@pytest.mark.parametrize("sender", ["objecter", "resent_copies"])
+def test_a_busy_pg_runs_each_op_once(sender):
+    """The primary's PG lock is held while one write and one read wait
+    for it.  ``objecter``: librados ops at the Objecter's settings, the
+    lock held 6.5 s, past the 5 s at which an attempt used to time out and
+    be resent; each op reaches the primary once, its one reply completes
+    it, inside the 30 s op timeout.  ``resent_copies``: two
+    copies of each op with one reqid (a resend) reach the PG while the
+    lock is held; each op runs once and both copies are answered alike."""
+    async def main():
+        mon = Monitor(rank=0, config={"mon_osd_min_down_reporters": 1},
+                      device="cpu")
+        addr = await mon.start()
+        mon.peer_addrs = [addr]
+        osds = []
+        for i in range(2):
+            osd = OSD(host=f"h{i}", device="cpu")
+            await osd.start(addr)
+            osds.append(osd)
+        rados = await Rados(addr, name="client.admin", device="cpu").connect()
+        raw = Messenger("client.raw")
+        await raw.bind()
+        try:
+            await rados.mon_command("osd pool create",
+                                    {"name": "p", "pg_num": 4, "size": 2})
+            await _wait(lambda: all("p" in o.osdmap.pool_names
+                                    for o in osds))
+            io = await rados.open_ioctx("p")
+            omap = mon.osdmap
+            pool_id = omap.pool_names["p"]
+            w_oid, r_oid = _same_pg_oids(omap, pool_id, 2)
+            await io.write_full(r_oid, b"read me")
+            _, ps = omap.object_to_pg(pool_id, w_oid)
+            pgid = omap.pg_name(pool_id, ps)
+            primary = omap.pg_primary(omap.pg_to_up_acting_osds(pool_id, ps))
+            posd = next(o for o in osds if o.whoami == primary)
+            await _wait(lambda: posd._get_pg(pgid) is not None
+                        and posd._get_pg(pgid).state == "active")
+            pg = posd._get_pg(pgid)
+            arrived: dict[str, int] = {}
+            runs: dict[str, int] = {}
+            do_osd_op, do_read, do_writes = (posd._do_osd_op, pg._do_read_op,
+                                             pg._do_writes)
+
+            async def count_arrival(conn, msg):
+                oid = msg.data.get("oid")
+                arrived[oid] = arrived.get(oid, 0) + 1
+                return await do_osd_op(conn, msg)
+
+            async def count_read(oid, op):
+                runs[oid] = runs.get(oid, 0) + 1
+                return await do_read(oid, op)
+
+            async def count_writes(oid, writes, *args, **kw):
+                runs[oid] = runs.get(oid, 0) + 1
+                return await do_writes(oid, writes, *args, **kw)
+
+            posd._do_osd_op = count_arrival
+            pg._do_read_op = count_read
+            pg._do_writes = count_writes
+            t0 = time.monotonic()
+            await pg.lock.acquire()
+            try:
+                if sender == "objecter":
+                    ob = rados.objecter
+                    ops = [asyncio.ensure_future(ob.op_submit(
+                        pool_id, oid, o, timeout=30))
+                        for oid, o in (
+                            (w_oid, [{"op": "writefull", "data": b"new"}]),
+                            (r_oid, [{"op": "read", "off": 0, "len": None}]))]
+                else:
+                    peer = (tuple(omap.osds[primary].addr), f"osd.{primary}")
+                    replies: dict[int, dict] = {}
+
+                    async def on_reply(conn, msg):
+                        if msg.type == "osd_op_reply":
+                            replies[msg.data["tid"]] = msg
+
+                    raw.add_dispatcher(on_reply)
+                    me = f"client.raw:{raw.incarnation}"
+                    for tid, oid, reqid, o in (
+                            (1, w_oid, [me, 1],
+                             [{"op": "writefull", "data": b"new"}]),
+                            (2, r_oid, [me, 2],
+                             [{"op": "read", "off": 0, "len": None}]),
+                            (3, w_oid, [me, 1],
+                             [{"op": "writefull", "data": b"new"}]),
+                            (4, r_oid, [me, 2],
+                             [{"op": "read", "off": 0, "len": None}])):
+                        meta, segs = pack_mutations(o)
+                        await raw.send(*peer, Message("osd_op", {
+                            "pgid": pgid, "oid": oid, "ops": meta,
+                            "tid": tid, "reqid": reqid}, segments=segs))
+                    await _wait(lambda: arrived.get(w_oid) == 2
+                                and arrived.get(r_oid) == 2)
+                await asyncio.sleep(6.5 if sender == "objecter" else 3.5)
+            finally:
+                pg.lock.release()
+            if sender == "objecter":
+                wrote, read = await asyncio.wait_for(asyncio.gather(*ops), 30)
+                assert "err" not in wrote.data, wrote.data
+                assert read.segments[0] == b"read me"
+                assert arrived == {w_oid: 1, r_oid: 1}, arrived
+            else:
+                await _wait(lambda: len(replies) == 4)
+                for a, b in ((1, 3), (2, 4)):
+                    assert "err" not in replies[a].data, replies[a].data
+                    assert replies[a].data["results"] == \
+                        replies[b].data["results"]
+                    assert replies[a].segments == replies[b].segments
+                assert replies[2].segments[0] == b"read me"
+            assert runs == {w_oid: 1, r_oid: 1}, runs
+            assert time.monotonic() - t0 < 30
+            assert await io.read(w_oid) == b"new"
+        finally:
+            await raw.shutdown()
+            await rados.shutdown()
+            for o in osds:
+                await o.stop()
+            await mon.stop()
+    run(main())
