@@ -666,6 +666,7 @@ class VectorCrush:
             short = self.cm.max_devices - w.shape[0]
             return torch.cat([w, w.new_zeros(short)]) if short > 0 else w
         if isinstance(osd_weights, torch.Tensor):
+            # lint: disable=device-path-host-sync -- other-device weights: cached by bytes
             osd_weights = osd_weights.cpu().numpy()
         host = np.asarray(osd_weights, np.int64).astype(np.int32)
         short = self.cm.max_devices - host.shape[0]
@@ -704,6 +705,7 @@ class VectorCrush:
         """numpy seeds -> (L, numrep) int32 numpy rows (``seed_tensor``'s
         wrap)."""
         x = seed_tensor(xs, self.device)
+        # lint: disable=device-path-host-sync -- numpy API: one post-launch hop
         return self.map_device(x, numrep, osd_weights).cpu().numpy()
 
 

@@ -207,6 +207,7 @@ class LinearSubchunkCodec(ErasureCode):
 
     def _batch_matmul(self, matrix: np.ndarray, arr, out_np: bool):
         out = gf_matmul_chunks(matrix, self._on_device(arr), self.alpha)
+        # lint: disable=device-path-host-sync -- out_np: the one post-launch hop
         return out.cpu().numpy() if out_np else out
 
     def encode_batch(self, data, out_np: bool = False):
@@ -221,6 +222,7 @@ class LinearSubchunkCodec(ErasureCode):
         chunk's sub-chunk rows are its bytes in order)."""
         parity, crcs = gf_matmul_chunks_crc(
             self.parity_matrix, self._on_device(data), self.alpha)
+        # lint: disable=device-path-host-sync -- numpy API: one post-launch hop
         return parity.cpu().numpy(), to_uint32(crcs)
 
     @staticmethod

@@ -216,6 +216,7 @@ def bulk_crush(crush_map, ruleno: int, xs, numrep: int, weights,
             if dev.type == "cuda":
                 rows = _rule_lanes_for(crush_map, ruleno, dev).map_device(
                     seed_tensor(xs, dev), numrep, weights)
+                # lint: disable=device-path-host-sync -- numpy API: one post-launch hop
                 return rows.cpu().numpy().astype(np.int64), True
         else:
             return vc.map_pgs(xs, numrep, weights).astype(np.int64), True

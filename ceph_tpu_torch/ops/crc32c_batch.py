@@ -419,6 +419,7 @@ def to_uint32(crcs) -> np.ndarray:
     """CRCs from a device or host tensor (int64 registers) or an array
     -> np.uint32, the reference's host type."""
     if isinstance(crcs, torch.Tensor):
+        # lint: disable=device-path-host-sync -- the CRCs' one hop to the host
         crcs = crcs.cpu().numpy()
     return np.asarray(crcs).astype(np.uint32)
 

@@ -64,4 +64,5 @@ class TorchBackend:
         then the results to the host."""
         parity, crcs = gf_matmul_chunks_crc(matrix,
                                             _to_device(data, self.device))
+        # lint: disable=device-path-host-sync -- numpy API: one post-launch hop
         return parity.cpu().numpy(), to_uint32(crcs)

@@ -1541,12 +1541,25 @@ class ECBackend(PGBackend):
         raw = buf.tobytes()
         self._rcount("repair_bytes_shipped", len(raw))
         return {"data": raw,
-                "xattrs": {SIZE_XATTR: str(size).encode(),
+                "xattrs": {**self._user_xattrs(oid, ver),
+                           SIZE_XATTR: str(size).encode(),
                            VER_XATTR: f"{ver[0]},{ver[1]}".encode(),
                            SHARD_XATTR: str(int(shard)).encode(),
                            CRC_XATTR: str(shard_crc(raw)).encode()},
                 "omap": {},
                 "shard": int(shard)}
+
+    def _user_xattrs(self, oid: str, ver) -> dict[str, bytes]:
+        """The object's client-visible xattrs, from this OSD's own shard
+        when it is at the version being rebuilt.  Every shard of an EC
+        object holds them and the primary serves ``getxattr`` from its
+        own, so a rebuilt shard must carry them beside its identity
+        xattrs: a shard moved by an upmap, or backfilled, would otherwise
+        answer ENODATA (a striped file's size read as 0)."""
+        attrs = self.store.getattrs(self.coll, oid)
+        if tuple(ver_decode(attrs.get(VER_XATTR))) != tuple(ver):
+            return {}
+        return {k: v for k, v in attrs.items() if k not in HIDDEN_XATTRS}
 
     # -- regenerating-code repair fragments (pmsr) ---------------------------
     def fragment_of(self, oid: str, lost_shard: int

@@ -523,6 +523,7 @@ class CodecBatcher:
         from ..ops.crc32c_batch import to_uint32
         grp, items = st.grp, st.grp.items
         mode, out, crcs, xor_stats0 = handle
+        # lint: disable=device-path-host-sync -- the one post-launch hop
         out = out.cpu().numpy() if isinstance(out, torch.Tensor) \
             else np.asarray(out)
         if mode == "rmw_host":

@@ -326,6 +326,7 @@ class AppsDrive(ClusterDrive):
         await Image.break_lock(other, "locked")
         new = await Image.open(other, "locked")
         await new.write(0, b"new-owner")
+        # lint: disable=cross-daemon-state -- its own OSDs, one process
         await poll(lambda: all(o.osdmap.is_blocklisted(LOCK_HOLDER)
                                for o in self.cluster.osds
                                if not o.is_stopped()),
@@ -496,6 +497,7 @@ class AppsDrive(ClusterDrive):
                 {"name": SRS_LOCK, "locker": lk["entity"],
                  "cookie": lk["cookie"]}).encode())
         new = await SimpleRADOSStriper(new_io, "db").open()
+        # lint: disable=cross-daemon-state -- its own OSDs, one process
         await poll(lambda: all(o.osdmap.is_blocklisted("client.gone")
                                for o in self.cluster.osds
                                if not o.is_stopped()),

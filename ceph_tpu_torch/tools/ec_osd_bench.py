@@ -122,6 +122,7 @@ async def scrub_pool(cluster, pool_id: int) -> tuple[int, list]:
     for osd in cluster.osds:
         if osd.is_stopped():
             continue
+        # lint: disable=cross-daemon-state -- its own OSDs, one process
         for pgid, pg in sorted(osd.pgs.items()):
             if pgid.startswith(f"{pool_id}.") and pg.is_primary():
                 res = await scrub_ec(pg)
@@ -322,6 +323,7 @@ class ClusterDrive:
 
     def pick_victim(self, oid: str) -> int:
         """A shard holder of ``oid`` that is not its primary."""
+        # lint: disable=cross-daemon-state -- its own monitor, one process
         omap = self.cluster.mon.osdmap
         _, ps = omap.object_to_pg(self.pool_id, oid)
         up, acting = omap.pg_to_up_acting(self.pool_id, ps)
@@ -363,7 +365,9 @@ class ClusterDrive:
         await self.cluster.revive_osd(index, token)
         if not await self.cluster.wait_up(self.victim, timeout):
             raise RuntimeError(f"osd.{self.victim} never came back up")
+        # lint: disable=cross-daemon-state -- its own monitor, one process
         epoch = self.cluster.mon.osdmap.epoch
+        # lint: disable=cross-daemon-state -- its own OSDs, one process
         await poll(lambda: all(o.osdmap.epoch >= epoch
                                for o in self.cluster.osds), timeout,
                    "maps to settle after the revive")

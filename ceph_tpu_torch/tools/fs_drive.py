@@ -431,10 +431,12 @@ class FsDrive(ClusterDrive):
                 if labels else name
             return samples.get(key)
 
+        # lint: disable=cross-daemon-state -- its own monitor, one process
         osds = [f"osd.{o}" for o in sorted(self.cluster.mon.osdmap.osds)]
         self._check("mgr_osds", all(
             sample("ceph_osd_up", ceph_daemon=d) == "1"
             and sample("ceph_osd_in", ceph_daemon=d) == "1" for d in osds))
+        # lint: disable=cross-daemon-state -- its own monitor, one process
         mon = self.cluster.mon.osdmap
         self._check("mgr_pools", all(
             sample("ceph_pool_pg_num", pool=p) == str(

@@ -105,6 +105,7 @@ def main(argv: list[str] | None = None) -> int:
         names[label] = f"gf2_matmul_k2v{i}"
         _build.add_generated(names[label], text)
     _build.build(list(names.values()))
+    # lint: disable=kernel-build-once -- each variant loaded once
     libs = {label: _load(name) for label, name in names.items()}
 
     dev = torch.device("cuda", torch.cuda.current_device())

@@ -234,6 +234,7 @@ class StageCounts:
         from ..mon.pg_mapping import BUILDS
         from ..osd.pg import DUP_REQIDS
         return {"k5": LAUNCHES["crush_map_rule"], "tables": BUILDS["tables"],
+                # lint: disable=cross-daemon-state -- its own monitor, one process
                 "epochs": cluster.mon.osdmap.epoch if cluster else 0,
                 **{f"resend_{k}": RESENDS[k] for k in RESEND_CAUSES},
                 **{f"dup_{k}": DUP_REQIDS[k]

@@ -506,6 +506,7 @@ VSTART = dict(n_osds=12, k=8, m=3, pg_num=32, objects=16, more=8,
               rbd_size="64M", rbd_total="256K", s3_bytes=8 << 20)
 VSTART_ORACLE_SAMPLE = 8         # objects whose every shard the host checks
 VSTART_TIMEOUT = 120.0           # seconds any one wait of 13b may take
+VSTART_OFFLINE_S = 5.0           # 13b's offline replay and mapping, at most
 APPS_SUBPHASE = {"boot": "12a", "12a write and read": "12a",
                  "12a sequential 4K": "12a", "12a random 4K": "12a",
                  "12a cached 4K": "12a", "12d put, get, multipart": "12d",
@@ -1838,11 +1839,14 @@ def table_cluster(pg_nums: tuple, seed: int, temps: int | None = None,
     pick = rng.permutation(n)
     down = pick[:int(n * TABLE_DOWN)]
     for o in down:
+        # lint: disable=cross-daemon-state -- m: an OSDMap being built
         m.osds[int(o)].up = False
     for o in pick[int(n * TABLE_DOWN):int(n * (TABLE_DOWN + TABLE_REWEIGHTED))]:
+        # lint: disable=cross-daemon-state -- m: an OSDMap being built
         m.osds[int(o)].weight = 0x8000
     out_host = int(rng.integers(0, n // per_host))
     for o in range(out_host * per_host, (out_host + 1) * per_host):
+        # lint: disable=cross-daemon-state -- m: an OSDMap being built
         m.osds[o].in_cluster = False
     for (pid, name, erasure, size, rule), pg_num in zip(TABLE_POOLS, pg_nums):
         m.pools[pid] = PoolSpec(
@@ -3122,17 +3126,20 @@ def pool_shards(cluster, pool_id: int, oid: str) -> dict:
     """(osd, shard label) -> (bytes, CRC tag) of ``oid`` of a pool on every
     live OSD's store of a ``SimCluster``."""
     from ceph_tpu_torch.osd.backend import CRC_XATTR, SHARD_XATTR
+    # lint: disable=cross-daemon-state -- its own monitor, one process
     omap = cluster.mon.osdmap
     _, ps = omap.object_to_pg(pool_id, oid)
     coll = f"pg_{omap.pg_name(pool_id, ps)}"
     out = {}
     for osd in cluster.osds:
-        if osd.is_stopped() or not osd.store.exists(coll, oid):
+        # lint: disable=cross-daemon-state -- its own OSDs, one process
+        store = osd.store
+        if osd.is_stopped() or not store.exists(coll, oid):
             continue
-        label = osd.store.getattr(coll, oid, SHARD_XATTR)
-        crc = osd.store.getattr(coll, oid, CRC_XATTR)
+        label = store.getattr(coll, oid, SHARD_XATTR)
+        crc = store.getattr(coll, oid, CRC_XATTR)
         out[(osd.whoami, int(label))] = (
-            bytes(osd.store.read(coll, oid, 0, None)),
+            bytes(store.read(coll, oid, 0, None)),
             None if crc is None else int(crc))
     return out
 
@@ -3196,6 +3203,7 @@ def cluster_kernels(drive, launched: dict, dev: torch.device) -> dict:
     k, m, chunk = CLUSTER["k"], CLUSTER["m"], CLUSTER_STRIPE_UNIT
     per = CLUSTER["obj_bytes"] // (k * chunk)
     codec = next(pg.backend.codec for osd in drive.cluster.osds
+                 # lint: disable=cross-daemon-state -- its own OSDs, one process
                  for pgid, pg in osd.pgs.items()
                  if pgid.startswith(f"{drive.pool_id}."))
 
@@ -3541,6 +3549,7 @@ def top_launches(shapes: collections.Counter) -> list:
 
 def pool_codec(cluster, pool_id: int):
     return next(pg.backend.codec for osd in cluster.osds
+                # lint: disable=cross-daemon-state -- its own OSDs, one process
                 if not osd.is_stopped() for pgid, pg in osd.pgs.items()
                 if pgid.startswith(f"{pool_id}."))
 
@@ -3569,6 +3578,7 @@ async def harness_oracle(cluster, pool_id: int, oids: list, k: int, m: int,
     checked = 0
     try:
         io = await rados.open_ioctx(
+            # lint: disable=cross-daemon-state -- its own monitor, one process
             cluster.mon.osdmap.pools[pool_id].name)
         for oid in oids:
             data = bytes(await io.read(oid))
@@ -3629,12 +3639,14 @@ def harness_loadgen(dev: torch.device) -> dict:
                  if a["oid"] == op.oid][:1]
         osd = next((o for o in cluster.osds if o.whoami == primary
                     and not o.is_stopped()), None)
+        # lint: disable=hole-sentinel -- osd: a daemon or None
         dump = osd.op_tracker.dump_ops_in_flight() if osd else None
         ops = (dump or {}).get("ops", [])
         mine = [o for o in ops if o.get("oid") == op.oid]
         info = {"class": op.kind, "oid": op.oid, "pgid": pgid,
                 "primary": primary, "attempts": tried[0] if tried else None,
                 "client_epoch": io.objecter.osdmap.epoch,
+                # lint: disable=cross-daemon-state -- its own monitor, one process
                 "mon_epoch": cluster.mon.osdmap.epoch,
                 "primary_ops_in_flight": (dump or {}).get("num_ops"),
                 "on_its_pg": sum(o.get("pgid") == pgid for o in ops),
@@ -3652,6 +3664,7 @@ def harness_loadgen(dev: torch.device) -> dict:
             return
         marks.mark("settle")
         out["mark_downs"] = mark_downs(cluster)
+        # lint: disable=cross-daemon-state -- its own monitor, one process
         pool_id = cluster.mon.osdmap.pool_names[spec.pool]
         t0 = time.perf_counter()
         out["scrub"] = await scrub_pool(cluster, pool_id)
@@ -3797,6 +3810,7 @@ def harness_recovery(dev: torch.device) -> dict:
         seen: dict = {}
 
         async def on_stage(stage, c, result):
+            # lint: disable=cross-daemon-state -- its own monitor, one process
             pool_id = c.mon.osdmap.pool_names["recpool"]
             seen["codec"] = pool_codec(c, pool_id)
             seen["shapes"] = batcher_shapes(c.osds)
@@ -4102,6 +4116,7 @@ def pool_k5(cluster, pool_id: int, dev: torch.device, label: str) -> dict:
     """K5 at a pool's table against its plain version, and the card's
     table against the CPU's; CUDA events."""
     from ceph_tpu_torch.mon import pg_mapping as pgm
+    # lint: disable=cross-daemon-state -- its own monitor, one process
     omap = cluster.mon.osdmap
     pool = omap.pools[pool_id]
     weights = omap.osd_weights()
@@ -4257,6 +4272,7 @@ def phase_apps(dev: torch.device) -> dict:
         crcs = [apps_crc("12 encode", enc_key[1][0] * (drive.k + drive.m),
                          dev, SEED + 130)]
         placement = [pool_k5(drive.cluster, drive.pool_id, dev, "apps"),
+                     # lint: disable=cross-daemon-state -- its own monitor, one process
                      pool_k5(drive.cluster, drive.cluster.mon.osdmap
                              .pool_names["rbd"], dev, "apps")]
     finally:
@@ -4461,6 +4477,7 @@ def phase_fs(dev: torch.device, loop, beside) -> dict:
                          if kn[0][0] == "encode"]
         crcs = [apps_crc("13a encode", enc_key[1][0] * (drive.k + drive.m),
                          dev, SEED + 150, phase="fs")]
+        # lint: disable=cross-daemon-state -- its own monitor, one process
         omap = drive.cluster.mon.osdmap
         placement = [pool_k5(drive.cluster, omap.pool_names[p], dev, "fs")
                      for p in (drive.pool, "cephfs_metadata")]
@@ -4886,10 +4903,29 @@ def phase_vstart(vc: VstartCluster, booting, loop) -> dict:
         for i, whoami in rep["whoami_by_index"].items():
             by_process[f"osd.{whoami}"] = await launches_of(f"osd.{i}")
         rep["launches_by_process"] = by_process
+        rep["at_stop"] = await map_at_stop(rados, "ec83")
         rep["oracle"] = {"pool_id": pool_id, "objects": src_objs,
                          "pgs": {n: omap().pg_name(
                              pool_id, omap().object_to_pg(pool_id, n)[1])
                              for n in src_objs}}
+
+    async def map_at_stop(rados, pool: str) -> dict:
+        """The monitor's ``osd dump`` (epoch E) and the client's up set of
+        every PG of ``pool`` in its own map at E, read once the two agree
+        on E."""
+        omap = lambda: rados.objecter.osdmap  # noqa: E731
+        for _ in range(10):
+            dump = await rados.mon_command("osd dump", {})
+            await poll_until(lambda: omap().epoch >= dump["epoch"],
+                             f"the client's map at epoch {dump['epoch']}")
+            m = omap()
+            if m.epoch == dump["epoch"]:
+                pid = m.pool_names[pool]
+                return {"dump": dump, "pool_id": pid, "up": [
+                    m.pg_to_up_acting(pid, ps)[0]
+                    for ps in range(m.pools[pid].pg_num)]}
+        raise RuntimeError("vstart: the monitor's map kept moving past the "
+                           "client's")
 
     async def poll_until(cond, what: str) -> None:
         deadline = time.monotonic() + VSTART_TIMEOUT
@@ -4906,6 +4942,7 @@ def phase_vstart(vc: VstartCluster, booting, loop) -> dict:
     if any(rc != 0 for rc in rcs.values()):
         raise RuntimeError(f"vstart: daemons' exit codes on SIGTERM {rcs}")
     checked = vstart_shards(rep, store)
+    offline = vstart_offline(rep.pop("at_stop"), store, tmp, dev)
     secs = time.perf_counter() - t0
     daemons_sum: dict[str, int] = {}
     for counts in rep["launches_by_process"].values():
@@ -4952,9 +4989,98 @@ def phase_vstart(vc: VstartCluster, booting, loop) -> dict:
         f"mark-downs {rep['mark_downs']}; every daemon exited 0 on SIGTERM;"
         f" {checked} shards of {VSTART_ORACLE_SAMPLE} sampled objects on "
         f"the BlockStores == the host encode, tags == the host engine")
+    log(f"[{card}] 13b offline, the monitor's store after every daemon "
+        f"exited: monstore_tool dump-versions ({offline['versions']} "
+        f"versions) and get-osdmap (epoch {offline['final_epoch']}; epochs "
+        f"the shutdown committed after the client's last "
+        f"{offline['later_epochs']}); the incrementals replayed by "
+        f"get-version up to epoch {offline['epoch']} == that epoch's osd "
+        f"dump; osdmaptool --test-map-pgs --device {dev.type} on the "
+        f"replayed map ({offline['pg_count']}) gave all "
+        f"{offline['pool_pgs']} ec83 PGs the client's up set at that epoch, "
+        f"K5 launches {offline['k5_launches']}; in "
+        f"{offline['seconds']:.3f} s (host clock, at most "
+        f"{VSTART_OFFLINE_S:.0f} s)")
     rep.pop("oracle")
+    rep["offline"] = offline
+    launches["crush_map_rule"] = launches.get("crush_map_rule", 0) + \
+        offline["k5_launches"]
     return {"launches": launches, "seconds": secs, "card": card,
             "shards_checked": checked, "report": rep}
+
+
+def tool_output(main, *args) -> str:
+    """An offline tool's standard output (of ``main(*args)``); a non-zero
+    exit raises."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(*args)
+    if rc:
+        raise RuntimeError(f"vstart: {main.__module__} {args} exited {rc}")
+    return buf.getvalue()
+
+
+def vstart_offline(at_stop: dict, store: str, tmp: str,
+                   dev: torch.device) -> dict:
+    """13b's offline hook, on the monitor's store once every daemon has
+    exited: ``monstore_tool`` dumps its versions and replays its log
+    (``get-osdmap``); the incrementals read one by one with
+    ``get-version`` and applied up to the epoch E recorded before the stop
+    must rebuild E's ``osd dump`` exactly; that map, written to a file and
+    mapped by ``osdmaptool --test-map-pgs`` on ``dev`` (K5 on the card),
+    must give every PG of the pool the up set the client held at E.  The
+    final replayed map is compared with E's dump only when the shutdown
+    committed no epoch after E.  A mismatch, no K5 launch on the card, or
+    more than ``VSTART_OFFLINE_S`` seconds raises."""
+    from ceph_tpu_torch.mon.osdmap import Incremental, OSDMap
+    from ceph_tpu_torch.tools import monstore_tool, osdmaptool
+    t0, before = time.perf_counter(), launch_counts()
+    dump, epoch = at_stop["dump"], at_stop["dump"]["epoch"]
+    plain = lambda d: json.loads(json.dumps(d))  # noqa: E731
+    db = os.path.join(store, "mon.db")
+    versions = [int(line.split()[1]) for line in tool_output(
+        monstore_tool.main, [db, "dump-versions"]).splitlines()
+        if line.startswith("version ")]
+    final = json.loads(tool_output(monstore_tool.main, [db, "get-osdmap"]))
+    m, later = OSDMap(device="cpu"), []
+    for v in versions:
+        inc = Incremental.from_dict(json.loads(tool_output(
+            monstore_tool.main, [db, "get-version", str(v)])))
+        if inc.epoch > epoch:
+            later.append(inc.epoch)
+        else:
+            m.apply_incremental(inc)
+    if m.epoch != epoch or plain(m.to_dict()) != plain(dump):
+        raise RuntimeError(f"vstart: the monitor's store replayed to epoch "
+                           f"{m.epoch} differs from epoch {epoch}'s osd dump")
+    if final["epoch"] != (later[-1] if later else epoch) or (
+            not later and plain(final) != plain(dump)):
+        raise RuntimeError(f"vstart: get-osdmap gave epoch "
+                           f"{final['epoch']}, the incrementals {epoch} "
+                           f"then {later}")
+    path = os.path.join(tmp, "replayed-osdmap.json")
+    with open(path, "w") as f:
+        json.dump(m.to_dict(), f)
+    # osdmaptool --test-map-pgs --device DEV, its map kept to read the PGs
+    mapped = osdmaptool.load_map(path, device=dev.type)
+    printed = tool_output(osdmaptool.cmd_test_map_pgs, mapped, None)
+    pid, want = at_stop["pool_id"], at_stop["up"]
+    got = [mapped.pg_to_up_acting(pid, ps)[0] for ps in range(len(want))]
+    wrong = [ps for ps, (g, w) in enumerate(zip(got, want)) if g != w]
+    if wrong or len(want) != mapped.pools[pid].pg_num:
+        raise RuntimeError(f"vstart: the replayed map maps PGs {wrong} of "
+                           f"pool {pid} off the client's up sets")
+    k5 = launch_counts()["crush_map_rule"] - before["crush_map_rule"]
+    secs = time.perf_counter() - t0
+    if (dev.type == "cuda" and k5 < 1) or secs > VSTART_OFFLINE_S:
+        raise RuntimeError(f"vstart: the offline hook launched K5 {k5} "
+                           f"times in {secs:.2f} s")
+    return {"versions": len(versions), "epoch": epoch,
+            "final_epoch": final["epoch"], "later_epochs": later,
+            "pg_count": printed.splitlines()[0], "pool_pgs": len(want),
+            "k5_launches": k5, "seconds": secs}
 
 
 def vstart_shards(rep: dict, store: str) -> int:

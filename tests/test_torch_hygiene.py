@@ -118,3 +118,50 @@ def test_the_host_ec_plugins_have_their_port():
     for name in ("cuda", "isa", "lrc", "pmsr", "jerasure", "shec", "clay",
                  "example"):
         assert reg.load(name) is reg.get(name)
+
+
+OFFLINE_AND_ANALYSIS = (
+    "tools/dencoder.py", "tools/monstore_tool.py", "tools/objectstore_tool.py",
+    "analysis/__init__.py", "analysis/astutil.py", "analysis/callgraph.py",
+    "analysis/core.py", "analysis/project.py", "analysis/registry.py",
+    "analysis/seam_report.py", "analysis/checkers/__init__.py",
+    *(f"analysis/checkers/{name}.py" for name in (
+        "await_snapshot", "await_under_lock", "blocking_under_lock",
+        "config_schema", "counter_coverage", "cross_daemon_state",
+        "denc_symmetry", "device_path", "donated_aliasing", "dropped_task",
+        "hole_sentinel", "hot_config", "jit_stability", "lock_order",
+        "perf_coherence", "tracer_safety", "wire_safety", "x64_scope")))
+
+
+def test_the_offline_tools_and_analysis_have_their_port():
+    """The offline tools and the static analysis of ceph_tpu have their
+    counterparts in the port, whose imports the checks above cover; the
+    port's lint has its own front end and an empty baseline beside it."""
+    missing = [rel for rel in OFFLINE_AND_ANALYSIS if not (PORT / rel).is_file()
+               or not (ROOT / "ceph_tpu" / rel).is_file()]
+    assert not missing, missing
+    assert (PORT / "tools" / "lint.py").is_file()
+    baseline = (PORT / "tools" / "lint_baseline.txt").read_text().splitlines()
+    assert all(not line.strip() or line.startswith("#") for line in baseline)
+    from ceph_tpu_torch import analysis
+    from ceph_tpu_torch.tools import dencoder
+    assert {"PGInfo", "LogEntry", "WireMessage"} <= set(dencoder.TYPES)
+    assert len(analysis.get_checkers()) + len(analysis.omitted()) == 18
+
+
+# the JAX package's entry points, and their counterparts named for the card
+RENAMED = {"ops/jax_backend.py": "ops/torch_backend.py",
+           "ec/plugins/tpu.py": "ec/plugins/cuda.py"}
+
+
+def test_every_module_of_ceph_tpu_has_its_port():
+    """Each ``.py`` file of ceph_tpu has a file of the same path in the
+    port, but for the two entry points named for the card, whose
+    counterparts stand under their own names."""
+    ref = ROOT / "ceph_tpu"
+    missing = [str(rel) for rel in (p.relative_to(ref)
+                                    for p in sorted(ref.rglob("*.py")))
+               if not (PORT / RENAMED.get(rel.as_posix(), rel)).is_file()]
+    assert not missing, missing
+    assert all((ref / rel).is_file() and (PORT / new).is_file()
+               for rel, new in RENAMED.items())

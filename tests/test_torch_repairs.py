@@ -1,4 +1,4 @@
-"""Ten faults the port repairs where ``ceph_tpu`` keeps them (deliberate
+"""Eleven faults the port repairs where ``ceph_tpu`` keeps them (deliberate
 differences from the reference):
 
 1. the OSD's blocklist fence names the client instance by its connection
@@ -51,6 +51,14 @@ And one the traffic harness's slow hosts showed:
     running only by waiting for that copy's result.  The reference
     resends every 5 s and queues each copy behind the same PG lock, the
     resend storm that wedged 11a's ops on slow hosts.
+
+And one CephFS's drive found through the mgr's balancer:
+
+11. an EC shard rebuilt by recovery or backfill carries the object's user
+    xattrs beside its identity xattrs: a shard an upmap moves to another
+    OSD no longer loses them (the reference pushes the identity xattrs
+    only, so a moved primary answers ENODATA and a striped file's size
+    reads 0).
 
 The map-change stall (the shared table, one upload of the weights, one
 copy back a build) has its own file, ``test_torch_map_change.py``.
@@ -593,3 +601,56 @@ def test_a_busy_pg_runs_each_op_once(sender):
                 await o.stop()
             await mon.stop()
     run(main())
+
+
+# -- 11: a rebuilt EC shard keeps the object's user xattrs --------------------
+
+def test_an_upmapped_ec_shard_keeps_the_user_xattrs():
+    """An EC 2+1 object with a user xattr; an upmap moves its primary
+    shard to the fourth OSD, which rebuilds it from the others.  The new
+    holder stores the xattr beside the identity ones, and the client reads
+    it (served by the new primary) and the object back."""
+    async def main():
+        mon = Monitor(rank=0, config={"mon_osd_min_down_reporters": 1},
+                      device="cpu")
+        addr = await mon.start()
+        mon.peer_addrs = [addr]
+        osds = []
+        for i in range(4):
+            osd = OSD(host=f"h{i}", device="cpu")
+            await osd.start(addr)
+            osds.append(osd)
+        rados = await Rados(addr, device="cpu").connect()
+        try:
+            await rados.mon_command("osd erasure-code-profile set", {
+                "name": "ec21", "profile": {"plugin": "cuda", "k": "2",
+                                            "m": "1"}})
+            await rados.pool_create("ec", pg_num=1, pool_type="erasure",
+                                    erasure_code_profile="ec21")
+            io = await rados.open_ioctx("ec")
+            await io.write_full("obj", b"x" * 10000)
+            await io.set_xattr("obj", "striper.size", b"10000")
+            omap = mon.osdmap
+            pool_id = omap.pool_names["ec"]
+            pgid = omap.pg_name(pool_id, 0)
+            acting = omap.pg_to_up_acting_osds(pool_id, 0)
+            spare = next(o.whoami for o in osds if o.whoami not in acting)
+            await rados.mon_command("osd pg-upmap-items", {
+                "pgid": pgid, "mappings": [[acting[0], spare]]})
+            await _wait(lambda: mon.osdmap.pg_to_up_acting_osds(
+                pool_id, 0)[0] == spare)
+            new = next(o for o in osds if o.whoami == spare)
+            coll = f"pg_{pgid}"
+            await _wait(lambda: new.store.exists(coll, "obj")
+                        and not any(o.has_pending_recovery() for o in osds),
+                        timeout=40)
+            assert new.store.getattr(coll, "obj", "striper.size") == b"10000"
+            assert await io.get_xattr("obj", "striper.size") == b"10000"
+            assert await io.read("obj") == b"x" * 10000
+        finally:
+            await rados.shutdown()
+            for o in osds:
+                await o.stop()
+            await mon.stop()
+
+    run(asyncio.wait_for(main(), 120))

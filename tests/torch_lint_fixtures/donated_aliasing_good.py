@@ -1,0 +1,14 @@
+import torch
+
+
+class MeshCodec:
+    def rmw(self, codec, old_parity, delta, out_np=True):
+        old = old_parity.to("cuda")
+        old.bitwise_xor_(delta)
+        return old
+
+
+def update(mesh, codec, old: torch.Tensor, delta):
+    before = old.sum()             # read before the launch
+    old = mesh.rmw(codec, old, delta, out_np=False)
+    return old, before
